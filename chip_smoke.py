@@ -5,19 +5,29 @@
 Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build the CUDA kernels from ops/cuda/csrc (nvcc, sm_90a);
-3. each warp kernel against its plain PyTorch version at the main path's
-   shapes (bit equality), with the kernel's and the plain version's times
-   and the least time the card could take;
+2. build the CUDA kernels from ops/cuda/csrc (nvcc, sm_90a), one nvcc per
+   source, all started together;
+3. each kernel against its plain PyTorch version at the shapes its path
+   gives it, with the kernel's and the plain version's times and the least
+   time the card could take: the warp kernels bit-equal; the noise kernels'
+   Philox words bit-equal, their outputs within one ulp (share of differing
+   elements stated), ratio 0 exactly the normalisation, and the noise's
+   moments, bound, cross-sample correlation and determinism;
 4. a small-input reference: one fp32 train step at 64^2 on the GPU against
    the same step on the CPU (plain versions), from the same weights and
    the same injected randomness;
 5. the main path: the denoiser trainer at the width of
    configs/denoiser.yml (resnet34 U-Net, batch 16, bf16) at 448^2, whose
-   auto warp route is the fused kernel: 3 warm-up and 30 timed steps, then
-   one eval-mode forward and a profile of 3 more steps;
+   auto warp route is the fused kernel and whose noise stage is the fp32
+   noise kernel: 3 warm-up and 30 timed steps, then one eval-mode forward
+   and a profile of 3 more steps;
 6. the two-pass route: the same trainer at 640^2, batch 4 (auto routes
-   sizes above 512^2 to the two-pass kernel), 2 warm-up and 10 timed steps.
+   sizes above 512^2 to the two-pass kernel), 2 warm-up and 10 timed steps;
+7. the balancer: configs/balance.yml's width (resnet34, batch 12, bf16,
+   lr 0.01, ratio 0.7, 10 classes) at 448^2: 3 warm-up and 20 timed train
+   steps through the uint8 noise kernel, a profile of 3 more, then the
+   scoring pass over 50 images (5 batches, the last padded from 2 to 12),
+   difficulty classes, and the balanced manifest written and read back.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Every launch count is the count from the
@@ -32,7 +42,9 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -41,17 +53,38 @@ import torch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
+# int32 outside the tensor cores: 64 of an SM's 128 lanes a clock, so half
+# the fp32 rate (the data sheet lists no int32 figure).
+INT32_OPS_PER_S = 33.5e12
 # fp32 operations one resample pass needs per output element: two residual
 # taps (hat weight: 5 operations each, multiply-add: 2 each) and one
 # band-matrix column (source position and its floor: 4; two taps of hat
 # weight, bf16 rounding, product and sum: 8 each).
 OPS_PER_PASS_ELEMENT = 34
+# Operations of one noise-blend element, each counted once (a
+# transcendental as one): int32, Philox4x32-10's 10 rounds of 2 low and 2
+# high multiplies, 4 xors and 2 key adds per group of 4 (25) and the shift
+# of the uniform (1); fp32, the uniform's convert, multiply and add (3),
+# Box-Muller's log, two products, sqrt, cos and sin per pair (4 an element)
+# and the blend's two products and sum (3), plus the uint8 kernel's
+# subtract and divide (2).
+NOISE_INT_OPS = 26
+NOISE_FP_OPS = {"fused_normalise_noise_blend": 12, "fused_noise_blend": 10}
 REPO = "denoising_diffusion_deep_fake_tpu"
-SOURCE = "denoising_diffusion_deep_fake_tpu_torch/ops/cuda/csrc/warp.cu"
-REPLACES = {
-    "affine_warp_fused": f"{REPO}/ops/pallas/warp_fused.py:140",
-    "warp_axis_pass": f"{REPO}/ops/pallas/warp_kernel.py:126",
+CSRC = "denoising_diffusion_deep_fake_tpu_torch/ops/cuda/csrc"
+KERNELS = {  # wrapper: (source, TPU kernel, device function in a profile)
+    "affine_warp_fused": ("warp.cu", "ops/pallas/warp_fused.py:140",
+                          "warp_pass_kernel"),
+    "warp_axis_pass": ("warp.cu", "ops/pallas/warp_kernel.py:126",
+                       "warp_pass_kernel"),
+    "fused_normalise_noise_blend": ("noise.cu",
+                                    "ops/pallas/noise_kernel.py:128",
+                                    "normalise_noise_blend_u8_kernel"),
+    "fused_noise_blend": ("noise.cu", "ops/pallas/noise_kernel.py:171",
+                          "noise_blend_f32_kernel"),
 }
+IMAGENET = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+HALF = ((0.5,) * 3, (0.5,) * 3)
 
 
 def log(msg: str) -> None:
@@ -91,9 +124,10 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float, n_int_ops: float = 0.0
+          ) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = (n_ops / FP32_OPS_PER_S + n_int_ops / INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -108,6 +142,145 @@ def compare(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     check(torch.isfinite(got).all().item(), f"{what}: non-finite output")
     check(max_err == 0.0, f"{what}: kernel disagrees with its plain version")
     return max_err
+
+
+def compare_ulp(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Noise kernel vs plain version: within one ulp of the plain value
+    (CUDA's logf/sinf/cosf against PyTorch's CUDA log/sin/cos)."""
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    ulp = torch.nextafter(want.abs(), torch.full_like(want, math.inf)) \
+        - want.abs()
+    max_err = float(diff.max())
+    share = float((diff > 0).float().mean())
+    log(f"  {what}: max|kernel - plain| {max_err:.3e}, differing share "
+        f"{share:.3e}, max in ulps {float((diff / ulp).max()):.2f}")
+    check(torch.isfinite(got).all().item(), f"{what}: non-finite output")
+    check(bool((diff <= ulp).all()), f"{what}: kernel more than one ulp "
+          "from its plain version")
+    return max_err
+
+
+def noise_stats(eps: torch.Tensor, what: str) -> None:
+    """Ratio-1 output = the noise itself: moments, bound, correlation."""
+    mean, var = float(eps.mean()), float(eps.var())
+    peak = float(eps.abs().max())
+    corr = float(torch.corrcoef(eps[:2].reshape(2, -1))[0, 1])
+    log(f"  {what} noise: mean {mean:.2e}, var - 1 {var - 1:.2e}, max|e| "
+        f"{peak:.4f}, corr(sample 0, sample 1) {corr:.2e}")
+    check(abs(mean) < 0.005 and abs(var - 1) < 0.005 and peak <= 5.9
+          and abs(corr) < 0.01, f"{what}: noise statistics out of range")
+
+
+def noise_checks(dev) -> dict:
+    """Phase 3, noise kernels: uint8 448^2 x 12 (the balancer) and fp32
+    448^2 x 16 (the denoiser's noise stage)."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import (
+        noise_kernel as nk)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.noise import blend_noise
+
+    rng = np.random.default_rng(SEED + 3)
+    results = {}
+    seed, offset = 12345, 7
+
+    # uint8: both mean/std pairs, per-sample ratios across [0, 1].
+    b, h, w, c = 12, 448, 448, 3
+    n = b * h * w * c
+    u8 = torch.from_numpy(rng.integers(0, 256, (b, h, w, c),
+                                       np.uint8)).to(dev)
+    words = nk.philox_words((n + 3) // 4, seed=seed, offset=offset,
+                            device=dev)
+    check(torch.equal(words, nk.philox_words_plain(
+        (n + 3) // 4, seed=seed, offset=offset, device=dev)),
+        "Philox words differ from the plain version")
+    log(f"  Philox words of {(n + 3) // 4} groups: bit-equal")
+    ratios = torch.linspace(0, 1, b, device=dev)
+    errs = []
+    for mean, std in (HALF, IMAGENET):
+        norm = nk.noise_constants(mean, std, c)
+        got = nk.fused_normalise_noise_blend(u8, ratios, mean, std,
+                                             seed=seed, offset=offset)
+        want = nk.fused_normalise_noise_blend_plain(u8, ratios, norm,
+                                                    seed=seed, offset=offset)
+        errs.append(compare_ulp(got, want, f"u8 448^2 x12 mean={mean}"))
+        zero = nk.fused_normalise_noise_blend(
+            u8, torch.zeros(b, device=dev), mean, std, seed=seed)
+        m255 = torch.tensor(norm[:c], device=dev)
+        s255 = torch.tensor(norm[c:], device=dev)
+        check(torch.equal(zero, (u8.float() - m255) / s255),
+              "ratio 0 is not exactly the normalisation")
+    ones = torch.ones(b, device=dev)
+    eps = nk.fused_normalise_noise_blend(u8, ones, *HALF, seed=seed,
+                                         offset=offset)
+    noise_stats(eps, "u8 448^2 x12")
+    check(torch.equal(eps, nk.fused_normalise_noise_blend(
+        u8, ones, *HALF, seed=seed, offset=offset)), "not deterministic")
+    other = nk.fused_normalise_noise_blend(u8, ones, *HALF, seed=seed,
+                                           offset=offset + 1)
+    check(float((other != eps).float().mean()) > 0.99,
+          "another offset gives the same noise")
+    # Timed with a preallocated output, so the host's launch rate stays
+    # below the kernel's; the wrapper (allocation included) beside it.
+    norm = nk.noise_constants(*HALF, c)
+    out = torch.empty(u8.shape, dtype=torch.float32, device=dev)
+    ms = time_ms(lambda: nk.launch_blend(u8, out, ones, norm, seed=seed,
+                                         offset=offset), 50)
+    wrapper_ms = time_ms(lambda: nk.fused_normalise_noise_blend(
+        u8, ones, *HALF, seed=seed, offset=offset), 50)
+    plain_ms = time_ms(lambda: nk.fused_normalise_noise_blend_plain(
+        u8, ones, norm, seed=seed, offset=offset), 3, warmup=1)
+    bound_ms, bound_by = bound(
+        n * (1 + 4) + 4 * b, n * NOISE_FP_OPS["fused_normalise_noise_blend"],
+        n * NOISE_INT_OPS)
+    log(f"  u8 448^2 x12: kernel {ms:.4f} ms (wrapper {wrapper_ms:.4f} ms), "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
+        f"({bound_by})")
+    results["fused_normalise_noise_blend"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by)
+
+    # fp32: the denoiser's noise stage after the warp.
+    b = 16
+    n = b * h * w * c
+    x = torch.randn((b, h, w, c), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    ratios = torch.rand(b, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(7))
+    got = nk.fused_noise_blend(x, ratios, seed=seed, offset=offset)
+    err = compare_ulp(got, nk.fused_noise_blend_plain(
+        x, ratios, seed=seed, offset=offset), "f32 448^2 x16")
+    check(torch.equal(nk.fused_noise_blend(x, torch.zeros(b, device=dev),
+                                           seed=seed), x),
+          "ratio 0 is not the identity")
+    zeros, ones = torch.zeros_like(x), torch.ones(b, device=dev)
+    eps = nk.fused_noise_blend(zeros, ones, seed=seed, offset=offset)
+    noise_stats(eps, "f32 448^2 x16")
+    check(torch.equal(eps, nk.fused_noise_blend(zeros, ones, seed=seed,
+                                                offset=offset)),
+          "not deterministic")
+    out = torch.empty_like(x)
+    ms = time_ms(lambda: nk.launch_blend(x, out, ratios, None, seed=seed,
+                                         offset=offset), 50)
+    wrapper_ms = time_ms(lambda: nk.fused_noise_blend(
+        x, ratios, seed=seed, offset=offset), 50)
+    plain_ms = time_ms(lambda: nk.fused_noise_blend_plain(
+        x, ratios, seed=seed, offset=offset), 3, warmup=1)
+    # The stage it replaces on the denoiser path: torch.randn, then
+    # blend_noise (PyTorch elementwise launches).
+    gen = torch.Generator(device=dev).manual_seed(8)
+    r4 = ratios.reshape(b, 1, 1, 1)
+    before_ms = time_ms(lambda: blend_noise(
+        x, torch.randn(x.shape, generator=gen, device=dev), r4), 50)
+    bound_ms, bound_by = bound(n * (4 + 4) + 4 * b,
+                               n * NOISE_FP_OPS["fused_noise_blend"],
+                               n * NOISE_INT_OPS)
+    log(f"  f32 448^2 x16: kernel {ms:.4f} ms (wrapper {wrapper_ms:.4f} "
+        f"ms), plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}); the PyTorch stage it "
+        f"replaces (torch.randn + blend_noise) {before_ms:.4f} ms")
+    results["fused_noise_blend"] = dict(max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms, bound_ms=bound_ms,
+                                        bound_by=bound_by)
+    return results
 
 
 def random_params(b: int, seed: int, device) -> dict:
@@ -250,11 +423,10 @@ def small_reference(dev) -> None:
           "the GPU step disagrees with the CPU reference")
 
 
-def drive(dev, launches, card: str, *, size: int, batch: int, warmup: int,
-          steps: int, kernel: str) -> dict:
-    """Phases 5 and 6: train steps through the entry points, counted."""
-    trainer = make_trainer(dev, encoder="resnet34", batch=batch, size=size,
-                           dtype="bfloat16")
+def drive(dev, launches, card: str, trainer, *, size: int, batch: int,
+          warmup: int, steps: int, per_step: dict) -> dict:
+    """Phases 5 to 7: train steps through the entry points, counted;
+    ``per_step`` holds the launches each kernel wrapper must make a step."""
     state = trainer.init_state(seed=SEED)
     rng = np.random.default_rng(SEED)
     batches = [torch.from_numpy(rng.integers(
@@ -283,7 +455,8 @@ def drive(dev, launches, card: str, *, size: int, batch: int, warmup: int,
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
     counts = dict(launches)
-    per_step = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    step_times = sorted(a.elapsed_time(b)
+                        for a, b in zip(events, events[1:]))
 
     losses = [float(v) for v in losses]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -291,27 +464,29 @@ def drive(dev, launches, card: str, *, size: int, batch: int, warmup: int,
         f"{[round(v, 5) for v in losses]}")
     log(f"  {size}^2 x{batch}: {step_ms:.3f} ms/step (host clock, mean of "
         f"{steps}), {batch / step_ms * 1e3:.1f} imgs/s; per-step device "
-        f"timeline median {per_step[len(per_step) // 2]:.3f} ms, min "
-        f"{per_step[0]:.3f}, max {per_step[-1]:.3f}; peak memory "
+        f"timeline median {step_times[len(step_times) // 2]:.3f} ms, "
+        f"min {step_times[0]:.3f}, max {step_times[-1]:.3f}; peak memory "
         f"{peak_gb:.2f} GB [{card}]")
     log(f"  launches: {counts}")
     check(all(math.isfinite(v) for v in losses), "non-finite loss")
     n_steps = warmup + steps
-    per_step = 1 if kernel == "affine_warp_fused" else 2
-    check(counts.get(kernel, 0) == per_step * n_steps,
-          f"{kernel} launched {counts.get(kernel, 0)} times in {n_steps} "
-          "steps")
+    for kernel in KERNELS:
+        want = per_step.get(kernel, 0) * n_steps
+        check(counts.get(kernel, 0) == want,
+              f"{kernel} launched {counts.get(kernel, 0)} times in "
+              f"{n_steps} steps, not {want}")
     check(not torch.equal(before, probe.detach()), "params did not change")
     return dict(trainer=trainer, state=state, counts=counts,
-                step_ms=step_ms, batch=batch)
+                step_ms=step_ms, batch=batch, size=size)
 
 
-def profile_steps(run: dict, dev, path: Path | None) -> None:
-    """Device time by kernel over 2 more steps of the main path."""
+def profile_steps(run: dict, dev, path: Path | None) -> dict:
+    """Device time by kernel over 3 more steps of a path; returns the port's
+    kernels' time per step by device function."""
     from torch.profiler import ProfilerActivity, profile
 
-    trainer, state = run["trainer"], run["state"]
-    u8 = torch.randint(0, 256, (run["batch"], 448, 448, 3),
+    trainer, state, size = run["trainer"], run["state"], run["size"]
+    u8 = torch.randint(0, 256, (run["batch"], size, size, 3),
                        dtype=torch.uint8, device=dev)
     trainer.train_step(state, u8)
     torch.cuda.synchronize()
@@ -332,19 +507,83 @@ def profile_steps(run: dict, dev, path: Path | None) -> None:
     kernels = [e for e in averages
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 3e3
-    warp_ms = sum(e.self_device_time_total for e in kernels
-                  if "warp_pass_kernel" in e.key) / 3e3
+    port_ms = {fn: sum(e.self_device_time_total for e in kernels
+                       if fn in e.key) / 3e3
+               for fn in sorted({k[2] for k in KERNELS.values()})}
     if busy_ms > 0:
         share = busy_ms / run["step_ms"]
         log(f"  profile of 3 steps ({window_ms / 3:.3f} "
             f"ms/step under the profiler): kernels {busy_ms:.3f} ms per step"
             f", {share:.1%} of the unprofiled {run['step_ms']:.3f} ms step "
-            f"(device idle {1 - share:.1%}); warp kernels {warp_ms:.3f} ms "
-            f"per step ({warp_ms / busy_ms:.2%} of device time)")
+            f"(device idle {1 - share:.1%})")
+        for fn, ms in port_ms.items():
+            log(f"    {fn}: {ms:.4f} ms per step ({ms / busy_ms:.2%} of "
+                "device time)")
     else:
         log("  profiler recorded no device time: busy share not measured")
     for line in table.splitlines()[:24]:
         log("    " + line[:60] + line[100:])
+    return port_ms
+
+
+def make_balancer(device):
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        BalanceConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.training.balance import (
+        BalanceTrainer)
+
+    # The values of configs/balance.yml at the 448^2 image size of
+    # configs/denoise.yml:23.
+    cfg = config_from_dict(BalanceConfig, dict(
+        data_path="synthetic", batch_size=12, learning_rate=0.01,
+        max_epochs=200, encoder_name="resnet34", ratio_of_noise=0.7,
+        number_of_classes=10, mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5),
+        compute_dtype="bfloat16", image_size=448, seed=SEED))
+    return BalanceTrainer(cfg, steps_per_epoch=1000, image_size=448,
+                          device=device)
+
+
+def score_and_write(run: dict, dev, launches) -> None:
+    """Phase 7, after the train steps: score 50 images, bin them, write
+    the balanced manifest and read it back. Launches accumulate on the
+    train steps' counts."""
+    from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
+        read_image_manifest_with_classes)
+    from denoising_diffusion_deep_fake_tpu_torch.training.balance import (
+        compute_difficulty_index, write_balanced_manifest)
+
+    trainer, state = run["trainer"], run["state"]
+    n, bs, size = 50, run["batch"], run["size"]
+    data = torch.from_numpy(np.random.default_rng(SEED + 4).integers(
+        0, 256, (n, size, size, 3), np.uint8)).to(dev)
+    batches = [(data[i:i + bs], np.arange(i, min(i + bs, n)))
+               for i in range(0, n, bs)]
+    before = launches.get("fused_normalise_noise_blend", 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    indices, losses = trainer.score_dataset(state, batches, epoch=0)
+    score_ms = (time.perf_counter() - t0) * 1e3
+    scored = launches.get("fused_normalise_noise_blend", 0) - before
+    classes = compute_difficulty_index(losses, trainer.cfg.number_of_classes)
+    log(f"  scored {n} images in {len(batches)} batches (last {n % bs} "
+        f"padded to {bs}): {score_ms:.3f} ms ({n / score_ms * 1e3:.1f} "
+        f"imgs/s), losses {losses.min():.5f}..{losses.max():.5f}, class "
+        f"counts {np.bincount(classes, minlength=10).tolist()}, noise "
+        f"kernel launches {scored}")
+    check(scored == len(batches) == 5, f"scoring launched the noise kernel "
+          f"{scored} times for {len(batches)} batches")
+    check(losses.shape == (n,) and np.isfinite(losses).all(),
+          "scores are not 50 finite losses")
+    check(np.array_equal(indices, np.arange(n)), "scoring lost the order")
+    check(classes.min() >= 0 and classes.max() < 10, "class out of range")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [Path(tmp) / "images" / f"{i:05d}.png" for i in range(n)]
+        manifest = Path(tmp) / "balanced.txt"
+        write_balanced_manifest(manifest, paths, indices, classes)
+        got_paths, got_classes = read_image_manifest_with_classes(manifest)
+    check(got_paths == paths and got_classes == classes.tolist(),
+          "the balanced manifest does not read back")
+    log(f"  balanced manifest: {n} lines written and read back")
 
 
 def main() -> int:
@@ -369,21 +608,31 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
-    lib, report = _build.build("warp")
-    log(f"[2] built {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log("    " + line.strip())
+    sources = sorted({k[0][:-3] for k in KERNELS.values()})
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(_build.build, sources))
+    log(f"[2] built {', '.join(lib.name for lib, _ in built)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for _, report in built:
+        for line in report.splitlines():
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
+                log("    " + line.strip()[:110])
 
     log("[3] kernels vs plain versions")
     results = kernel_checks(dev)
+    results.update(noise_checks(dev))
 
     log("[4] small-input reference")
     small_reference(dev)
 
     log("[5] main path: 448^2, batch 16, auto warp route")
-    main_run = drive(dev, _build.LAUNCHES, card, size=448, batch=16,
-                     warmup=3, steps=30, kernel="affine_warp_fused")
+    main_run = drive(dev, _build.LAUNCHES, card,
+                     make_trainer(dev, encoder="resnet34", batch=16,
+                                  size=448, dtype="bfloat16"),
+                     size=448, batch=16, warmup=3, steps=30,
+                     per_step={"affine_warp_fused": 1,
+                               "fused_noise_blend": 1})
     denoise = main_run["trainer"].make_denoise_fn()
     x = torch.rand((4, 448, 448, 3), device=dev) * 2 - 1
     out = denoise(main_run["state"], x)
@@ -394,16 +643,33 @@ def main() -> int:
     profile_steps(main_run, dev, args.profile_out)
 
     log("[6] two-pass route: 640^2, batch 4, auto warp route")
-    twopass_run = drive(dev, _build.LAUNCHES, card, size=640, batch=4,
-                        warmup=2, steps=10, kernel="warp_axis_pass")
+    twopass_run = drive(dev, _build.LAUNCHES, card,
+                        make_trainer(dev, encoder="resnet34", batch=4,
+                                     size=640, dtype="bfloat16"),
+                        size=640, batch=4, warmup=2, steps=10,
+                        per_step={"warp_axis_pass": 2,
+                                  "fused_noise_blend": 1})
 
-    launches = {"affine_warp_fused":
-                main_run["counts"].get("affine_warp_fused", 0),
-                "warp_axis_pass":
-                twopass_run["counts"].get("warp_axis_pass", 0)}
-    kernels = [dict(name=k, route="cuda", source=SOURCE,
-                    replaces=REPLACES[k], launches=launches[k],
-                    library_ms=None, **results[k]) for k in REPLACES]
+    log("[7] balancer: 448^2, batch 12, fixed ratio 0.7")
+    balance_run = drive(dev, _build.LAUNCHES, card, make_balancer(dev),
+                        size=448, batch=12, warmup=3, steps=20,
+                        per_step={"fused_normalise_noise_blend": 1})
+    # The path goes on to the scoring pass: its counts are read after it.
+    score_and_write(balance_run, dev, _build.LAUNCHES)
+    balance_counts = dict(_build.LAUNCHES)
+    log(f"  launches on the balancer path: {balance_counts}")
+    profile_steps(balance_run, dev, None)
+
+    launches = {
+        "affine_warp_fused": main_run["counts"].get("affine_warp_fused", 0),
+        "warp_axis_pass": twopass_run["counts"].get("warp_axis_pass", 0),
+        "fused_noise_blend": main_run["counts"].get("fused_noise_blend", 0),
+        "fused_normalise_noise_blend":
+            balance_counts.get("fused_normalise_noise_blend", 0)}
+    kernels = [dict(name=k, route="cuda", source=f"{CSRC}/{src}",
+                    replaces=f"{REPO}/{tpu}", launches=launches[k],
+                    library_ms=None, **results[k])
+               for k, (src, tpu, _) in KERNELS.items()]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

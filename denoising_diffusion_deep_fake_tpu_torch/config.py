@@ -1,9 +1,10 @@
-"""Typed denoiser config (YAML -> validated dataclass).
+"""Typed workload configs (YAML -> validated dataclass).
 
 Own copy of the JAX package's schema (``denoising_diffusion_deep_fake_tpu/
-config.py``: ``BaseConfig``, ``DenoiserConfig``, ``config_from_dict``,
-``_rescale_mean_std``, ``load_config``), so the port reads the same YAML
-files (``configs/denoiser.yml``) with the same key names and defaults.
+config.py``: ``BaseConfig``, ``DenoiserConfig``, ``BalanceConfig``,
+``config_from_dict``, ``_rescale_mean_std``, ``load_config``), so the port
+reads the same YAML files (``configs/denoiser.yml``, ``configs/balance.yml``)
+with the same key names and defaults.
 ``yaml`` is imported only by ``load_config``: the GPU machine may lack
 PyYAML, and ``chip_smoke.py`` builds its config from a dict.
 
@@ -134,6 +135,39 @@ class DenoiserConfig(BaseConfig):
         if not self.input_image_list_path:
             raise ValueError("input_image_list_path is required")
         _rescale_mean_std(self)
+
+
+@dataclasses.dataclass
+class BalanceConfig(BaseConfig):
+    """Difficulty balancer (reference `d3f balance`), with the output list
+    the reference accepted but never wrote."""
+
+    data_path: str = ""
+    output_image_list_path: str = ""
+    mean: tuple = (0.5, 0.5, 0.5)
+    std: tuple = (0.5, 0.5, 0.5)
+    ratio_of_noise: float = 0.7
+    number_of_classes: int = 10
+
+    def validate(self) -> None:
+        super().validate()
+        if not self.data_path:
+            raise ValueError("data_path is required")
+        if not 0.0 <= self.ratio_of_noise <= 1.0:
+            raise ValueError("ratio_of_noise must be in [0, 1]")
+        if self.number_of_classes <= 0:
+            raise ValueError("number_of_classes must be positive")
+        _rescale_mean_std(self)
+
+
+def refuse_unported(cfg: BaseConfig, knobs) -> None:
+    """Raise ``NotImplementedError`` naming each of ``knobs`` that is set
+    away from its default: a feature the port has not yet."""
+    defaults = {f.name: f.default for f in dataclasses.fields(cfg)}
+    names = [k for k in knobs if getattr(cfg, k) != defaults[k]]
+    if names:
+        raise NotImplementedError(
+            f"config knobs not ported to the PyTorch trainer yet: {names}")
 
 
 def config_from_dict(cls, data: dict, *, validate: bool = True):

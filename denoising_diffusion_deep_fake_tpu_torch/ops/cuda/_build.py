@@ -8,8 +8,10 @@ under a name that carries a hash of the sources and flags, so an edited
 source is rebuilt.
 
 ``-fmad=false`` keeps nvcc from contracting ``a * b + c`` into an FMA: the
-warp kernels must round where the TPU kernels do (see csrc/warp.cu). There
-is no ``--use_fast_math``: the uint8 normalise is a true division.
+warp kernels must round where the TPU kernels do (see csrc/warp.cu), and
+the noise kernels where their plain PyTorch versions do (csrc/noise.cu).
+There is no ``--use_fast_math``: the uint8 normalise is a true division,
+and ``logf``, ``sinf`` and ``cosf`` are the accurate ones.
 
 ``LAUNCHES`` counts, per kernel wrapper, the launches made on the GPU.
 """

@@ -1,8 +1,9 @@
 """Training losses, fp32 whatever the network dtype.
 
-Port of ``denoising_diffusion_deep_fake_tpu/ops/losses.py:18-46``: the
+Port of ``denoising_diffusion_deep_fake_tpu/ops/losses.py:18-58``: the
 reference's ``MseStructuralSimilarityLoss``, ``(MSE + (1 - SSIM)) / 2``,
-with SSIM on the ``[0, 1]``-rescaled, clipped inputs.
+with SSIM on the ``[0, 1]``-rescaled, clipped inputs, and the balancer's
+per-image L1 difficulty score.
 """
 
 from __future__ import annotations
@@ -34,3 +35,12 @@ def mse_ssim_loss(prediction: torch.Tensor, target: torch.Tensor, *,
     t = _normalise_between_zero_and_one(target.to(torch.float32),
                                         input_min, input_max)
     return (mse + (1.0 - ssim(p, t, value_range=1.0))) / 2.0
+
+
+def l1_difficulty_loss(prediction: torch.Tensor, target: torch.Tensor
+                       ) -> torch.Tensor:
+    """Per-image mean absolute error of NHWC batches, shape ``(B,)``, in
+    fp32: the scores feed a min-max binning, where bf16 ties would merge
+    difficulty classes."""
+    d = prediction.to(torch.float32) - target.to(torch.float32)
+    return torch.mean(torch.abs(d), dim=(1, 2, 3))

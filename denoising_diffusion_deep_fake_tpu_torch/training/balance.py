@@ -1,0 +1,184 @@
+"""Training-image difficulty balancer.
+
+Port of ``denoising_diffusion_deep_fake_tpu/training/balance.py`` (reference:
+``d3f/balance_training_images/lit_module.py``): train a denoiser at one
+fixed noise ratio, then score every image by its reconstruction difficulty
+(per-image L1), min-max normalise the scores over the dataset, bin them into
+``number_of_classes`` classes and write them as a ``<path>\\t<class>``
+manifest (``write_balanced_manifest``, from the JAX package's
+``training/runners.py:495-502``, kept here until the runners are ported).
+
+One train step: uint8 NHWC batch -> the CUDA kernel ``fused_noise_for_balance``
+(normalise and blend at the fixed ratio in one pass) -> U-Net forward and
+backward in the compute dtype, train-mode BN -> ``mse_ssim_loss`` against
+the clean normalised batch -> Adam at a constant learning rate. Scoring runs
+the same noise stage, an eval-mode (running-average BN) forward and
+``l1_difficulty_loss``.
+
+Random streams: the kernel's stream is keyed by ``cfg.seed``; a train step
+draws at offset ``state.step`` and scoring batch ``k`` of epoch ``e`` at
+``SCORE_STREAM * (e + 1) + k``, a range no train step reaches (the JAX
+runner folds ``2_000_000_000 + epoch`` into its key for the same end). The
+offsets are counted on the host; nothing is read back from the device.
+``train_step`` and the validation step accept the noise itself instead, so
+a test can feed both frameworks the same numbers; given noise is blended
+with ``blend_fixed_amount_of_noise`` after ``normalise_batch``, as the JAX
+step composes it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from denoising_diffusion_deep_fake_tpu_torch.config import (
+    BalanceConfig,
+    refuse_unported,
+)
+from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
+    write_image_manifest,
+)
+from denoising_diffusion_deep_fake_tpu_torch.device import resolve_device
+from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
+    normalise_batch,
+)
+from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.noise_kernel import (
+    fused_noise_for_balance,
+)
+from denoising_diffusion_deep_fake_tpu_torch.ops.losses import (
+    l1_difficulty_loss,
+    mse_ssim_loss,
+)
+from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
+    blend_fixed_amount_of_noise,
+)
+from denoising_diffusion_deep_fake_tpu_torch.training.state import (
+    ModelState,
+    create_model_state,
+)
+
+SCORE_STREAM = 1 << 32
+# data_cache: device is the JAX score_dataset_from_cache path.
+_UNPORTED = ("upload_format", "data_cache", "data_parallel",
+             "spatial_parallel", "steps_per_call", "patchify_stem")
+
+
+def compute_difficulty_index(losses: np.ndarray,
+                             number_of_classes: int) -> np.ndarray:
+    """Min-max normalise, clamp to [0, 0.99999], floor-scale by
+    ``number_of_classes`` (``lit_module.py:181-193``)."""
+    lo, hi = losses.min(), losses.max()
+    denom = hi - lo if hi > lo else 1.0
+    normalised = np.clip((losses - lo) / denom, 0.0, 0.99999)
+    return (normalised * number_of_classes).astype(np.int64)
+
+
+def score_offset(epoch: int, batch_index: int) -> int:
+    """Stream offset of scoring batch ``batch_index`` in ``epoch``."""
+    return SCORE_STREAM * (epoch + 1) + batch_index
+
+
+def write_balanced_manifest(path, image_paths, indices: np.ndarray,
+                            classes: np.ndarray) -> None:
+    """``<path>\\t<difficulty_class>`` lines in dataset order."""
+    order = np.argsort(indices)
+    paths = [image_paths[i] for i in indices[order]]
+    write_image_manifest(path, paths, classes[order])
+
+
+class BalanceTrainer:
+    """The balancer's train step and scoring pass on one device."""
+
+    def __init__(self, cfg: BalanceConfig, *, steps_per_epoch: int,
+                 image_size: int, device=None):
+        cfg.validate()
+        refuse_unported(cfg, _UNPORTED)
+        self.cfg = cfg
+        self.image_size = image_size
+        self.steps_per_epoch = steps_per_epoch
+        self.device = resolve_device(device)
+        self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                      else torch.float32)
+        if self.device.type == "cuda":
+            # fp32 SSIM blur in full fp32 (see training/denoiser.py).
+            torch.backends.cudnn.allow_tf32 = False
+
+    def init_state(self, seed: int) -> ModelState:
+        """A U-Net drawn from ``seed`` on the trainer's device, and its
+        Adam (constant learning rate, as ``lit_module.py:83-88``)."""
+        return create_model_state(self.cfg, self.dtype, self.device, seed)
+
+    def _images(self, batch_u8: torch.Tensor, offset: int,
+                noise: torch.Tensor | None):
+        """(clean normalised batch, noisy batch) of a uint8 batch."""
+        cfg = self.cfg
+        batch_u8 = batch_u8.to(self.device, non_blocking=True)
+        image = normalise_batch(batch_u8, cfg.mean, cfg.std)
+        if noise is None:
+            noisy = fused_noise_for_balance(batch_u8, cfg.ratio_of_noise,
+                                            cfg.mean, cfg.std, cfg.seed,
+                                            offset=offset)
+        else:
+            noisy = blend_fixed_amount_of_noise(
+                image, cfg.ratio_of_noise, noise=noise.to(self.device))
+        return image, noisy
+
+    def train_step(self, state: ModelState, batch_u8: torch.Tensor, *,
+                   noise: torch.Tensor | None = None,
+                   with_images: bool = False) -> dict:
+        """One update of ``state`` in place; returns ``{"loss"}`` (a device
+        scalar: reading it waits for the step)."""
+        if with_images:
+            raise NotImplementedError(
+                "image panels are not ported to the PyTorch balancer yet")
+        image, noisy = self._images(batch_u8, state.step, noise)
+        model, optimizer = state.model, state.optimizer
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        loss = mse_ssim_loss(model(noisy), image)
+        loss.backward()
+        optimizer.step()
+        state.step += 1
+        return {"loss": loss.detach()}
+
+    def make_validation_step(self):
+        """Per-batch difficulty scoring: ``(state, batch_u8, *, offset,
+        noise=None) -> (B,)`` fp32 L1 losses, eval-mode BN."""
+        def val_step(state: ModelState, batch_u8: torch.Tensor, *,
+                     offset: int, noise: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+            image, noisy = self._images(batch_u8, offset, noise)
+            state.model.eval()
+            with torch.inference_mode():
+                return l1_difficulty_loss(state.model(noisy), image)
+
+        return val_step
+
+    def score_dataset(self, state: ModelState, batches, *, epoch: int = 0
+                      ) -> tuple[np.ndarray, np.ndarray]:
+        """Score every image; returns ``(indices, losses)`` in the order of
+        ``batches``, an iterable of ``(uint8 batch, dataset indices)``.
+
+        A tail batch shorter than ``cfg.batch_size`` is padded by repeating
+        its last image, so every batch has one shape, and the pad losses
+        are dropped (``balance.py:210-227``). The losses stay on the device
+        until the pass ends.
+        """
+        val_step = self.make_validation_step()
+        batch_size = self.cfg.batch_size
+        all_idx, all_loss = [], []
+        for k, (batch, idx) in enumerate(batches):
+            batch = torch.as_tensor(batch)
+            n_valid = batch.shape[0]
+            if n_valid > batch_size:
+                raise ValueError(f"a batch of {n_valid} exceeds batch_size "
+                                 f"{batch_size}")
+            if n_valid < batch_size:
+                pad = batch[-1:].expand(batch_size - n_valid,
+                                        *batch.shape[1:])
+                batch = torch.cat([batch, pad])
+            losses = val_step(state, batch, offset=score_offset(epoch, k))
+            all_idx.append(np.asarray(idx))
+            all_loss.append(losses[:n_valid])
+        return (np.concatenate(all_idx),
+                torch.cat(all_loss).cpu().numpy())

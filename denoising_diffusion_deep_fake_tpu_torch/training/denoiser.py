@@ -4,14 +4,18 @@ Port of ``denoising_diffusion_deep_fake_tpu/training/denoiser.py:43-158``
 (reference: ``d3f/train_denoiser/lit_module.py``). One train step:
 
     uint8 NHWC batch -> normalise + random affine warp (the CUDA warp kernels
-    at 32-aligned sizes) -> truncated-exponential noise blend -> U-Net
-    forward/backward in the compute dtype -> (MSE + 1 - SSIM) / 2 in fp32 ->
-    Adam with the per-epoch cosine learning rate.
+    at 32-aligned sizes) -> truncated-exponential noise blend (the CUDA
+    noise kernel) -> U-Net forward/backward in the compute dtype ->
+    (MSE + 1 - SSIM) / 2 in fp32 -> Adam with the per-epoch cosine learning
+    rate.
 
-Randomness comes from the trainer's seeded ``torch.Generator`` (the JAX
-trainer folds the step into a key instead; the two streams differ by
-design). ``train_step`` accepts the affine params, the noise ratios and the
-noise itself, so a test can feed both frameworks the same numbers.
+The affine params and the noise ratios come from the trainer's seeded
+``torch.Generator``; the noise itself from the noise kernel's stream keyed
+by ``cfg.seed`` at offset ``state.step`` (the JAX trainer folds the step
+into a key instead; the two streams differ by design). ``train_step``
+accepts the affine params, the noise ratios and the noise itself, so a test
+can feed both frameworks the same numbers; given noise is blended with
+``blend_noise``.
 
 On the GPU the U-Net weights and activations are ``channels_last``: the
 warp writes NHWC and the model takes its NCHW view as it is. cuDNN's TF32
@@ -25,15 +29,17 @@ from __future__ import annotations
 
 import torch
 
-from denoising_diffusion_deep_fake_tpu_torch.config import DenoiserConfig
-from denoising_diffusion_deep_fake_tpu_torch.device import resolve_device
-from denoising_diffusion_deep_fake_tpu_torch.models.unet import (
-    create_unet,
-    init_unet_,
+from denoising_diffusion_deep_fake_tpu_torch.config import (
+    DenoiserConfig,
+    refuse_unported,
 )
+from denoising_diffusion_deep_fake_tpu_torch.device import resolve_device
 from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
     AffineAugmentConfig,
     augment_batch,
+)
+from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.noise_kernel import (
+    fused_noise_blend,
 )
 from denoising_diffusion_deep_fake_tpu_torch.ops.losses import mse_ssim_loss
 from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
@@ -42,26 +48,15 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
 )
 from denoising_diffusion_deep_fake_tpu_torch.training.optim import (
     learning_rate_at,
-    make_adam,
 )
-from denoising_diffusion_deep_fake_tpu_torch.training.state import ModelState
+from denoising_diffusion_deep_fake_tpu_torch.training.state import (
+    ModelState,
+    create_model_state,
+)
 
-
-def _refuse_unported(cfg: DenoiserConfig) -> None:
-    unported = {
-        "upload_format": cfg.upload_format != "rgb",
-        "data_cache": cfg.data_cache != "host",
-        "data_parallel": cfg.data_parallel != 1,
-        "spatial_parallel": cfg.spatial_parallel != 1,
-        "remat": cfg.remat != "none",
-        "steps_per_call": cfg.steps_per_call != 1,
-        "patchify_stem": cfg.patchify_stem != 1,
-        "color_jitter": any(v != 0.0 for v in cfg.color_jitter),
-    }
-    names = [k for k, on in unported.items() if on]
-    if names:
-        raise NotImplementedError(
-            f"config knobs not ported to the PyTorch trainer yet: {names}")
+_UNPORTED = ("upload_format", "data_cache", "data_parallel",
+             "spatial_parallel", "remat", "steps_per_call", "patchify_stem",
+             "color_jitter")
 
 
 class DenoiserTrainer:
@@ -70,7 +65,7 @@ class DenoiserTrainer:
     def __init__(self, cfg: DenoiserConfig, *, steps_per_epoch: int,
                  image_size: int, device=None):
         cfg.validate()
-        _refuse_unported(cfg)
+        refuse_unported(cfg, _UNPORTED)
         self.cfg = cfg
         self.image_size = image_size
         self.steps_per_epoch = steps_per_epoch
@@ -88,18 +83,7 @@ class DenoiserTrainer:
     def init_state(self, seed: int) -> ModelState:
         """A U-Net with smp/torchvision init drawn from ``seed``, on the
         trainer's device, and its Adam."""
-        gen = torch.Generator()
-        gen.manual_seed(seed)
-        model = init_unet_(create_unet(self.cfg.encoder_name,
-                                       dtype=self.dtype), gen)
-        model = model.to(self.device)
-        if self.device.type == "cuda":
-            model = model.to(memory_format=torch.channels_last)
-        model.train()
-        optimizer = make_adam(model.parameters(), self.cfg.learning_rate,
-                              b1=self.cfg.adam_b1, b2=self.cfg.adam_b2,
-                              device=self.device)
-        return ModelState(model=model, optimizer=optimizer, step=0)
+        return create_model_state(self.cfg, self.dtype, self.device, seed)
 
     def train_step(self, state: ModelState, batch_u8: torch.Tensor, *,
                    affine_params: dict | None = None,
@@ -118,9 +102,10 @@ class DenoiserTrainer:
                 (b, 1, 1, 1), cfg.noise_exponential_sampling_lambda,
                 generator=self.generator, device=self.device)
         if noise is None:
-            noise = torch.randn(image.shape, generator=self.generator,
-                                device=self.device, dtype=image.dtype)
-        noisy = blend_noise(image, noise, ratios.reshape(b, 1, 1, 1))
+            noisy = fused_noise_blend(image, ratios.reshape(b), seed=cfg.seed,
+                                      offset=state.step)
+        else:
+            noisy = blend_noise(image, noise, ratios.reshape(b, 1, 1, 1))
 
         model, optimizer = state.model, state.optimizer
         model.train()

@@ -1,18 +1,23 @@
-"""The port's CUDA warp kernels against their plain versions, on the GPU.
+"""The port's CUDA kernels against their plain versions, on the GPU.
 
 Every test here needs an NVIDIA GPU and skips without one. This file imports
 no JAX, so it also runs on a GPU machine that has none:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
-Kernel and plain version are held to bit equality: both round where the
-TPU kernels do (see ops/cuda/csrc/warp.cu).
+The warp kernels and their plain versions are held to bit equality: both
+round where the TPU kernels do (see ops/cuda/csrc/warp.cu). The noise
+kernels' Philox words are held to bit equality with the plain version's;
+their outputs to one ulp of it (CUDA's logf, sinf and cosf in the kernel
+against PyTorch's CUDA log, sin and cos in the plain version), with the
+normalisation (ratio 0) exact.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import noise_kernel as nk
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import warp_fused as pf
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import warp_kernel as pk
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda._build import LAUNCHES
@@ -128,3 +133,116 @@ def test_train_step_on_gpu(cuda, dtype):
     assert np.isfinite(losses).all() and state.step == 2
     out = trainer.make_denoise_fn()(state, u8.float().to(cuda) / 127.5 - 1)
     assert out.shape == (2, 64, 64, 3) and out.dtype == torch.float32
+
+
+def _within_one_ulp(got, want):
+    ulp = (torch.nextafter(want.abs(), torch.tensor(float("inf"),
+                                                    device=want.device))
+           - want.abs())
+    return bool(((got - want).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("seed,offset", [(0, 0), (0x299f31d0a4093822, 7),
+                                         (5, (3 << 32) + 11)])
+def test_philox_words_match_plain(cuda, seed, offset):
+    got = nk.philox_words(1000, seed=seed, offset=offset, device=cuda)
+    want = nk.philox_words_plain(1000, seed=seed, offset=offset, device=cuda)
+    assert torch.equal(got, want)
+    if (seed, offset) == (0, 0):
+        assert got[0].tolist() == [0x6627e8d5, 0xe169c58d, 0xbc57ac4c,
+                                   0x9b00dbd8]
+
+
+@pytest.mark.parametrize("shape", [(12, 64, 64, 3), (3, 64, 64, 3),
+                                   (3, 5, 7, 3), (1, 1, 1, 1)])
+@pytest.mark.parametrize("norm", [((0.5,) * 3, (0.5,) * 3), IMAGENET])
+def test_normalise_noise_kernel_matches_plain(cuda, shape, norm):
+    b, c = shape[0], shape[-1]
+    mean, std = (norm[0][:c], norm[1][:c])
+    u8 = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, shape, np.uint8)).to(cuda)
+    ratios = torch.linspace(0, 1, b, device=cuda)
+    before = LAUNCHES["fused_normalise_noise_blend"]
+    got = nk.fused_normalise_noise_blend(u8, ratios, mean, std, seed=3,
+                                         offset=4)
+    assert LAUNCHES["fused_normalise_noise_blend"] == before + 1
+    want = nk.fused_normalise_noise_blend_plain(
+        u8, ratios, nk.noise_constants(mean, std, c), seed=3, offset=4)
+    torch.cuda.synchronize()
+    assert got.shape == shape and got.dtype == torch.float32
+    assert _within_one_ulp(got, want)
+    zero = nk.fused_normalise_noise_blend(u8, torch.zeros(b, device=cuda),
+                                          mean, std, seed=3, offset=4)
+    assert torch.equal(zero, nk.fused_normalise_noise_blend_plain(
+        u8, torch.zeros(b, device=cuda), nk.noise_constants(mean, std, c),
+        seed=3))
+
+
+@pytest.mark.parametrize("shape", [(16, 64, 64, 3), (3, 5, 7, 3)])
+def test_noise_blend_kernel_matches_plain(cuda, shape):
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(9)).to(
+        cuda)
+    ratios = torch.rand(shape[0], generator=torch.Generator().manual_seed(
+        10)).to(cuda)
+    before = LAUNCHES["fused_noise_blend"]
+    got = nk.fused_noise_blend(x, ratios, seed=1, offset=2)
+    assert LAUNCHES["fused_noise_blend"] == before + 1
+    want = nk.fused_noise_blend_plain(x, ratios, seed=1, offset=2)
+    assert _within_one_ulp(got, want)
+    # An unaligned view takes the kernel's scalar path.
+    flat = torch.cat([torch.zeros(1, device=cuda), x.reshape(-1)])
+    view = flat[1:].view(shape)
+    assert torch.equal(nk.fused_noise_blend(view, ratios, seed=1, offset=2),
+                       got)
+
+
+def test_noise_kernel_statistics_and_determinism(cuda):
+    x = torch.zeros((16, 128, 128, 3), device=cuda)
+    ones = torch.ones(16, device=cuda)
+    eps = nk.fused_noise_blend(x, ones, seed=11, offset=0)
+    assert abs(float(eps.mean())) < 0.005
+    assert abs(float(eps.var()) - 1.0) < 0.005
+    assert float(eps.abs().max()) <= 5.9
+    corr = torch.corrcoef(eps[:2].reshape(2, -1))[0, 1]
+    assert abs(float(corr)) < 0.01
+    assert torch.equal(eps, nk.fused_noise_blend(x, ones, seed=11, offset=0))
+    assert not torch.equal(eps, nk.fused_noise_blend(x, ones, seed=11,
+                                                     offset=1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_balancer_step_on_gpu(cuda, dtype):
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        BalanceConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.training.balance import (
+        BalanceTrainer)
+
+    cfg = config_from_dict(BalanceConfig, dict(
+        data_path="unused", batch_size=3, learning_rate=1e-3,
+        encoder_name="resnet18", compute_dtype=dtype))
+    trainer = BalanceTrainer(cfg, steps_per_epoch=4, image_size=64)
+    state = trainer.init_state(seed=0)
+    u8 = torch.randint(0, 256, (5, 64, 64, 3), dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(12))
+    before = LAUNCHES["fused_normalise_noise_blend"]
+    loss = float(trainer.train_step(state, u8[:3])["loss"])
+    assert np.isfinite(loss) and state.step == 1
+    idx, losses = trainer.score_dataset(
+        state, [(u8[:3], np.arange(3)), (u8[3:], np.arange(3, 5))])
+    assert LAUNCHES["fused_normalise_noise_blend"] == before + 3
+    assert losses.shape == (5,) and np.isfinite(losses).all()
+
+
+def test_noise_launcher_rejects_bad_operands(cuda):
+    x = torch.zeros((2, 4, 4, 3), device=cuda)
+    ratios = torch.zeros(2, device=cuda)
+    with pytest.raises(ValueError, match="out"):
+        nk.launch_blend(x, torch.empty((2, 4, 4, 3), device=cuda,
+                                       dtype=torch.float64), ratios, None,
+                        seed=0, offset=0)
+    with pytest.raises(ValueError, match="ratios"):
+        nk.launch_blend(x, torch.empty_like(x), ratios[:1], None, seed=0,
+                        offset=0)
+    with pytest.raises(TypeError):
+        nk.launch_blend(x, torch.empty_like(x), ratios, [0.0] * 6, seed=0,
+                        offset=0)
