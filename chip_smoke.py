@@ -9,7 +9,9 @@ Phases, in order; any failure exits non-zero:
    source, all started together;
 3. each kernel against its plain PyTorch version at the shapes its path
    gives it, with the kernel's and the plain version's times and the least
-   time the card could take: the warp kernels bit-equal; the noise kernels'
+   time the card could take: the warp kernels bit-equal (the fused warp,
+   one launch, with both stat sets and at the corners of the augment's
+   ranges, timed alone into a preallocated output); the noise kernels'
    Philox words bit-equal, their outputs within one ulp (share of differing
    elements stated), ratio 0 exactly the normalisation, and the noise's
    moments, bound, cross-sample correlation and determinism;
@@ -74,7 +76,7 @@ REPO = "denoising_diffusion_deep_fake_tpu"
 CSRC = "denoising_diffusion_deep_fake_tpu_torch/ops/cuda/csrc"
 KERNELS = {  # wrapper: (source, TPU kernel, device function in a profile)
     "affine_warp_fused": ("warp.cu", "ops/pallas/warp_fused.py:140",
-                          "warp_pass_kernel"),
+                          "warp_fused_kernel"),
     "warp_axis_pass": ("warp.cu", "ops/pallas/warp_kernel.py:126",
                        "warp_pass_kernel"),
     "fused_normalise_noise_blend": ("noise.cu",
@@ -303,33 +305,39 @@ def kernel_checks(dev) -> dict:
     rng = np.random.default_rng(SEED)
     results = {}
 
-    # Fused warp, uint8 fold, 448^2 x 16: the main path's call.
+    # Fused warp, uint8 fold, 448^2 x 16: the main path's call, with both
+    # stat sets, then the corners of random_affine's ranges (sources off
+    # the edge, so the zero border is exercised).
     b, h, w, c = 16, 448, 448, 3
     u8 = torch.from_numpy(rng.integers(0, 256, (b, h, w, c),
                                        np.uint8)).to(dev)
+    corners = torch.tensor([(15.0, 1.2, 0.2, 0.2), (-15.0, 0.8, -0.2, -0.2),
+                            (15.0, 0.8, -0.2, 0.2), (-15.0, 1.2, 0.2, -0.2)],
+                           device=dev).repeat(b // 4, 1).T
+    extreme = dict(angle=corners[0], scale=corners[1], tx=corners[2],
+                   ty=corners[3], apply=torch.ones(b, dtype=torch.bool,
+                                                   device=dev))
     coeffs = _inverse_affine_coeffs(random_params(b, 1, dev), h, w)
     errs = []
-    for mean, std in (((0.5,) * 3, (0.5,) * 3),
-                      ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))):
-        got = wf.affine_warp_fused_coeffs(u8, coeffs, mean=mean, std=std)
+    corner_coeffs = _inverse_affine_coeffs(extreme, h, w)
+    for what, cf, (mean, std) in (("random params", coeffs, HALF),
+                                  ("random params", coeffs, IMAGENET),
+                                  ("range corners", corner_coeffs, IMAGENET)):
+        got = wf.affine_warp_fused_coeffs(u8, cf, mean=mean, std=std)
         want = wf.affine_warp_fused_plain(
-            u8, coeffs, wf.norm_constants(mean, std, c))
-        errs.append(compare(got, want, f"fused 448^2 x16 mean={mean}"))
-    norm = wf.norm_constants((0.5,) * 3, (0.5,) * 3, c)
+            u8, cf, wf.norm_constants(mean, std, c))
+        errs.append(compare(got, want,
+                            f"fused 448^2 x16 {what}, mean={mean}"))
+    norm = wf.norm_constants(*HALF, c)
     alpha_x, shift_x, alpha_y, shift_y = wk.shear_factors(coeffs, h, w)
     bx, rx = wk.pass_scalars(alpha_x, shift_x, w)
     by, ry = wk.pass_scalars(alpha_y, shift_y, h)
     ax, ay = alpha_x.contiguous(), alpha_y.contiguous()
-    scratch = torch.empty((b, c, h, w), dtype=torch.bfloat16, device=dev)
     out = torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
-
-    def fused_passes():
-        wk.launch_pass(u8.permute(0, 1, 3, 2), scratch.permute(0, 2, 1, 3),
-                       ax, bx, rx, norm)
-        wk.launch_pass(scratch.permute(0, 3, 1, 2), out.permute(0, 2, 3, 1),
-                       ay, by, ry)
-
-    ms = time_ms(fused_passes, 50)
+    # The one launch, into a preallocated output, so the host's launch rate
+    # stays below the kernel's; the wrapper (scalars, allocation) beside it.
+    ms = time_ms(lambda: wf.launch_fused(u8, out, ax, bx, rx, ay, by, ry,
+                                         norm), 50)
     wrapper_ms = time_ms(lambda: wf.affine_warp_fused_coeffs(
         u8, coeffs, mean=0.5, std=0.5), 50)
     plain_ms = time_ms(lambda: wf.affine_warp_fused_plain(u8, coeffs, norm),

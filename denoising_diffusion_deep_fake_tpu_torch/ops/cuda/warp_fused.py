@@ -7,17 +7,19 @@ the output is bit-equal to the two-pass warp of the normalised batch, and
 the zero border lands in normalised space because the normalise runs before
 the warp.
 
-On the H100 a whole sample does not fit in a block's shared memory, so the
-"fusion" is two launches of the pass kernel in ``csrc/warp.cu``: an x-pass
-that reads the uint8 NHWC batch, normalises it and writes a bf16 planar
-``(B, C, H, W)`` scratch (19.3 MB at 448^2 x 16, inside the 50 MB L2), and a
-y-pass that writes fp32 NHWC directly. The U-Net takes that output as an
-NCHW ``channels_last`` view, so no transpose is left (the JAX wrapper needs
-three). Bound: memory, 1 byte in and 4 out per element: 48.2 MB, 14.4 us
-at 448^2 x 16 on 3.35 TB/s.
+On the H100 it is one launch of ``warp_fused_kernel`` in ``csrc/warp.cu``
+with no scratch in device memory: a block owns 32 output columns of one
+sample over its full height, runs the x-pass of those columns from the
+uint8 NHWC batch into a bf16 strip in shared memory, and the y-pass out of
+it straight into fp32 NHWC (the source's notes say how). The U-Net takes
+that output as an NCHW ``channels_last`` view, so no transpose is left (the
+JAX wrapper needs three). Bound: memory, 1 byte in and 4 out per element:
+48.2 MB, 14.4 us at 448^2 x 16 on 3.35 TB/s.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -25,11 +27,37 @@ import torch
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda._build import LAUNCHES
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.warp_kernel import (
     ROWS,
+    SMEM_LIMIT,
+    _warp_lib,
     affine_warp_twopass_plain,
-    launch_pass,
+    check_scalars,
     pass_scalars,
     shear_factors,
 )
+
+MAX_CHANNELS = 4  # csrc/warp.cu MAX_C
+_STRIP = 32       # output columns a block owns (csrc/warp.cu S)
+
+
+def strip_bytes(h: int, c: int, dtype: torch.dtype) -> int:
+    """Shared memory a block of the fused kernel takes (csrc/warp.cu
+    ``launch_fused``): the bf16 strip, rows padded to an odd number of
+    32-bit words, and for uint8 input the per-channel table of 256 fp32."""
+    pitch = 2 * (((_STRIP * c + 1) // 2) | 1)
+    return h * pitch * 2 + (c * 256 * 4 if dtype == torch.uint8 else 0)
+
+
+def check_fused_shape(h: int, w: int, c: int, dtype: torch.dtype) -> None:
+    """Raise where the fused kernel cannot take an NHWC batch."""
+    if h % ROWS or w % ROWS:
+        raise ValueError(f"H={h}, W={w} must be multiples of {ROWS}")
+    if not 1 <= c <= MAX_CHANNELS:
+        raise ValueError(f"the fused warp takes 1 to {MAX_CHANNELS} "
+                         f"channels, not {c}")
+    if strip_bytes(h, c, dtype) > SMEM_LIMIT:
+        raise ValueError(f"a strip of {h} rows x {c} channels needs "
+                         f"{strip_bytes(h, c, dtype)} bytes of shared memory, "
+                         f"over the {SMEM_LIMIT} a block may use")
 
 
 def norm_constants(mean, std, channels: int) -> list[float] | None:
@@ -50,7 +78,7 @@ def norm_constants(mean, std, channels: int) -> list[float] | None:
 def affine_warp_fused_plain(images: torch.Tensor, coeffs,
                             norm: list[float] | None) -> torch.Tensor:
     """Plain version: normalise (a true division), then the plain two-pass
-    warp, whose tile rounding is the fused kernel's bf16 scratch."""
+    warp, whose tile rounding is the fused kernel's bf16 strip."""
     c = images.shape[-1]
     x = images.to(torch.float32)
     if norm is not None:
@@ -61,30 +89,70 @@ def affine_warp_fused_plain(images: torch.Tensor, coeffs,
     return out if norm is not None else out.to(images.dtype)
 
 
+def launch_fused(src: torch.Tensor, out: torch.Tensor, alpha_x, base_x,
+                 resid_x, alpha_y, base_y, resid_y,
+                 norm: list[float] | None) -> None:
+    """Launch ``warp_fused_kernel`` of ``csrc/warp.cu`` on the current
+    stream: the contiguous NHWC batch ``src`` (uint8 or fp32) into the
+    contiguous fp32 NHWC ``out``, from each pass's ``pass_scalars`` (the x
+    pass over the H rows, the y pass over the W columns)."""
+    if src.dim() != 4 or out.shape != src.shape:
+        raise ValueError(f"src {tuple(src.shape)} and out "
+                         f"{tuple(out.shape)} must be one (B, H, W, C) shape")
+    b, h, w, c = src.shape
+    check_fused_shape(h, w, c, src.dtype)
+    if src.dtype not in (torch.uint8, torch.float32):
+        raise TypeError(f"the fused warp reads uint8 or fp32, not {src.dtype}")
+    if out.dtype != torch.float32:
+        raise TypeError(f"the fused warp writes fp32, not {out.dtype}")
+    if not (src.is_contiguous() and out.is_contiguous()):
+        raise ValueError("src and out must be contiguous NHWC tensors")
+    if h * w * c >= 2 ** 31:
+        raise ValueError("a sample must have fewer than 2^31 elements")
+    operands = (src, out, alpha_x, base_x, resid_x, alpha_y, base_y, resid_y)
+    if any(t.device != src.device or t.device.type != "cuda"
+           for t in operands):
+        raise ValueError("every operand must be on the same CUDA device")
+    check_scalars(b, h, alpha_x, base_x, resid_x)
+    check_scalars(b, w, alpha_y, base_y, resid_y)
+    if norm is not None and len(norm) != 2 * c:
+        raise ValueError("norm needs a mean and a std per channel")
+
+    fn = _warp_lib().d3f_warp_fused
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, *[ctypes.c_void_p] * 2,
+                       *[ctypes.c_int] * 4, *[ctypes.c_void_p] * 6,
+                       ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    c_norm = None if norm is None else (ctypes.c_float * len(norm))(*norm)
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    err = fn(int(src.dtype == torch.uint8), src.data_ptr(), out.data_ptr(),
+             b, h, w, c, *(t.data_ptr() for t in operands[2:]), c_norm,
+             stream)
+    if err != 0:
+        raise RuntimeError(f"fused warp kernel launch failed: CUDA error "
+                           f"{err}")
+
+
 def affine_warp_fused_coeffs(images: torch.Tensor, coeffs, *, mean=None,
                              std=None) -> torch.Tensor:
     """NHWC in/out warp from inverse-map coefficients. With ``mean``/``std``
     (0-1 scale, per channel or one value) ``images`` may be raw uint8 and
     the output is the normalised, warped fp32 batch."""
     b, h, w, c = images.shape
-    if h % ROWS or w % ROWS:
-        raise ValueError(f"H={h}, W={w} must be multiples of {ROWS}")
+    src = (images if images.dtype in (torch.uint8, torch.float32)
+           else images.to(torch.float32))
+    check_fused_shape(h, w, c, src.dtype)
     norm = norm_constants(mean, std, c)
     if images.device.type == "cpu":
         return affine_warp_fused_plain(images, coeffs, norm)
     alpha_x, shift_x, alpha_y, shift_y = shear_factors(coeffs, h, w)
     base_x, resid_x = pass_scalars(alpha_x, shift_x, w)
     base_y, resid_y = pass_scalars(alpha_y, shift_y, h)
-    src = (images if images.dtype in (torch.uint8, torch.float32)
-           else images.to(torch.float32))
-    scratch = torch.empty((b, c, h, w), dtype=torch.bfloat16,
-                          device=images.device)
-    launch_pass(src.permute(0, 1, 3, 2), scratch.permute(0, 2, 1, 3),
-                alpha_x.contiguous(), base_x, resid_x, norm)
     out = torch.empty((b, h, w, c), dtype=torch.float32,
                       device=images.device)
-    launch_pass(scratch.permute(0, 3, 1, 2), out.permute(0, 2, 3, 1),
-                alpha_y.contiguous(), base_y, resid_y)
+    launch_fused(src.contiguous(), out, alpha_x.contiguous(), base_x,
+                 resid_x, alpha_y.contiguous(), base_y, resid_y, norm)
     LAUNCHES["affine_warp_fused"] += 1
     return out if norm is not None else out.to(images.dtype)
 

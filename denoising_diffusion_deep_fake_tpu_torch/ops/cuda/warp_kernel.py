@@ -33,8 +33,7 @@ K = 12               # residual half-width (warp_kernel.py:41)
 TAPS = 2 * K + 1
 ROWS = 32            # lines per block-quantisation group
 _LINES_PER_CTA = 16  # csrc/warp.cu LB
-_SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
-_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
 
 
 def band_matrix(alpha, base, n_in: int, n_win: int) -> torch.Tensor:
@@ -146,23 +145,35 @@ def _warp_lib() -> ctypes.CDLL:
     fn = lib.d3f_warp_pass
     if fn.argtypes is None:
         i64x4 = ctypes.POINTER(ctypes.c_longlong)
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, i64x4, i64x4,
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, i64x4, i64x4,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
+def check_scalars(b: int, lines: int, alpha: torch.Tensor,
+                  base: torch.Tensor, resid: torch.Tensor) -> None:
+    """The scalars of one pass over ``lines`` lines, as the kernels take
+    them (``pass_scalars``)."""
+    if (alpha.dtype != torch.float32 or alpha.shape != (b,)
+            or not alpha.is_contiguous()):
+        raise ValueError("alpha must be a contiguous float32 (B,) tensor")
+    if (base.dtype != torch.int32 or base.shape != (b, lines // ROWS)
+            or not base.is_contiguous()):
+        raise ValueError("base must be a contiguous int32 (B, L/32) tensor")
+    if (resid.dtype != torch.float32 or resid.shape != (b, lines)
+            or not resid.is_contiguous()):
+        raise ValueError("resid must be a contiguous float32 (B, L) tensor")
+
+
 def launch_pass(src: torch.Tensor, dst: torch.Tensor, alpha: torch.Tensor,
-                base: torch.Tensor, resid: torch.Tensor,
-                norm: list[float] | None = None) -> None:
+                base: torch.Tensor, resid: torch.Tensor) -> None:
     """Launch one resample pass of ``csrc/warp.cu`` on the current stream.
 
-    ``src`` and ``dst`` are ``(B, L, C, N)`` views of GPU tensors (any
-    strides); ``norm`` is ``[mean*255 per channel] + [std*255 per
-    channel]`` to normalise ``src`` before the pass, or None.
+    ``src`` and ``dst`` are fp32 ``(B, L, C, N)`` views of GPU tensors (any
+    strides).
     """
     if src.dim() != 4 or src.shape != dst.shape:
         raise ValueError(f"src {tuple(src.shape)} and dst "
@@ -173,34 +184,23 @@ def launch_pass(src: torch.Tensor, dst: torch.Tensor, alpha: torch.Tensor,
     if any(st == 0 for st, d in zip(dst.stride(), dst.shape) if d > 1):
         raise ValueError("dst overlaps itself (an expanded view): the "
                          "kernel's blocks would race on it")
-    if _LINES_PER_CTA * c * n * 2 > _SMEM_LIMIT:
+    if _LINES_PER_CTA * c * n * 2 > SMEM_LIMIT:
         raise ValueError(f"a line of {c}x{n} does not fit the kernel's "
                          "shared-memory tile")
     for t in (src, dst, alpha, base, resid):
         if t.device != src.device or t.device.type != "cuda":
             raise ValueError("every operand must be on the same CUDA device")
-    kinds = (_KIND.get(src.dtype), _KIND.get(dst.dtype))
-    if kinds not in ((2, 1), (0, 1), (1, 0), (0, 0)):
-        raise TypeError(f"unsupported pass {src.dtype} -> {dst.dtype}")
-    if (alpha.dtype != torch.float32 or alpha.shape != (b,)
-            or not alpha.is_contiguous()):
-        raise ValueError("alpha must be a contiguous float32 (B,) tensor")
-    if (base.dtype != torch.int32 or base.shape != (b, l // ROWS)
-            or not base.is_contiguous()):
-        raise ValueError("base must be a contiguous int32 (B, L/32) tensor")
-    if (resid.dtype != torch.float32 or resid.shape != (b, l)
-            or not resid.is_contiguous()):
-        raise ValueError("resid must be a contiguous float32 (B, L) tensor")
-    if norm is not None and len(norm) != 2 * c:
-        raise ValueError("norm needs a mean and a std per channel")
+    if src.dtype != torch.float32 or dst.dtype != torch.float32:
+        raise TypeError(f"unsupported pass {src.dtype} -> {dst.dtype}: the "
+                        "pass kernel takes fp32 to fp32")
+    check_scalars(b, l, alpha, base, resid)
 
     fn = _warp_lib().d3f_warp_pass
     strides = [(ctypes.c_longlong * 4)(*t.stride()) for t in (src, dst)]
-    c_norm = None if norm is None else (ctypes.c_float * len(norm))(*norm)
     stream = torch.cuda.current_stream(src.device).cuda_stream
-    err = fn(kinds[0], kinds[1], src.data_ptr(), dst.data_ptr(), b, l, c, n,
-             strides[0], strides[1], alpha.data_ptr(), base.data_ptr(),
-             resid.data_ptr(), c_norm, stream)
+    err = fn(src.data_ptr(), dst.data_ptr(), b, l, c, n, strides[0],
+             strides[1], alpha.data_ptr(), base.data_ptr(), resid.data_ptr(),
+             stream)
     if err != 0:
         raise RuntimeError(f"warp pass kernel launch failed: CUDA error "
                            f"{err}")

@@ -51,22 +51,53 @@ def _coeffs(params, h, w):
     return _inverse_affine_coeffs(params, h, w)
 
 
+def _fixed_params(rows, device):
+    """One sample per ``(angle, scale, tx, ty)`` row."""
+    cols = torch.tensor(rows, dtype=torch.float32, device=device).T
+    return {"angle": cols[0], "scale": cols[1], "tx": cols[2],
+            "ty": cols[3],
+            "apply": torch.ones(len(rows), dtype=torch.bool, device=device)}
+
+
+# The corners of AffineAugmentConfig.random_affine (ops/augment.py:46-50):
+# +-15 degrees, scale 0.8 and 1.2, translate +-0.2, where sources fall off
+# the edge and the zero border must land in normalised space.
+EXTREMES = [(15.0, 1.2, 0.2, 0.2), (-15.0, 0.8, -0.2, -0.2),
+            (15.0, 0.8, -0.2, 0.2), (-15.0, 1.2, 0.2, -0.2)]
+IDENTITY = [(0.0, 1.0, 0.0, 0.0)] * 2
+
+
+def _fused_vs_plain(u8, params, mean, std):
+    b, h, w, c = u8.shape
+    coeffs = _coeffs(params, h, w)
+    before = LAUNCHES["affine_warp_fused"]
+    got = pf.affine_warp_fused_coeffs(u8, coeffs, mean=mean, std=std)
+    assert LAUNCHES["affine_warp_fused"] == before + 1
+    want = pf.affine_warp_fused_plain(u8, coeffs,
+                                      pf.norm_constants(mean, std, c))
+    torch.cuda.synchronize()
+    assert got.shape == (b, h, w, c) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("shape", [(2, 64, 64), (2, 96, 64), (2, 64, 96),
-                                   (4, 448, 448)])
+                                   (2, 384, 512), (2, 512, 512),
+                                   (16, 448, 448)])
 @pytest.mark.parametrize("norm", [((0.5,) * 3, (0.5,) * 3), IMAGENET])
 def test_fused_kernel_matches_plain(cuda, shape, norm):
     b, h, w = shape
     u8 = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (b, h, w, 3), np.uint8)).to(cuda)
-    coeffs = _coeffs(_params(b, 1, cuda), h, w)
-    mean, std = norm
-    before = LAUNCHES["affine_warp_fused"]
-    got = pf.affine_warp_fused_coeffs(u8, coeffs, mean=mean, std=std)
-    assert LAUNCHES["affine_warp_fused"] == before + 1
-    want = pf.affine_warp_fused_plain(u8, coeffs,
-                                      pf.norm_constants(mean, std, 3))
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    _fused_vs_plain(u8, _params(b, 1, cuda), *norm)
+
+
+@pytest.mark.parametrize("rows", [EXTREMES, IDENTITY],
+                         ids=["extremes", "identity"])
+@pytest.mark.parametrize("norm", [((0.5,) * 3, (0.5,) * 3), IMAGENET])
+def test_fused_kernel_matches_plain_at_fixed_params(cuda, rows, norm):
+    u8 = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (len(rows), 448, 448, 3), np.uint8)).to(cuda)
+    _fused_vs_plain(u8, _fixed_params(rows, cuda), *norm)
 
 
 def test_fused_kernel_float_input_matches_plain(cuda):
@@ -76,6 +107,51 @@ def test_fused_kernel_float_input_matches_plain(cuda):
     got = pf.affine_warp_fused_coeffs(x, coeffs)
     want = pf.affine_warp_fused_plain(x, coeffs, None)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_fused_kernel_is_one_launch_without_scratch(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    u8 = torch.randint(0, 256, (4, 448, 448, 3), dtype=torch.uint8,
+                       device=cuda)
+    coeffs = _coeffs(_params(4, 8, cuda), 448, 448)
+    pf.affine_warp_fused_coeffs(u8, coeffs, mean=0.5, std=0.5)  # builds it
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = pf.affine_warp_fused_coeffs(u8, coeffs, mean=0.5, std=0.5)
+        torch.cuda.synchronize()
+    out_bytes = out.numel() * 4
+    # The output stays; the pass scalars (a few KB) come and go; a scratch
+    # batch (half the output in bf16) would show in the peak.
+    assert torch.cuda.memory_allocated() - start == out_bytes
+    assert torch.cuda.max_memory_allocated() - start < out_bytes + (1 << 20)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("warp_fused_kernel" in n for n in names) == 1
+    assert not any("warp_pass_kernel" in n for n in names)
+
+
+def test_fused_launcher_rejects_what_the_kernel_cannot_take(cuda):
+    b, h, w = 1, 64, 32
+    ax, sx, ay, sy = pk.shear_factors(
+        _coeffs(_params(b, 9, cuda), h, w), h, w)
+    scalars = (ax.contiguous(), *pk.pass_scalars(ax, sx, w),
+               ay.contiguous(), *pk.pass_scalars(ay, sy, h))
+    src = torch.zeros((b, h, w, 5), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="channels"):
+        pf.launch_fused(src, torch.empty(src.shape, device=cuda), *scalars,
+                        None)
+    # 1184 rows of 3 channels: a 232,064-byte strip plus the uint8 table.
+    tall = torch.zeros((b, 1184, w, 3), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        pf.launch_fused(tall, torch.empty(tall.shape, device=cuda),
+                        *scalars, None)
+    with pytest.raises(TypeError):
+        src = torch.zeros((b, h, w, 3), dtype=torch.float64, device=cuda)
+        pf.launch_fused(src, torch.empty(src.shape, device=cuda), *scalars,
+                        None)
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 64), (2, 96, 64), (2, 640, 640)])

@@ -108,6 +108,41 @@ def test_fused_plain_uint8_fold_matches_pallas_exactly(hw, norm):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+def _fixed_params(rows):
+    """One sample per ``(angle, scale, tx, ty)`` row."""
+    cols = np.asarray(rows, np.float32).T
+    return {"angle": jnp.asarray(cols[0]), "scale": jnp.asarray(cols[1]),
+            "tx": jnp.asarray(cols[2]), "ty": jnp.asarray(cols[3]),
+            "apply": jnp.ones((len(rows),), bool)}
+
+
+# Corners of AffineAugmentConfig.random_affine (ops/augment.py:46-50), where
+# sources fall off the edge and the zero border lands in normalised space,
+# and the identity.
+@pytest.mark.parametrize("rows", [
+    [(15.0, 1.2, 0.2, 0.2), (-15.0, 0.8, -0.2, -0.2)],
+    [(15.0, 0.8, -0.2, 0.2), (-15.0, 1.2, 0.2, -0.2)],
+    [(0.0, 1.0, 0.0, 0.0)] * 2], ids=["corners-a", "corners-b", "identity"])
+def test_fused_plain_at_fixed_params_matches_pallas_exactly(rows):
+    u8 = np.random.default_rng(8).integers(0, 256, (len(rows), 64, 64, 3),
+                                           np.uint8)
+    params = _fixed_params(rows)
+    mean, std = IMAGENET
+    ref = np.asarray(affine_warp_pallas_fused(
+        jnp.asarray(u8), params, mean=mean, std=std, interpret=True))
+    got = pf.affine_warp_fused_coeffs(torch.from_numpy(u8),
+                                      _coeffs(params, 64, 64), mean=mean,
+                                      std=std)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    # The zero border is zero after the normalise (not -mean/std, which
+    # normalising after the warp would give); the identity has none.
+    border = (ref == 0).all(axis=-1).mean(axis=(1, 2))
+    if rows[0][0] == 0.0:
+        assert (border == 0).all()
+    else:
+        assert (border > 0.02).all()
+
+
 def test_fused_plain_float_input_from_params_matches_pallas():
     img = np.random.default_rng(6).standard_normal((B, 64, 64, 3)).astype(
         np.float32)
@@ -150,3 +185,26 @@ def test_wrappers_reject_unaligned_shapes():
         pf.affine_warp_fused(torch.zeros((1, 64, 40, 3)), params)
     with pytest.raises(ValueError, match="multiples"):
         pk.affine_warp_twopass(torch.zeros((1, 40, 64, 3)), params)
+
+
+def test_fused_wrapper_checks_raise_before_any_launch():
+    before = dict(LAUNCHES)
+    params = {"angle": torch.zeros(1), "scale": torch.ones(1),
+              "tx": torch.zeros(1), "ty": torch.zeros(1),
+              "apply": torch.ones(1, dtype=torch.bool)}
+    with pytest.raises(ValueError, match="channels"):
+        pf.affine_warp_fused(torch.zeros((1, 32, 32, 5), dtype=torch.uint8),
+                             params, mean=0.5, std=0.5)
+    with pytest.raises(ValueError, match="shared memory"):
+        pf.affine_warp_fused(torch.zeros((1, 1184, 32, 3),
+                                         dtype=torch.uint8), params)
+    assert pf.strip_bytes(448, 3, torch.uint8) == 448 * 196 + 3 * 1024
+    # The launcher refuses tensors that do not lie on a CUDA device.
+    x = torch.zeros((1, 32, 32, 3), dtype=torch.uint8)
+    alpha = torch.ones(1)
+    base = torch.zeros((1, 1), dtype=torch.int32)
+    resid = torch.zeros((1, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        pf.launch_fused(x, torch.empty(x.shape), alpha, base, resid, alpha,
+                        base, resid, None)
+    assert dict(LAUNCHES) == before
