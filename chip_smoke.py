@@ -11,7 +11,11 @@ Phases, in order; any failure exits non-zero:
    gives it, with the kernel's and the plain version's times and the least
    time the card could take: the warp kernels bit-equal (the fused warp,
    one launch, with both stat sets and at the corners of the augment's
-   ranges, timed alone into a preallocated output); the noise kernels'
+   ranges, timed alone into a preallocated output; the axis pass's row and
+   column kernels each on the x-pass and the y-pass layout at 448^2 x 16
+   and 640^2 x 4, each pass timed alone, and the whole two-pass warp at
+   640^2 x 4, at the range corners too; the fused warp at 640^2 x 4,
+   recorded only); the noise kernels'
    Philox words bit-equal, their outputs within one ulp (share of differing
    elements stated), ratio 0 exactly the normalisation, and the noise's
    moments, bound, cross-sample correlation and determinism;
@@ -24,7 +28,8 @@ Phases, in order; any failure exits non-zero:
    noise kernel: 3 warm-up and 30 timed steps, then one eval-mode forward
    and a profile of 3 more steps;
 6. the two-pass route: the same trainer at 640^2, batch 4 (auto routes
-   sizes above 512^2 to the two-pass kernel), 2 warm-up and 10 timed steps;
+   sizes above 512^2 to the two-pass kernels), 2 warm-up and 10 timed
+   steps, then a profile of 3 more;
 7. the balancer: configs/balance.yml's width (resnet34, batch 12, bf16,
    lr 0.01, ratio 0.7, 10 classes) at 448^2: 3 warm-up and 20 timed train
    steps through the uint8 noise kernel, a profile of 3 more, then the
@@ -74,11 +79,11 @@ NOISE_INT_OPS = 26
 NOISE_FP_OPS = {"fused_normalise_noise_blend": 12, "fused_noise_blend": 10}
 REPO = "denoising_diffusion_deep_fake_tpu"
 CSRC = "denoising_diffusion_deep_fake_tpu_torch/ops/cuda/csrc"
-KERNELS = {  # wrapper: (source, TPU kernel, device function in a profile)
+KERNELS = {  # wrapper: (source, TPU kernel, device functions in a profile)
     "affine_warp_fused": ("warp.cu", "ops/pallas/warp_fused.py:140",
                           "warp_fused_kernel"),
     "warp_axis_pass": ("warp.cu", "ops/pallas/warp_kernel.py:126",
-                       "warp_pass_kernel"),
+                       "warp_rows_kernel", "warp_cols_kernel"),
     "fused_normalise_noise_blend": ("noise.cu",
                                     "ops/pallas/noise_kernel.py:128",
                                     "normalise_noise_blend_u8_kernel"),
@@ -301,6 +306,8 @@ def kernel_checks(dev) -> dict:
         _inverse_affine_coeffs)
     from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import (
         warp_fused as wf, warp_kernel as wk)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.bench_warp_pass \
+        import graph_ms, route_cases
 
     rng = np.random.default_rng(SEED)
     results = {}
@@ -351,33 +358,95 @@ def kernel_checks(dev) -> dict:
                                         plain_ms=plain_ms, bound_ms=bound_ms,
                                         bound_by=bound_by)
 
-    # Two-pass warp: 448^2 x 16 (timed, one pass) and 640^2 x 4 (the auto
-    # route above 512^2).
-    errs = []
-    x = torch.randn((b, h, w, c), device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(2))
-    got = wk.affine_warp_twopass_coeffs(x, coeffs)
-    errs.append(compare(got, wk.affine_warp_twopass_plain(x, coeffs),
-                        "two-pass 448^2 x16"))
-    x640 = torch.randn((4, 640, 640, c), device=dev,
-                       generator=torch.Generator(device=dev).manual_seed(3))
-    c640 = _inverse_affine_coeffs(random_params(4, 4, dev), 640, 640)
-    got = wk.affine_warp_twopass_coeffs(x640, c640)
-    errs.append(compare(got, wk.affine_warp_twopass_plain(x640, c640),
-                        "two-pass 640^2 x4"))
-    inter = torch.empty((b, c, h, w), dtype=torch.float32, device=dev)
-    xv, iv = x.permute(0, 1, 3, 2), inter.permute(0, 2, 1, 3)
-    ms = time_ms(lambda: wk.launch_pass(xv, iv, ax, bx, rx), 50)
-    plain_ms = time_ms(lambda: wk.warp_axis_pass_plain(xv, alpha_x, shift_x),
-                       3, warmup=1)
-    bound_ms, bound_by = bound(n * (4 + 4), n * OPS_PER_PASS_ELEMENT)
-    ms640 = time_ms(lambda: wk.affine_warp_twopass_coeffs(x640, c640), 20)
-    log(f"  two-pass, one pass at 448^2 x16: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}); "
-        f"whole two-pass warp at 640^2 x4 (wrapper): {ms640:.4f} ms")
+    # Axis pass: both kernels on both layouts of the two-pass route (the
+    # x-pass, NHWC source -> planar; the y-pass, planar -> NHWC) at 448^2 x
+    # 16 and at the route's own 640^2 x 4, each bit-equal to the plain
+    # version. Each pass alone, through the kernel its layout picks, into a
+    # preallocated output: by CUDA-graph replay (the kernels back to back;
+    # the wrapper's checks take longer on the host than a pass on the
+    # card), and by the launch loop earlier PRs timed.
+    errs, passes = [], {}
+    shapes = route_cases(dev)
+    for shape in shapes:
+        for case in shape["passes"]:
+            src, dst, scalars = case["src"], case["dst"], case["scalars"]
+            key = f"{case['what']} {shape['key']}"
+            for kernel in wk.PASS_KERNELS:
+                dst.fill_(math.nan)
+                wk.launch_pass(src, dst, *scalars, kernel=kernel)
+                errs.append(compare(dst, case["want"],
+                                    f"{key}, {kernel} kernel"))
+            passes[key] = graph_ms(lambda: wk.launch_pass(src, dst, *scalars))
+            loop_ms = time_ms(lambda: wk.launch_pass(src, dst, *scalars), 50)
+            n = shape["elements"]
+            bound_ms, bound_by = bound(n * (4 + 4), n * OPS_PER_PASS_ELEMENT)
+            log(f"  {key} alone ({wk.pass_kernel(src.stride())} kernel): "
+                f"{passes[key]:.4f} ms (launch loop {loop_ms:.4f} ms), bound "
+                f"{bound_ms * 1e3:.2f} us ({bound_by}), "
+                f"{bound_ms / passes[key]:.0%} of it")
+
+    # The two-pass route through its wrapper: random params at both shapes
+    # and the corners of random_affine's ranges at 640^2 x 4.
+    x, x640 = shapes[0]["x"], shapes[1]["x"]
+    c640 = shapes[1]["coeffs"]
+    corner640 = _inverse_affine_coeffs(
+        {k: v[:4] for k, v in extreme.items()}, 640, 640)
+    plain640 = wk.affine_warp_twopass_plain(x640, c640)
+    for what, xs, cf, want in (
+            ("448^2 x16 random params", x, shapes[0]["coeffs"],
+             wk.affine_warp_twopass_plain(x, shapes[0]["coeffs"])),
+            ("640^2 x4 random params", x640, c640, plain640),
+            ("640^2 x4 range corners", x640, corner640,
+             wk.affine_warp_twopass_plain(x640, corner640))):
+        errs.append(compare(wk.affine_warp_twopass_coeffs(xs, cf), want,
+                            f"two-pass {what}"))
+    # The whole two-pass warp at 640^2 x 4: its two launches into
+    # preallocated tensors, then the wrapper (scalars, allocation).
+    first, second = shapes[1]["passes"]
+    (pax, pbx, prx), (pay, pby, pry) = first["scalars"], second["scalars"]
+    t640 = first["dst"]                       # planar, as (B, H, C, W)
+    o640 = second["dst"].permute(0, 3, 1, 2)  # NHWC
+
+    def twopass():
+        wk.launch_pass(first["src"], t640, pax, pbx, prx)
+        wk.launch_pass(t640.permute(0, 3, 2, 1), second["dst"], pay, pby,
+                       pry)
+
+    ms = graph_ms(twopass)
+    errs.append(compare(o640, plain640, "two-pass 640^2 x4, timed launches"))
+    wrapper_ms = time_ms(lambda: wk.affine_warp_twopass_coeffs(x640, c640),
+                         50)
+    plain_ms = time_ms(lambda: wk.affine_warp_twopass_plain(x640, c640), 3,
+                       warmup=1)
+    n = shapes[1]["elements"]
+    bound_ms, bound_by = bound(2 * n * (4 + 4), 2 * n * OPS_PER_PASS_ELEMENT)
+    log(f"  two-pass 640^2 x4, both passes: kernels {ms:.4f} ms (wrapper "
+        f"incl. scalar prep {wrapper_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms * 1e3:.2f} us ({bound_by}), {bound_ms / ms:.0%} "
+        "of it")
     results["warp_axis_pass"] = dict(max_abs_err=max(errs), ms=ms,
                                      plain_ms=plain_ms, bound_ms=bound_ms,
-                                     bound_by=bound_by)
+                                     bound_by=bound_by, passes_ms=passes)
+
+    # Recorded only (auto keeps the JAX routing): the fused warp at 640^2 x
+    # 4, fp32 in, bit-equal to the two-pass warp, and uint8 with the
+    # normalise folded in, as the route would call it.
+    f640 = torch.empty_like(o640)
+    fused_args = (pax, pbx, prx, pay, pby, pry)
+    wf.launch_fused(x640, f640, *fused_args, None)
+    compare(f640, plain640, "fused 640^2 x4 fp32 (recorded only)")
+    fused_ms = graph_ms(lambda: wf.launch_fused(x640, f640, *fused_args,
+                                                None))
+    u640 = torch.from_numpy(rng.integers(0, 256, (4, 640, 640, c),
+                                         np.uint8)).to(dev)
+    wf.launch_fused(u640, f640, *fused_args, norm)
+    compare(f640, wf.affine_warp_fused_plain(u640, c640, norm),
+            "fused 640^2 x4 uint8 (recorded only)")
+    fused_u8_ms = graph_ms(lambda: wf.launch_fused(u640, f640, *fused_args,
+                                                   norm))
+    log(f"  fused 640^2 x4 (recorded only, graph-timed): fp32 in "
+        f"{fused_ms:.4f} ms, uint8 in {fused_u8_ms:.4f} ms, against the "
+        f"two-pass kernels' {ms:.4f} ms")
     return results
 
 
@@ -517,7 +586,7 @@ def profile_steps(run: dict, dev, path: Path | None) -> dict:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 3e3
     port_ms = {fn: sum(e.self_device_time_total for e in kernels
                        if fn in e.key) / 3e3
-               for fn in sorted({k[2] for k in KERNELS.values()})}
+               for fn in sorted({f for k in KERNELS.values() for f in k[2:]})}
     if busy_ms > 0:
         share = busy_ms / run["step_ms"]
         log(f"  profile of 3 steps ({window_ms / 3:.3f} "
@@ -657,6 +726,7 @@ def main() -> int:
                         size=640, batch=4, warmup=2, steps=10,
                         per_step={"warp_axis_pass": 2,
                                   "fused_noise_blend": 1})
+    profile_steps(twopass_run, dev, None)
 
     log("[7] balancer: 448^2, batch 12, fixed ratio 0.7")
     balance_run = drive(dev, _build.LAUNCHES, card, make_balancer(dev),
@@ -677,7 +747,7 @@ def main() -> int:
     kernels = [dict(name=k, route="cuda", source=f"{CSRC}/{src}",
                     replaces=f"{REPO}/{tpu}", launches=launches[k],
                     library_ms=None, **results[k])
-               for k, (src, tpu, _) in KERNELS.items()]
+               for k, (src, tpu, *_) in KERNELS.items()]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

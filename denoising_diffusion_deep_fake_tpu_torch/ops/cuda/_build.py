@@ -76,3 +76,34 @@ def load(name: str) -> ctypes.CDLL:
             path, _ = build(name)
             _libs[name] = ctypes.CDLL(str(path))
         return _libs[name]
+
+
+def build_variants(sources: dict[str, str], out: Path
+                   ) -> dict[str, tuple[Path, str]]:
+    """Compile variant sources (name -> CUDA text) into ``out``, all nvcc
+    processes at once; returns name -> (library, compiler report) for those
+    that built, and prints the report of those that did not."""
+    procs = {}
+    for name, text in sources.items():
+        src = out / f"{name.replace(':', '_')}.cu"
+        src.write_text(text)
+        lib = src.with_suffix(".so")
+        procs[name] = (lib, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(src)],
+            stderr=subprocess.PIPE, text=True))
+    built = {}
+    for name, (lib, proc) in procs.items():
+        report = proc.communicate()[1]
+        if proc.returncode:
+            print(f"{name}: nvcc failed\n{report}")
+        else:
+            built[name] = (lib, report)
+    return built
+
+
+def ptxas_summary(report: str, kernel_tag: str) -> str:
+    """ptxas's registers and spill lines for the kernels whose mangled
+    name contains ``kernel_tag``."""
+    lines = report.splitlines()
+    return " | ".join(" ".join(x.strip() for x in lines[i + 1:i + 3])
+                      for i, line in enumerate(lines) if kernel_tag in line)

@@ -2,11 +2,12 @@
 //
 // Replaces the two Pallas TPU kernels of the JAX package:
 //   * warp_axis_pass_pallas    (ops/pallas/warp_kernel.py:126, body :99-123)
-//                              -> warp_pass_kernel, entry d3f_warp_pass
+//                              -> warp_rows_kernel and warp_cols_kernel,
+//                                 entry d3f_warp_pass
 //   * affine_warp_pallas_fused (ops/pallas/warp_fused.py:140, body :54-137)
 //                              -> warp_fused_kernel, entry d3f_warp_fused
 //
-// Both compute the same 1-D resample pass, once along x and once along y of
+// All compute the same 1-D resample pass, once along x and once along y of
 // an LDU shear factorisation of the inverse affine map:
 //
 //   G(o)     = sum_i bf16(x[i]) * bf16(hat(src(o) - i)),
@@ -26,11 +27,60 @@
 // rounding intrinsics spell out each step, with the one fused multiply-add
 // the reference has (the residual MAC's accumulation).
 //
-// warp_pass_kernel, one pass over fp32 views of any strides (the two-pass
-// warp): a block owns LB = 16 lines of one sample (half of a 32-line block,
-// so all its lines share one `base`), stages them in bf16 in shared memory
-// and writes every output position of those lines. Bound: memory, 4 + 4
-// bytes an element (77.1 MB at 448^2 x 16, 23.0 us at 3.35 TB/s).
+// The tap geometry is what costs instructions, so every kernel shares it as
+// far as the math allows (`resample_run`): a line's residual taps are found
+// once for all its outputs; output t and t + 1 share a band column, so a run
+// of P outputs needs P + 1 columns, not 2P; and each column is found once
+// for all C channels. C is a template parameter (1 to 4; the pass entry runs
+// more channels in groups of 4) and every index is 32-bit within a sample.
+//
+// One pass over fp32 (B, L, C, N) views of any strides (the two-pass warp,
+// the 640^2 route). Bound: memory, 4 + 4 bytes an element: 77.1 MB and 23.0
+// us at 448^2 x 16, 39.3 MB and 11.7 us at 640^2 x 4, on 3.35 TB/s. Two
+// kernels, each specialised to one layout, with no run-time iteration order
+// and no division per element; both are correct for every layout, and the
+// entry takes the choice (warp_kernel.py picks it from the strides):
+//   * warp_rows_kernel, where positions lie closer together in memory than
+//     lines (the x-pass from NHWC, the (B, H, C, W) public layout). A warp
+//     takes 32 * ROW_P consecutive outputs of one line, a thread ROW_P = 2
+//     of them, all C channels; it reads the fp32 source through the
+//     read-only path (a line's span is about alpha * 64 positions, so the
+//     C * 2 * 3 tap loads of a thread hit in L1) and writes fp32, a warp
+//     storing 64 consecutive positions a channel. No shared memory. Grid
+//     (ceil(N / 64), L / 8, B) of 256 threads, one line a warp: 7 x 56 x 16
+//     = 6,272 blocks at 448^2 x 16, 10 x 80 x 4 = 3,200 at 640^2 x 4 (8
+//     blocks an SM are resident: 6 and 3 waves).
+//   * warp_cols_kernel, where lines lie closer together than positions (the
+//     y-pass, whose lines are image columns). A block of 512 threads owns
+//     COL_S = 32 lines (one 32-line group, so they share one `base`) and a
+//     segment of `seg` outputs of them. It stages, as bf16,
+//     only the source rows the segment's outputs reach: the window follows
+//     from `base`, alpha and |m| <= K through the same float operations as
+//     `band_column`, and the strip has room for the window of |alpha| <=
+//     1.5 (a wider one reads the source directly, so the kernel is right
+//     for any alpha). The staging loads coalesce along the lines' unit
+//     stride (32 lines of the planar intermediate are 128 contiguous
+//     bytes); a thread then takes COL_P = 2 consecutive outputs of one
+//     line, and a warp stores one row of 32 lines x C channels, 384
+//     contiguous bytes in NHWC at C = 3. Segments of at most 224 outputs,
+//     the line cut evenly (warp_kernel.py column_segment): grid (L / 32, 2,
+//     16) = 448 blocks at 448^2 x 16 (224 outputs, a 376-row strip of 73.7
+//     KB) and (20, 3, 4) = 240 at 640^2 x 4 (214 outputs, 361 rows, 70.8
+//     KB); 3 blocks an SM fit by shared memory, so 1.1 waves and 0.6 of
+//     one. Measured by tune_warp_pass.py on NVIDIA H100 80GB HBM3, 700 W:
+//     0.0348 ms at 448^2 x 16 and 0.0137 ms at 640^2 x 4, against 0.0357
+//     and 0.0145 ms for 16 lines and 256 threads; a full-height strip (80
+//     blocks at 640^2 x 4) 0.0190 ms, segments of at most 160 0.0178 ms.
+//   Banks of the column kernel (counted from the layout): the strip row
+//   pitch is an odd number of 32-bit words (49 at C = 3: 96 values, padded
+//   to 98), so rows fall on rotating banks. A staging store writes one
+//   (row, channel) pair of 32 lines: bf16 values 3 apart over 48 words, two
+//   wavefronts. A compute-phase load reads one value of each of 32 lines
+//   in one or two rows (a line's `m0` differs from its neighbours' by at
+//   most one): 48 words of a row, the next row's rotated by 49 words, so
+//   two or three wavefronts. The old kernel's [16][C][n] tile had rows n / 2
+//   words apart (a multiple of 32 at n = 448 and 640), so a warp's 32
+//   stores or tap reads fell on one or two banks.
 //
 // warp_fused_kernel, both passes in one launch with no scratch in device
 // memory. A 448^2 sample in bf16 (1.2 MB) does not fit in the 227 KB of
@@ -48,20 +98,15 @@
 //   * phase 2, y-pass: a thread takes P consecutive rows of one strip
 //     column, reads T and writes fp32 NHWC: a warp stores a whole row of
 //     the strip, S * C * 4 = 384 contiguous bytes at C = 3.
-// The tap geometry is what costs instructions, so it is shared as far as
-// the math allows: a line's residual taps are found once for all its
-// outputs; output t and t + 1 share a band column, so a run of P outputs
-// needs P + 1 columns, not 2P; and each column is found once for all C
-// channels. uint8 input is staged through a per-channel 256-entry table of
+// uint8 input is staged through a per-channel 256-entry table of
 // bf16(normalise(u)), built once a block: the same division and rounding as
 // the reference's, outside the inner loop. The strip's row pitch is an odd
 // number of 32-bit words (49 at C = 3), so rows fall on rotating banks: the
 // 32 lanes of a phase-2 load read 32 values spread over 48 words of about
 // one row, two wavefronts, where a row pitch that is a multiple of 32 words
-// would put every row a warp touches on the same banks. C is a template
-// parameter (1 to 4) and every index is 32-bit within a sample. P, S and
-// the thread count were chosen by tune_warp_fused.py. Bound: memory, 1 byte
-// in and 4 out an element (48.2 MB at 448^2 x 16, 14.4 us at 3.35 TB/s).
+// would put every row a warp touches on the same banks. P, S and the
+// thread count were chosen by tune_warp_fused.py. Bound: memory, 1 byte in
+// and 4 out an element (48.2 MB at 448^2 x 16, 14.4 us at 3.35 TB/s).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -71,20 +116,39 @@ namespace {
 
 constexpr int K = 12;      // residual half-width (warp_kernel.py:41)
 constexpr int ROWS = 32;   // lines per block-quantisation group (:43)
-constexpr int LB = 16;     // lines per CUDA block of the pass kernel
-constexpr int THREADS = 256;  // threads per block of the pass kernel
 constexpr int S = 32;      // output columns per block of the fused kernel
 constexpr int P = 2;       // consecutive outputs a thread of it computes
 constexpr int FUSED_THREADS = 512;
 constexpr int MAX_C = 4;
-static_assert(ROWS % LB == 0 && ROWS % S == 0 && S % P == 0 &&
-                  FUSED_THREADS % S == 0,
+// Pass kernels; chosen by tune_warp_pass.py. A block of either has at most
+// 1024 / threads * 256 threads' worth of registers: 64 a thread.
+constexpr int ROW_P = 2;       // consecutive outputs a row-kernel thread
+constexpr int ROW_WARPS = 8;   // lines a row-kernel block, one a warp
+constexpr int COL_S = 32;      // lines a column-kernel block stages
+constexpr int COL_P = 2;       // consecutive outputs a column-kernel thread
+constexpr int COL_THREADS = 512;
+static_assert(ROWS % S == 0 && S % P == 0 && FUSED_THREADS % S == 0 &&
+                  ROWS % ROW_WARPS == 0 && ROWS % COL_S == 0 &&
+                  COL_THREADS % COL_S == 0 && COL_THREADS / COL_S >= MAX_C,
               "tiling");
 
-// Row pitch of the fused kernel's strip, in bf16: S * C values rounded up
-// to an odd number of 32-bit words.
-__host__ __device__ constexpr int strip_pitch(int c) {
-  return 2 * (((S * c + 1) / 2) | 1);
+// Row pitch of a bf16 strip of `lines` lines of C values, in bf16: rounded
+// up to an odd number of 32-bit words, so consecutive rows start on
+// rotating banks.
+__host__ __device__ constexpr int strip_pitch(int lines, int c) {
+  return 2 * (((lines * c + 1) / 2) | 1);
+}
+
+// Source rows the column kernel's strip holds for segments of `seg` of `n`
+// outputs: the whole line for one segment, else the window of |alpha| <=
+// 1.5. The band columns of a segment span seg - 1 + 2K, so their taps span
+// at most |alpha| * (seg - 1 + 2K) + 3 rows.
+__host__ __device__ constexpr int window_rows(int seg) {
+  return 3 * (seg + 2 * K) / 2 + 4;
+}
+
+__host__ __device__ constexpr int strip_rows(int n, int seg) {
+  return seg >= n || window_rows(seg) >= n ? n : window_rows(seg);
 }
 
 // clip(1 - |x|, 0, 1), the hat weight of warp_kernel.py:66 and :94.
@@ -120,8 +184,9 @@ __device__ __forceinline__ Resid resid_taps(float r) {
 
 // Band column o = t + m + K of a line, given as j = o - K + base = t + m +
 // base: src(o) = alpha * (j - c) + c, its two source taps i, i + 1 (valid
-// inside [0, n)) and their bf16 hat weights. It depends on the column, not
-// on the channel or on which output uses it.
+// inside [lo, hi), which is [0, n) or a staged window that holds every tap
+// in [0, n) of the columns the outputs use) and their bf16 hat weights. It
+// depends on the column, not on the channel or on which output uses it.
 struct Band {
   float w0, w1;
   int i;
@@ -129,14 +194,14 @@ struct Band {
 };
 
 __device__ __forceinline__ Band band_column(int j, float alpha, float center,
-                                            int n) {
+                                            int lo, int hi) {
   Band g;
   const float x = __fsub_rn((float)j, center);
   const float src = __fadd_rn(__fmul_rn(alpha, x), center);
   const float i0f = floorf(src);
   g.i = (int)i0f;
-  g.ok0 = g.i >= 0 && g.i < n;
-  g.ok1 = g.i + 1 >= 0 && g.i + 1 < n;
+  g.ok0 = g.i >= lo && g.i < hi;
+  g.ok1 = g.i + 1 >= lo && g.i + 1 < hi;
   g.w0 = round_bf16(hat(__fsub_rn(src, i0f)));
   g.w1 = round_bf16(hat(__fsub_rn(src, __fadd_rn(i0f, 1.0f))));
   return g;
@@ -161,79 +226,159 @@ __device__ __forceinline__ float combine(const Resid& q, float g0, float g1) {
   return acc;
 }
 
-// ---------------------------------------------------------------- pass --
-
-// Iteration order over a (line, pos, chan) tile, outermost to innermost.
-// Code = outer * 9 + middle * 3 + inner with line = 0, pos = 1, chan = 2.
-enum Order { LIC = 5, LCI = 7, ILC = 11, ICL = 15, CLI = 19, CIL = 21 };
-
-struct PassParams {
-  int lines, chans, n, nblocks;
-  long long s_b, s_l, s_c, s_i;  // source strides, elements
-  long long d_b, d_l, d_c, d_t;  // destination strides, elements
-  int load_order, store_order;
-  const float* alpha;  // (B,)
-  const int* base;     // (B, lines / ROWS)
-  const float* resid;  // (B, lines)
-  float center;        // n / 2
-};
-
-__device__ __forceinline__ void split(int f, int order, int nl, int ni, int nc,
-                                      int& l, int& i, int& c) {
-  switch (order) {
-    case LIC: c = f % nc; f /= nc; i = f % ni; l = f / ni; break;
-    case LCI: i = f % ni; f /= ni; c = f % nc; l = f / nc; break;
-    case ILC: c = f % nc; f /= nc; l = f % nl; i = f / nl; break;
-    case ICL: l = f % nl; f /= nl; c = f % nc; i = f / nc; break;
-    case CLI: i = f % ni; f /= ni; l = f % nl; c = f / nl; break;
-    default:  l = f % nl; f /= nl; i = f % ni; c = f / ni; break;  // CIL
+// RUN consecutive outputs of one line, all C channels. Output t uses the
+// band columns j = t + m0 + base and j + 1, so the run needs RUN + 1
+// columns, each found once and summed once a channel (`at(i, c)` is the
+// staged input, read only at taps inside [lo, hi)).
+template <int C, int RUN, typename At>
+__device__ __forceinline__ void resample_run(const Resid& q, int j0,
+                                             float alpha, float center,
+                                             int lo, int hi, At at,
+                                             float (&out)[RUN][C]) {
+  float g[RUN + 1][C];
+#pragma unroll
+  for (int k = 0; k <= RUN; ++k) {
+    const Band band = band_column(j0 + k, alpha, center, lo, hi);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      g[k][c] = band_sum(band, [&](int i) { return at(i, c); });
   }
+#pragma unroll
+  for (int t = 0; t < RUN; ++t)
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[t][c] = combine(q, g[t][c], g[t + 1][c]);
 }
 
-__global__ void __launch_bounds__(THREADS)
-warp_pass_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                 PassParams p) {
-  extern __shared__ __nv_bfloat16 tile[];  // [LB][chans][n]
-  const int b = blockIdx.y;
-  const int l0 = blockIdx.x * LB;
-  const int total = LB * p.chans * p.n;
+// ---------------------------------------------------------------- pass --
 
-  const float* s = src + b * p.s_b + l0 * p.s_l;
-  for (int f = threadIdx.x; f < total; f += THREADS) {
-    int l, i, c;
-    split(f, p.load_order, LB, p.n, p.chans, l, i, c);
-    tile[(l * p.chans + c) * p.n + i] =
-        __float2bfloat16_rn(s[l * p.s_l + c * p.s_c + i * p.s_i]);
+struct PassParams {
+  int lines, n, nblocks;
+  int s_l, s_c, s_i;    // source strides within a sample, elements
+  int d_l, d_c, d_t;    // destination strides within a sample, elements
+  long long s_b, d_b;   // sample strides, elements
+  int seg, rows_cap;    // column kernel: outputs a block, strip rows
+  const float* alpha;   // (B,)
+  const int* base;      // (B, lines / ROWS)
+  const float* resid;   // (B, lines)
+  float center;         // n / 2
+};
+
+template <int C>
+__global__ void __launch_bounds__(32 * ROW_WARPS, 1024 / (32 * ROW_WARPS))
+warp_rows_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                 PassParams p) {
+  const int b = blockIdx.z;
+  const int l = blockIdx.y * ROW_WARPS + threadIdx.x / 32;
+  const int t0 = (blockIdx.x * 32 + threadIdx.x % 32) * ROW_P;
+  if (t0 >= p.n) return;
+  const float* s = src + b * p.s_b + l * p.s_l;
+  const Resid q = resid_taps(p.resid[b * p.lines + l]);
+  const int j0 = t0 + q.m0 + p.base[b * p.nblocks + l / ROWS];
+  float o[ROW_P][C];
+  resample_run<C, ROW_P>(q, j0, p.alpha[b], p.center, 0, p.n,
+                         [&](int i, int c) {
+                           return round_bf16(__ldg(s + c * p.s_c +
+                                                   i * p.s_i));
+                         }, o);
+  float* d = dst + b * p.d_b + l * p.d_l + t0 * p.d_t;
+#pragma unroll
+  for (int k = 0; k < ROW_P; ++k)
+    if (t0 + k < p.n)
+#pragma unroll
+      for (int c = 0; c < C; ++c) d[k * p.d_t + c * p.d_c] = o[k][c];
+}
+
+template <int C>
+__global__ void __launch_bounds__(COL_THREADS, 1024 / COL_THREADS)
+warp_cols_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                 PassParams p) {
+  constexpr int PITCH = strip_pitch(COL_S, C);
+  constexpr int STEP = COL_THREADS / COL_S;  // threads a line
+  extern __shared__ __nv_bfloat16 strip[];   // [rows_cap][PITCH]
+  const int b = blockIdx.z;
+  const int l0 = blockIdx.x * COL_S;
+  const int t_begin = blockIdx.y * p.seg;
+  const int t_end = min(t_begin + p.seg, p.n);
+  const float alpha = p.alpha[b];
+  const int base = p.base[b * p.nblocks + l0 / ROWS];
+  const int sl = threadIdx.x % COL_S;
+  const float* line = src + b * p.s_b + (l0 + sl) * p.s_l;
+
+  // The window [lo, hi) of source rows the segment reaches: its outputs
+  // use band columns j = t + m + base, |m| <= K, and src(j) is monotone.
+  const Band first =
+      band_column(t_begin - K + base, alpha, p.center, 0, p.n);
+  const Band last = band_column(t_end - 1 + K + base, alpha, p.center, 0, p.n);
+  const int lo = max(min(first.i, last.i), 0);
+  const int hi = min(max(first.i, last.i) + 2, p.n);
+  const bool staged = hi - lo <= p.rows_cap;  // uniform over the block
+  // Staging: thread (sl, c, r0) loads channel c of rows r0, r0 + RSTEP, ...
+  // of line sl; the 32 lines of a (row, channel) pair are one warp's lanes.
+  // STEP % C threads a line stay idle here (1 of 16 at C = 3).
+  constexpr int RSTEP = STEP / C;
+  const int c_own = threadIdx.x / COL_S % C;
+  const int r_own = threadIdx.x / COL_S / C;
+  if (staged && r_own < RSTEP) {
+    const float* from = line + c_own * p.s_c;
+    __nv_bfloat16* to = strip + sl * C + c_own;
+    for (int r = lo + r_own; r < hi; r += RSTEP)
+      to[(r - lo) * PITCH] = __float2bfloat16_rn(__ldg(from + r * p.s_i));
   }
   __syncthreads();
 
-  const float alpha = p.alpha[b];
-  const int base = p.base[b * p.nblocks + l0 / ROWS];
-  const float* resid = p.resid + b * p.lines + l0;
-  float* d = dst + b * p.d_b + l0 * p.d_l;
-  for (int f = threadIdx.x; f < total; f += THREADS) {
-    int l, t, c;
-    split(f, p.store_order, LB, p.n, p.chans, l, t, c);
-    const __nv_bfloat16* row = tile + (l * p.chans + c) * p.n;
-    auto at = [&](int i) { return __bfloat162float(row[i]); };
-    const Resid q = resid_taps(resid[l]);
-    const int j = t + q.m0 + base;
-    d[l * p.d_l + c * p.d_c + t * p.d_t] = combine(
-        q, q.ok[0] ? band_sum(band_column(j, alpha, p.center, p.n), at) : 0.f,
-        q.ok[1] ? band_sum(band_column(j + 1, alpha, p.center, p.n), at)
-                : 0.f);
+  const int l = l0 + sl;
+  const Resid q = resid_taps(p.resid[b * p.lines + l]);
+  const int jq = q.m0 + base;
+  float* d = dst + b * p.d_b + l * p.d_l;
+  auto run = [&](int tap_lo, int tap_hi, auto at) {
+    for (int t = t_begin + threadIdx.x / COL_S * COL_P; t < t_end;
+         t += STEP * COL_P) {
+      float o[COL_P][C];
+      resample_run<C, COL_P>(q, t + jq, alpha, p.center, tap_lo, tap_hi, at,
+                             o);
+#pragma unroll
+      for (int k = 0; k < COL_P; ++k)
+        if (t + k < t_end)
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            d[(t + k) * p.d_t + c * p.d_c] = o[k][c];
+    }
+  };
+  if (staged) {
+    const int off = sl * C - lo * PITCH;  // row i of the window at i * PITCH
+    run(lo, hi, [&](int i, int c) {
+      return __bfloat162float(strip[off + i * PITCH + c]);
+    });
+  } else {
+    run(0, p.n, [&](int i, int c) {
+      return round_bf16(__ldg(line + c * p.s_c + i * p.s_i));
+    });
   }
 }
 
-int order_of(long long sl, long long si, long long sc) {
-  // Roles sorted by stride, largest (outermost) first; ties keep role order.
-  long long s[3] = {sl, si, sc};
-  int r[3] = {0, 1, 2};
-  for (int a = 0; a < 3; ++a)
-    for (int b = a + 1; b < 3; ++b)
-      if (s[r[b]] > s[r[a]]) { int t = r[a]; r[a] = r[b]; r[b] = t; }
-  return r[0] * 9 + r[1] * 3 + r[2];
+template <int C>
+int launch_pass(int kernel, const float* src, float* dst, const PassParams& p,
+                int batch, cudaStream_t stream) {
+  if (kernel == 0) {
+    dim3 grid((p.n + 32 * ROW_P - 1) / (32 * ROW_P), p.lines / ROW_WARPS,
+              batch);
+    warp_rows_kernel<C><<<grid, 32 * ROW_WARPS, 0, stream>>>(src, dst, p);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem =
+      (size_t)p.rows_cap * strip_pitch(COL_S, C) * sizeof(__nv_bfloat16);
+  auto fn = warp_cols_kernel<C>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid(p.lines / COL_S, (p.n + p.seg - 1) / p.seg, batch);
+  fn<<<grid, COL_THREADS, smem, stream>>>(src, dst, p);
+  return (int)cudaGetLastError();
 }
+
+bool fits_int(long long v) { return v >= 0 && v <= 0x7fffffffLL; }
 
 // --------------------------------------------------------------- fused --
 
@@ -264,33 +409,12 @@ __device__ __forceinline__ float normalise(float v, float m255, float s255) {
   return __fdiv_rn(__fsub_rn(v, m255), s255);
 }
 
-// P consecutive outputs of one line, all C channels. Output t uses the band
-// columns j = t + m0 + base and j + 1, so the run needs P + 1 columns, each
-// found once and summed once a channel (`at(i, c)` is the staged input).
-template <int C, typename At>
-__device__ __forceinline__ void resample_run(const Resid& q, int j0,
-                                             float alpha, float center, int n,
-                                             At at, float (&out)[P][C]) {
-  float g[P + 1][C];
-#pragma unroll
-  for (int k = 0; k <= P; ++k) {
-    const Band band = band_column(j0 + k, alpha, center, n);
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      g[k][c] = band_sum(band, [&](int i) { return at(i, c); });
-  }
-#pragma unroll
-  for (int t = 0; t < P; ++t)
-#pragma unroll
-    for (int c = 0; c < C; ++c) out[t][c] = combine(q, g[t][c], g[t + 1][c]);
-}
-
 template <typename Tin, int C>
 __global__ void __launch_bounds__(FUSED_THREADS, 1)
 warp_fused_kernel(const Tin* __restrict__ src, float* __restrict__ dst,
                   FusedParams p) {
   constexpr bool kU8 = sizeof(Tin) == 1;
-  constexpr int PITCH = strip_pitch(C);
+  constexpr int PITCH = strip_pitch(S, C);
   constexpr int RUNS = S / P;  // threads a row of the strip in phase 1
   extern __shared__ float smem[];
   float* lut = smem;  // [C][256] staged values of a uint8 channel
@@ -328,7 +452,7 @@ warp_fused_kernel(const Tin* __restrict__ src, float* __restrict__ dst,
     const int j0 = x0 + t1 + q.m0 + p.base_x[b * (h / ROWS) + v / ROWS];
     const Tin* row = s + v * w * C;
     float o[P][C];
-    resample_run<C>(q, j0, ax, cx, w, [&](int i, int c) {
+    resample_run<C, P>(q, j0, ax, cx, 0, w, [&](int i, int c) {
       if constexpr (kU8) {
         return lut[c * 256 + row[i * C + c]];
       } else {
@@ -356,7 +480,7 @@ warp_fused_kernel(const Tin* __restrict__ src, float* __restrict__ dst,
   for (int y0 = threadIdx.x / S * P; y0 < h;
        y0 += FUSED_THREADS / S * P) {
     float o[P][C];
-    resample_run<C>(q, y0 + j0, ay, cy, h, [&](int i, int c) {
+    resample_run<C, P>(q, y0 + j0, ay, cy, 0, h, [&](int i, int c) {
       return __bfloat162float(col[i * PITCH + c]);
     }, o);
 #pragma unroll
@@ -370,7 +494,7 @@ template <typename Tin, int C>
 int launch_fused(const void* src, float* dst, const FusedParams& p,
                  int batch, cudaStream_t stream) {
   const size_t smem = (sizeof(Tin) == 1 ? C * 256 * sizeof(float) : 0) +
-                      (size_t)p.h * strip_pitch(C) * sizeof(__nv_bfloat16);
+                      (size_t)p.h * strip_pitch(S, C) * sizeof(__nv_bfloat16);
   auto kernel = warp_fused_kernel<Tin, C>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -399,41 +523,51 @@ int launch_fused_c(int chans, const void* src, float* dst,
 
 // One resample pass over a (B, lines, chans, n) fp32 view of `src` into a
 // view of the same shape of `dst`, each given by its element strides
-// (b, l, c, i). Returns 0 or the CUDA error code of the launch.
+// (b, l, c, i); the l, c and i strides must fit 32 bits. `kernel` is 0 for
+// warp_rows_kernel, 1 for warp_cols_kernel; `seg` is the outputs a block of
+// the column kernel covers (n or more: the whole line). More than 4
+// channels run as launches of up to 4. Returns 0 or the CUDA error code of
+// the first launch that failed.
 extern "C" int d3f_warp_pass(const float* src, float* dst, int batch,
                              int lines, int chans, int n,
                              const long long* src_strides,
                              const long long* dst_strides, const float* alpha,
-                             const int* base, const float* resid,
-                             void* stream) {
-  if (batch <= 0 || lines <= 0 || lines % ROWS || chans <= 0 || n <= 0)
+                             const int* base, const float* resid, int kernel,
+                             int seg, void* stream) {
+  if (batch <= 0 || batch > 65535 || lines <= 0 || lines % ROWS ||
+      chans <= 0 || n <= 0 || (kernel != 0 && kernel != 1) || seg <= 0)
     return (int)cudaErrorInvalidValue;
+  for (int k = 1; k < 4; ++k)
+    if (!fits_int(src_strides[k]) || !fits_int(dst_strides[k]))
+      return (int)cudaErrorInvalidValue;
   PassParams p;
   p.lines = lines;
-  p.chans = chans;
   p.n = n;
   p.nblocks = lines / ROWS;
-  p.s_b = src_strides[0]; p.s_l = src_strides[1];
-  p.s_c = src_strides[2]; p.s_i = src_strides[3];
-  p.d_b = dst_strides[0]; p.d_l = dst_strides[1];
-  p.d_c = dst_strides[2]; p.d_t = dst_strides[3];
-  p.load_order = order_of(p.s_l, p.s_i, p.s_c);
-  p.store_order = order_of(p.d_l, p.d_t, p.d_c);
+  p.s_b = src_strides[0]; p.s_l = (int)src_strides[1];
+  p.s_c = (int)src_strides[2]; p.s_i = (int)src_strides[3];
+  p.d_b = dst_strides[0]; p.d_l = (int)dst_strides[1];
+  p.d_c = (int)dst_strides[2]; p.d_t = (int)dst_strides[3];
+  p.seg = seg < n ? seg : n;
+  p.rows_cap = strip_rows(n, p.seg);
   p.alpha = alpha;
   p.base = base;
   p.resid = resid;
   p.center = (float)n / 2.0f;
-  const size_t smem = (size_t)LB * chans * n * sizeof(__nv_bfloat16);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        warp_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (int c0 = 0; c0 < chans; c0 += MAX_C) {
+    const float* gs = src + (size_t)c0 * p.s_c;
+    float* gd = dst + (size_t)c0 * p.d_c;
+    int err = (int)cudaErrorInvalidValue;
+    switch (chans - c0 < MAX_C ? chans - c0 : MAX_C) {
+      case 1: err = launch_pass<1>(kernel, gs, gd, p, batch, s); break;
+      case 2: err = launch_pass<2>(kernel, gs, gd, p, batch, s); break;
+      case 3: err = launch_pass<3>(kernel, gs, gd, p, batch, s); break;
+      case 4: err = launch_pass<4>(kernel, gs, gd, p, batch, s); break;
+    }
+    if (err) return err;
   }
-  dim3 grid(lines / LB, batch);
-  warp_pass_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      src, dst, p);
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 // The fused warp of a contiguous NHWC batch (uint8 when `in_u8`, else fp32)

@@ -49,27 +49,18 @@ def variant_source(text: str, s: int, threads: int, min_blocks: int,
 
 def build_all(names: list[str], out: Path) -> dict[str, Path]:
     text = (_build._CSRC / "warp.cu").read_text()
-    procs = {}
-    for name in names:
-        src = out / f"warp_{name.replace(':', '_')}.cu"
-        src.write_text(variant_source(text, *map(int, name.split(":"))))
-        lib = src.with_suffix(".so")
-        procs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
-            stderr=subprocess.PIPE, text=True))
+    built = _build.build_variants(
+        {f"warp_{name}": variant_source(text, *map(int, name.split(":")))
+         for name in names}, out)
     libs = {}
-    for name, (lib, proc) in procs.items():
-        report = proc.communicate()[1]
-        if proc.returncode:
-            print(f"{name}: nvcc failed\n{report}")
-            continue
-        # The uint8, 3-channel instantiation is the one the main path runs.
-        lines = report.splitlines()
-        for i, line in enumerate(lines):
-            if "warp_fused_kernelIhLi3" in line:
-                print(f"{name}: " + " ".join(
-                    x.strip() for x in lines[i + 1:i + 3]))
-        libs[name] = lib
+    for name in names:
+        if f"warp_{name}" in built:
+            lib, report = built[f"warp_{name}"]
+            # The uint8, 3-channel instantiation is the one the main path
+            # runs.
+            print(f"{name}: "
+                  + _build.ptxas_summary(report, "warp_fused_kernelIhLi3"))
+            libs[name] = lib
     return libs
 
 

@@ -2,20 +2,26 @@
 
 Replaces the Pallas TPU kernel ``warp_axis_pass_pallas``
 (``denoising_diffusion_deep_fake_tpu/ops/pallas/warp_kernel.py:126``) and its
-caller ``affine_warp_pallas`` (``:180-208``). The kernel is
-``csrc/warp.cu``; its notes say how it is laid out on the H100 and what
-bounds it (memory: one read and one write of the fp32 batch per pass, 77.1
-MB and 23.0 us at 448^2 x 16 on 3.35 TB/s).
+caller ``affine_warp_pallas`` (``:180-208``). The kernels are
+``warp_rows_kernel`` and ``warp_cols_kernel`` in ``csrc/warp.cu``; its notes
+say how each is laid out on the H100 and what bounds them (memory: one read
+and one write of the fp32 batch per pass, 77.1 MB and 23.0 us at 448^2 x 16,
+39.3 MB and 11.7 us at 640^2 x 4, on 3.35 TB/s).
 
-Beside it, the plain PyTorch version of the same function, written as the
+Beside them, the plain PyTorch version of the same function, written as the
 TPU kernel computes it: the banded hat matrix (``band_matrix``) applied as a
 bf16-valued fp32 matmul, then the 25-tap residual MAC (``residual_mac``).
-It runs for CPU tensors and is the yardstick the kernel is held to on the
-card; a CUDA tensor always goes to the kernel.
+It runs for CPU tensors and is the yardstick the kernels are held to on the
+card; a CUDA tensor always goes to a kernel.
 
 Layout: a pass resamples the last axis of a ``(B, L, C, N)`` view (L
-lines, C channels, N positions); the kernel reads and writes any strides,
-so the callers hand it permuted views and no transpose is materialised.
+lines, C channels, N positions); the kernels read and write any strides,
+so the callers hand them permuted views and no transpose is materialised.
+Both kernels are right for every layout. ``pass_kernel`` picks the one
+laid out for the source: the row kernel where positions lie closer together
+in memory than lines (the x-pass from NHWC, a contiguous ``(B, H, C, W)``
+batch), the column kernel where lines do (the y-pass from the planar
+intermediate).
 """
 
 from __future__ import annotations
@@ -32,8 +38,13 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.cuda._build import (
 K = 12               # residual half-width (warp_kernel.py:41)
 TAPS = 2 * K + 1
 ROWS = 32            # lines per block-quantisation group
-_LINES_PER_CTA = 16  # csrc/warp.cu LB
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+# csrc/warp.cu warp_rows_kernel and warp_cols_kernel, as d3f_warp_pass numbers
+# them.
+PASS_KERNELS = ("rows", "cols")
+COL_LINES = 32       # lines a column-kernel block stages (csrc/warp.cu COL_S)
+COL_SEG = 224        # most outputs a column-kernel block covers (tuned)
+_GROUP = 4           # channels a launch takes (csrc/warp.cu MAX_C)
 
 
 def band_matrix(alpha, base, n_in: int, n_win: int) -> torch.Tensor:
@@ -148,7 +159,7 @@ def _warp_lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, i64x4, i64x4,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -168,31 +179,83 @@ def check_scalars(b: int, lines: int, alpha: torch.Tensor,
         raise ValueError("resid must be a contiguous float32 (B, L) tensor")
 
 
+def pass_kernel(src_stride) -> str:
+    """The pass kernel laid out for a ``(B, L, C, N)`` source of these
+    strides: ``"rows"`` where positions lie closer together in memory than
+    lines, else ``"cols"``. Either is right for any strides."""
+    return "rows" if src_stride[3] < src_stride[1] else "cols"
+
+
+def column_segment(n: int, most: int = COL_SEG) -> int:
+    """Outputs a column-kernel block covers: the line cut into equal
+    segments of at most ``most``, rounded up to an even count (a thread
+    computes two consecutive outputs)."""
+    k = -(-n // most)
+    seg = -(-n // k)
+    return seg + seg % 2
+
+
+def strip_bytes(n: int, c: int, seg: int) -> int:
+    """Shared memory a column-kernel block takes (csrc/warp.cu
+    ``strip_rows``, ``strip_pitch``): the bf16 strip of ``COL_LINES`` lines
+    of up to 4 channels, rows padded to an odd number of 32-bit words; the
+    whole line for one segment, else the window of ``|alpha| <= 1.5``."""
+    window = 3 * (seg + 2 * K) // 2 + 4
+    rows = n if seg >= n or window >= n else window
+    pitch = 2 * (((COL_LINES * min(c, _GROUP) + 1) // 2) | 1)
+    return rows * pitch * 2
+
+
+def check_pass_layout(shape, src_stride, dst_stride, kernel: str,
+                      seg: int) -> None:
+    """Raise where a pass kernel cannot take these ``(B, L, C, N)`` views;
+    shapes and strides only, so it runs before anything is built."""
+    b, l, c, n = shape
+    if l % ROWS:
+        raise ValueError(f"lines={l} must be a multiple of {ROWS}")
+    if not 1 <= b < 65536 or min(l, c, n) < 1:
+        raise ValueError(f"shape {tuple(shape)}: every size must be at "
+                         "least 1 and the batch below 65536")
+    if any(st == 0 for st, d in zip(dst_stride, shape) if d > 1):
+        raise ValueError("dst overlaps itself (an expanded view): the "
+                         "kernel's blocks would race on it")
+    for stride in (src_stride, dst_stride):
+        if sum((d - 1) * st for d, st in zip(shape[1:], stride[1:])) >= 2**31:
+            raise ValueError("a sample must span fewer than 2^31 elements: "
+                             "the kernels index within a sample in 32 bits")
+    if kernel not in PASS_KERNELS:
+        raise ValueError(f"kernel {kernel!r} is not one of {PASS_KERNELS}")
+    if seg < 1:
+        raise ValueError(f"seg={seg} must be at least 1")
+    if kernel == "cols" and strip_bytes(n, c, seg) > SMEM_LIMIT:
+        raise ValueError(f"a strip of {min(n, seg)} outputs of {n} needs "
+                         f"{strip_bytes(n, c, seg)} bytes of shared memory, "
+                         f"over the {SMEM_LIMIT} a block may use")
+
+
 def launch_pass(src: torch.Tensor, dst: torch.Tensor, alpha: torch.Tensor,
-                base: torch.Tensor, resid: torch.Tensor) -> None:
+                base: torch.Tensor, resid: torch.Tensor, *,
+                kernel: str | None = None, seg: int | None = None) -> None:
     """Launch one resample pass of ``csrc/warp.cu`` on the current stream.
 
     ``src`` and ``dst`` are fp32 ``(B, L, C, N)`` views of GPU tensors (any
-    strides).
+    strides). ``kernel`` is ``"rows"`` or ``"cols"`` (default:
+    ``pass_kernel`` of the source's strides); ``seg`` the outputs a
+    column-kernel block covers (default: ``column_segment``).
     """
     if src.dim() != 4 or src.shape != dst.shape:
         raise ValueError(f"src {tuple(src.shape)} and dst "
                          f"{tuple(dst.shape)} must be one (B, L, C, N) shape")
     b, l, c, n = src.shape
-    if l % ROWS:
-        raise ValueError(f"lines={l} must be a multiple of {ROWS}")
-    if any(st == 0 for st, d in zip(dst.stride(), dst.shape) if d > 1):
-        raise ValueError("dst overlaps itself (an expanded view): the "
-                         "kernel's blocks would race on it")
-    if _LINES_PER_CTA * c * n * 2 > SMEM_LIMIT:
-        raise ValueError(f"a line of {c}x{n} does not fit the kernel's "
-                         "shared-memory tile")
+    kernel = kernel or pass_kernel(src.stride())
+    seg = column_segment(n) if seg is None else seg
+    check_pass_layout(src.shape, src.stride(), dst.stride(), kernel, seg)
     for t in (src, dst, alpha, base, resid):
         if t.device != src.device or t.device.type != "cuda":
             raise ValueError("every operand must be on the same CUDA device")
     if src.dtype != torch.float32 or dst.dtype != torch.float32:
         raise TypeError(f"unsupported pass {src.dtype} -> {dst.dtype}: the "
-                        "pass kernel takes fp32 to fp32")
+                        "pass kernels take fp32 to fp32")
     check_scalars(b, l, alpha, base, resid)
 
     fn = _warp_lib().d3f_warp_pass
@@ -200,7 +263,7 @@ def launch_pass(src: torch.Tensor, dst: torch.Tensor, alpha: torch.Tensor,
     stream = torch.cuda.current_stream(src.device).cuda_stream
     err = fn(src.data_ptr(), dst.data_ptr(), b, l, c, n, strides[0],
              strides[1], alpha.data_ptr(), base.data_ptr(), resid.data_ptr(),
-             stream)
+             PASS_KERNELS.index(kernel), seg, stream)
     if err != 0:
         raise RuntimeError(f"warp pass kernel launch failed: CUDA error "
                            f"{err}")

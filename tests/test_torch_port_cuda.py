@@ -130,7 +130,8 @@ def test_fused_kernel_is_one_launch_without_scratch(cuda):
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert sum("warp_fused_kernel" in n for n in names) == 1
-    assert not any("warp_pass_kernel" in n for n in names)
+    assert not any("warp_rows_kernel" in n or "warp_cols_kernel" in n
+                   for n in names)
 
 
 def test_fused_launcher_rejects_what_the_kernel_cannot_take(cuda):
@@ -165,6 +166,114 @@ def test_twopass_kernel_matches_plain(cuda, shape):
     assert LAUNCHES["warp_axis_pass"] == before + 2
     want = pf.affine_warp_fused_plain(x, coeffs, None)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rows", [EXTREMES, IDENTITY],
+                         ids=["extremes", "identity"])
+@pytest.mark.parametrize("hw", [(640, 640), (96, 64)])
+def test_twopass_kernel_matches_plain_at_fixed_params(cuda, rows, hw):
+    h, w = hw
+    x = torch.randn((len(rows), h, w, 3),
+                    generator=torch.Generator().manual_seed(13)).to(cuda)
+    coeffs = _coeffs(_fixed_params(rows, cuda), h, w)
+    got = pk.affine_warp_twopass_coeffs(x, coeffs)
+    assert torch.equal(got, pk.affine_warp_twopass_plain(x, coeffs))
+
+
+def test_twopass_route_is_one_row_and_one_column_launch(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn((4, 640, 640, 3), device=cuda)
+    coeffs = _coeffs(_params(4, 14, cuda), 640, 640)
+    pk.affine_warp_twopass_coeffs(x, coeffs)  # builds it
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pk.affine_warp_twopass_coeffs(x, coeffs)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("warp_rows_kernel" in n for n in names) == 1
+    assert sum("warp_cols_kernel" in n for n in names) == 1
+
+
+def _pass_case(layout, b, lines, n, c, device):
+    """``(src, dst)`` fp32 ``(B, L, C, N)`` views: the x-pass (NHWC source,
+    planar destination), the y-pass (planar source, NHWC destination), a
+    contiguous ``(B, H, C, W)`` batch, and a sliced source that is
+    contiguous along no axis."""
+    g = torch.Generator().manual_seed(lines * n + c)
+    if layout == "x-pass":
+        src = torch.randn((b, lines, n, c), generator=g).to(device)
+        return (src.permute(0, 1, 3, 2), torch.empty(
+            (b, c, lines, n), device=device).permute(0, 2, 1, 3))
+    if layout == "y-pass":
+        src = torch.randn((b, c, n, lines), generator=g).to(device)
+        return (src.permute(0, 3, 1, 2), torch.empty(
+            (b, n, lines, c), device=device).permute(0, 2, 3, 1))
+    dst = torch.empty((b, lines, c, n), device=device)
+    if layout == "bhcw":
+        return torch.randn((b, lines, c, n), generator=g).to(device), dst
+    src = torch.randn((b, lines + 3, c + 2, 2 * n + 5), generator=g)
+    return src.to(device)[:, 1:lines + 1, 1:c + 1, 3:2 * n + 3:2], dst
+
+
+def _pass_scalars(b, lines, n, device, lo=0.8, hi=1.25, seed=15):
+    g = torch.Generator().manual_seed(seed)
+    alpha = lo + (hi - lo) * torch.rand(b, generator=g)
+    shift = (20 * torch.rand(b, 1, generator=g) - 10
+             + 0.2 * torch.arange(lines)[None])
+    return alpha.to(device), shift.to(device)
+
+
+@pytest.mark.parametrize("kernel", ["rows", "cols"])
+@pytest.mark.parametrize("layout", ["x-pass", "y-pass", "bhcw", "sliced"])
+@pytest.mark.parametrize("shape", [(4, 640, 640, 3), (2, 96, 64, 3),
+                                   (2, 64, 96, 1), (2, 64, 45, 4),
+                                   (2, 32, 100, 5), (2, 64, 70, 3)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_each_pass_kernel_matches_plain_on_each_layout(cuda, kernel, layout,
+                                                       shape):
+    b, lines, n, c = shape
+    src, dst = _pass_case(layout, b, lines, n, c, cuda)
+    assert src.shape == dst.shape == (b, lines, c, n)
+    alpha, shift = _pass_scalars(b, lines, n, cuda)
+    base, resid = pk.pass_scalars(alpha, shift, n)
+    dst.fill_(float("nan"))
+    pk.launch_pass(src, dst, alpha, base, resid, kernel=kernel)
+    want = pk.warp_axis_pass_plain(src, alpha, shift)
+    torch.cuda.synchronize()
+    assert torch.equal(dst, want)
+
+
+@pytest.mark.parametrize("alpha_range", [(2.0, 3.0), (-1.3, -0.7),
+                                         (0.1, 0.3)])
+@pytest.mark.parametrize("seg", [10, 40, 96])
+def test_column_kernel_windows_match_plain(cuda, alpha_range, seg):
+    # Segments shorter than the line; alpha beyond the strip's room (the
+    # direct reads), negative, and small.
+    b, lines, n, c = 2, 64, 96, 3
+    src, dst = _pass_case("y-pass", b, lines, n, c, cuda)
+    alpha, shift = _pass_scalars(b, lines, n, cuda, *alpha_range)
+    base, resid = pk.pass_scalars(alpha, shift, n)
+    dst.fill_(float("nan"))
+    pk.launch_pass(src, dst, alpha, base, resid, kernel="cols", seg=seg)
+    assert torch.equal(dst, pk.warp_axis_pass_plain(src, alpha, shift))
+
+
+def test_pass_launcher_raises_before_any_launch(cuda):
+    # One segment of 2400 outputs: a 470,400-byte strip at C = 3.
+    src, dst = _pass_case("y-pass", 1, 32, 2400, 3, cuda)
+    alpha, shift = _pass_scalars(1, 32, 2400, cuda)
+    base, resid = pk.pass_scalars(alpha, shift, 2400)
+    dst.fill_(float("nan"))
+    with pytest.raises(ValueError, match="shared memory"):
+        pk.launch_pass(src, dst, alpha, base, resid, kernel="cols",
+                       seg=2400)
+    torch.cuda.synchronize()
+    assert dst.isnan().all()
+    # The default segments take the same line.
+    pk.launch_pass(src, dst, alpha, base, resid)
+    assert torch.equal(dst, pk.warp_axis_pass_plain(src, alpha, shift))
 
 
 def test_axis_pass_kernel_matches_plain(cuda):

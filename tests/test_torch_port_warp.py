@@ -60,6 +60,81 @@ def test_axis_pass_plain_matches_pallas_exactly():
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("c", [1, 5])
+def test_axis_pass_plain_matches_pallas_exactly_other_channels(c):
+    rng = np.random.default_rng(10 + c)
+    img = rng.standard_normal((B, 32, c, 80)).astype(np.float32)
+    alpha = rng.uniform(0.8, 1.25, B).astype(np.float32)
+    shift = (rng.uniform(-10, 10, (B, 1))
+             + 0.2 * np.arange(32)[None]).astype(np.float32)
+    ref = np.asarray(jk.warp_axis_pass_pallas(
+        jnp.asarray(img), jnp.asarray(alpha), jnp.asarray(shift),
+        interpret=True))
+    got = pk.warp_axis_pass_plain(torch.from_numpy(img),
+                                  torch.from_numpy(alpha),
+                                  torch.from_numpy(shift))
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _pass_views(layout, b=1, lines=64, n=96, c=3):
+    """``(src, dst)`` ``(B, L, C, N)`` views of the two-pass route's layouts
+    and of a contiguous ``(B, H, C, W)`` batch."""
+    if layout == "x-pass":     # NHWC source -> planar intermediate
+        return (torch.zeros((b, lines, n, c)).permute(0, 1, 3, 2),
+                torch.zeros((b, c, lines, n)).permute(0, 2, 1, 3))
+    if layout == "y-pass":     # planar intermediate -> NHWC output
+        return (torch.zeros((b, c, n, lines)).permute(0, 3, 1, 2),
+                torch.zeros((b, n, lines, c)).permute(0, 2, 3, 1))
+    return torch.zeros((b, lines, c, n)), torch.zeros((b, lines, c, n))
+
+
+@pytest.mark.parametrize("layout,kernel", [("x-pass", "rows"),
+                                           ("y-pass", "cols"),
+                                           ("bhcw", "rows")])
+def test_pass_kernel_is_picked_from_the_source_strides(layout, kernel):
+    src, dst = _pass_views(layout)
+    assert pk.pass_kernel(src.stride()) == kernel
+    # Square or not, the choice follows the layout, not the sizes.
+    src, dst = _pass_views(layout, lines=32, n=7)
+    assert pk.pass_kernel(src.stride()) == kernel
+
+
+def test_column_segments_cover_the_line_within_the_strip():
+    for n in (1, 7, 64, 96, 160, 161, 448, 640, 1000, 4096):
+        seg = pk.column_segment(n)
+        assert seg % 2 == 0 or seg >= n
+        assert -(-n // seg) * seg >= n and seg <= max(pk.COL_SEG, 2)
+        assert pk.strip_bytes(n, 4, seg) <= pk.SMEM_LIMIT
+    assert (pk.column_segment(448), pk.column_segment(640)) == (224, 214)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("lines", "multiple"), ("strip", "shared memory"), ("span", "2\\^31"),
+    ("kernel", "kernel")])
+def test_pass_launcher_checks_raise_before_anything_is_built(case, match):
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import _build
+
+    built = dict(_build._libs)
+    src, dst = _pass_views("y-pass", lines=32, n=64)
+    alpha, base = torch.ones(1), torch.zeros((1, 1), dtype=torch.int32)
+    resid = torch.zeros((1, 32))
+    with pytest.raises(ValueError, match=match):
+        if case == "lines":
+            src, dst = _pass_views("x-pass", lines=40)
+            pk.launch_pass(src, dst, alpha, base, resid)
+        elif case == "strip":
+            # 2400 outputs in one segment: a 470,400-byte strip at C = 3.
+            src, dst = _pass_views("y-pass", lines=32, n=2400)
+            pk.launch_pass(src, dst, alpha, base, resid, kernel="cols",
+                           seg=2400)
+        elif case == "span":
+            pk.check_pass_layout((1, 32, 3, 64), (0, 2 ** 27, 1, 2 ** 20),
+                                 dst.stride(), "rows", 64)
+        else:
+            pk.launch_pass(src, dst, alpha, base, resid, kernel="diagonal")
+    assert dict(_build._libs) == built
+
+
 def test_pass_scalars_match_pallas():
     rng = np.random.default_rng(1)
     alpha = rng.uniform(0.8, 1.25, B).astype(np.float32)
