@@ -18,7 +18,8 @@ Phases, in order; any failure exits non-zero:
    recorded only); the noise kernels'
    Philox words bit-equal, their outputs within one ulp (share of differing
    elements stated), ratio 0 exactly the normalisation, and the noise's
-   moments, bound, cross-sample correlation and determinism;
+   moments, bound, cross-sample correlation and determinism, each noise
+   kernel timed alone by CUDA-graph replay;
 4. a small-input reference: one fp32 train step at 64^2 on the GPU against
    the same step on the CPU (plain versions), from the same weights and
    the same injected randomness;
@@ -153,7 +154,7 @@ def compare(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
 
 def compare_ulp(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     """Noise kernel vs plain version: within one ulp of the plain value
-    (CUDA's logf/sinf/cosf against PyTorch's CUDA log/sin/cos)."""
+    (CUDA's logf/sincosf against PyTorch's CUDA log/sin/cos)."""
     torch.cuda.synchronize()
     diff = (got - want).abs()
     ulp = torch.nextafter(want.abs(), torch.full_like(want, math.inf)) \
@@ -184,6 +185,8 @@ def noise_checks(dev) -> dict:
     448^2 x 16 (the denoiser's noise stage)."""
     from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import (
         noise_kernel as nk)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.bench_warp_pass \
+        import graph_ms
     from denoising_diffusion_deep_fake_tpu_torch.ops.noise import blend_noise
 
     rng = np.random.default_rng(SEED + 3)
@@ -226,12 +229,18 @@ def noise_checks(dev) -> dict:
                                            offset=offset + 1)
     check(float((other != eps).float().mean()) > 0.99,
           "another offset gives the same noise")
-    # Timed with a preallocated output, so the host's launch rate stays
-    # below the kernel's; the wrapper (allocation included) beside it.
+    # Timed into a preallocated output by CUDA-graph replay (the launch
+    # alone: the wrapper's checks take about as long on the host as the
+    # kernel on the card); the launch loop, which includes that host time,
+    # and the wrapper (allocation included) beside it.
     norm = nk.noise_constants(*HALF, c)
     out = torch.empty(u8.shape, dtype=torch.float32, device=dev)
-    ms = time_ms(lambda: nk.launch_blend(u8, out, ones, norm, seed=seed,
-                                         offset=offset), 50)
+
+    def launch_u8():
+        nk.launch_blend(u8, out, ones, norm, seed=seed, offset=offset)
+
+    ms = graph_ms(launch_u8)
+    loop_ms = time_ms(launch_u8, 50)
     wrapper_ms = time_ms(lambda: nk.fused_normalise_noise_blend(
         u8, ones, *HALF, seed=seed, offset=offset), 50)
     plain_ms = time_ms(lambda: nk.fused_normalise_noise_blend_plain(
@@ -239,12 +248,13 @@ def noise_checks(dev) -> dict:
     bound_ms, bound_by = bound(
         n * (1 + 4) + 4 * b, n * NOISE_FP_OPS["fused_normalise_noise_blend"],
         n * NOISE_INT_OPS)
-    log(f"  u8 448^2 x12: kernel {ms:.4f} ms (wrapper {wrapper_ms:.4f} ms), "
+    log(f"  u8 448^2 x12: kernel {ms:.4f} ms by graph replay (launch loop, "
+        f"host-inclusive, {loop_ms:.4f} ms; wrapper {wrapper_ms:.4f} ms), "
         f"plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
-        f"({bound_by})")
+        f"({bound_by}), {bound_ms / ms:.0%} of it")
     results["fused_normalise_noise_blend"] = dict(
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by)
+        max_abs_err=max(errs), ms=ms, launch_loop_ms=loop_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
     # fp32: the denoiser's noise stage after the warp.
     b = 16
@@ -266,8 +276,12 @@ def noise_checks(dev) -> dict:
                                                 offset=offset)),
           "not deterministic")
     out = torch.empty_like(x)
-    ms = time_ms(lambda: nk.launch_blend(x, out, ratios, None, seed=seed,
-                                         offset=offset), 50)
+
+    def launch_f32():
+        nk.launch_blend(x, out, ratios, None, seed=seed, offset=offset)
+
+    ms = graph_ms(launch_f32)
+    loop_ms = time_ms(launch_f32, 50)
     wrapper_ms = time_ms(lambda: nk.fused_noise_blend(
         x, ratios, seed=seed, offset=offset), 50)
     plain_ms = time_ms(lambda: nk.fused_noise_blend_plain(
@@ -281,10 +295,13 @@ def noise_checks(dev) -> dict:
     bound_ms, bound_by = bound(n * (4 + 4) + 4 * b,
                                n * NOISE_FP_OPS["fused_noise_blend"],
                                n * NOISE_INT_OPS)
-    log(f"  f32 448^2 x16: kernel {ms:.4f} ms (wrapper {wrapper_ms:.4f} "
-        f"ms), plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}); the PyTorch stage it "
+    log(f"  f32 448^2 x16: kernel {ms:.4f} ms by graph replay (launch loop, "
+        f"host-inclusive, {loop_ms:.4f} ms; wrapper {wrapper_ms:.4f} ms), "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
+        f"({bound_by}), {bound_ms / ms:.0%} of it; the PyTorch stage it "
         f"replaces (torch.randn + blend_noise) {before_ms:.4f} ms")
     results["fused_noise_blend"] = dict(max_abs_err=err, ms=ms,
+                                        launch_loop_ms=loop_ms,
                                         plain_ms=plain_ms, bound_ms=bound_ms,
                                         bound_by=bound_by)
     return results

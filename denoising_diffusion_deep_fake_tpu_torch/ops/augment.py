@@ -157,7 +157,9 @@ def select_warp_method(h: int, w: int) -> str:
       Above 512^2 that is the JAX routing; below 384^2 it stands in for the
       JAX ``hybrid`` route, an XLA layout of the same LDU-shear math that
       differs from the kernels only in not rounding to bf16.
-    * not 32-aligned: ``gather``, the direct bilinear warp.
+    * not 32-aligned: ``gather``, the direct bilinear warp. JAX takes its
+      XLA ``shear`` layout there when the tap window is at most 64 (100^2,
+      say); the port has no XLA layouts.
 
     The route does not depend on the device: on a CPU tensor each kernel
     wrapper runs its plain version, which computes the same function.

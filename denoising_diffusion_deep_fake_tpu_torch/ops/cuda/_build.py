@@ -11,7 +11,7 @@ source is rebuilt.
 warp kernels must round where the TPU kernels do (see csrc/warp.cu), and
 the noise kernels where their plain PyTorch versions do (csrc/noise.cu).
 There is no ``--use_fast_math``: the uint8 normalise is a true division,
-and ``logf``, ``sinf`` and ``cosf`` are the accurate ones.
+and ``logf`` and ``sincosf`` are the accurate ones.
 
 ``LAUNCHES`` counts, per kernel wrapper, the launches made on the GPU.
 """

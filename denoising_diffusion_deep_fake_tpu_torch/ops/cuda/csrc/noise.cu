@@ -25,16 +25,37 @@
 //
 // Rounding: every fp32 operation rounds on its own (the __f*_rn intrinsics,
 // and the file is built with -fmad=false), as PyTorch's elementwise ops do,
-// and logf / sinf / cosf / sqrtf are CUDA's accurate versions (no fast math).
+// and logf / sincosf / sqrtf are CUDA's accurate versions (no fast math).
+// sincosf reduces the angle once for both results; on every input checked
+// on the H100 it gives sinf's and cosf's values bit for bit (PERF.md).
 //
 // Bound: memory. An element is read once (1 byte uint8, 4 bytes fp32) and
 // written once (4 bytes); 36.1 MB at 448^2 x 12 uint8 (10.8 us at 3.35 TB/s)
 // and 77.1 MB at 448^2 x 16 fp32 (23.0 us). The arithmetic, about 26 integer
 // operations (Philox: 10 rounds of 4 multiplies, 4 xors and 2 key adds per 4
-// elements) and about 12 fp32 operations an element, takes less. One thread
-// owns one group of 4 elements: one 4-byte uchar4 or 16-byte float4 load
-// and one float4 store when the pointers are aligned, scalar accesses at the
-// tail of a batch whose size is not a multiple of 4.
+// elements) and about 12 fp32 operations an element, takes less on paper,
+// but the accurate logf and sincosf the rounding fixes cost tens of
+// instructions each, so what the kernels issue, not the bytes, sets their
+// pace.
+//
+// The fp32 kernel: one thread owns one group of 4 elements: one 16-byte
+// float4 load and one float4 store when the pointers are aligned, scalar
+// accesses at the tail of a batch whose size is not a multiple of 4.
+//
+// The uint8 kernel spends its instructions on the noise alone:
+//   * the normalisation is a look-up: each block stages a [C][256] table of
+//     (v - m255[c]) / s255[c] in shared memory (the same expression, so
+//     bit-equal), and an element is one byte and one shared load (on the
+//     H100, uniform noise and smooth images read it equally fast);
+//   * a block owns U8_GROUPS * U8_THREADS consecutive groups, thread t the
+//     groups t, t + U8_THREADS, ... (each warp's accesses stay contiguous),
+//     so the table and the per-sample factors sqrt(1 - r) and sqrt(r) are
+//     computed once for U8_GROUPS groups; only a block that straddles two
+//     samples computes them per element, out of line;
+//   * indices are 32-bit (the host refuses 2^31 elements or more) and the
+//     channel count C is a template parameter, so i % C is a multiply-high.
+//     The Philox counter stays 64-bit: offsets above 2^32 (the balancer's
+//     scoring stream) keep their high word.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,13 +71,16 @@ constexpr float TWO_POW_M24 = 5.9604644775390625e-08f;
 constexpr float TWO_POW_M25 = 2.98023223876953125e-08f;
 constexpr int THREADS = 256;
 constexpr int MAX_C = 4;
+// The uint8 kernel's geometry (picked on the H100, PERF.md).
+constexpr int U8_THREADS = 512;
+constexpr int U8_GROUPS = 3;
+constexpr long long U8_MAX_N = 0x7FFFFFFFLL;
 
 enum Kind { KIND_F32 = 0, KIND_U8 = 2 };
 
 struct BlendParams {
   long long n;            // elements
   long long per_sample;   // H * W * C
-  int chans;
   int vec;                // pointers aligned for one vector access a group
   unsigned long long offset;
   uint32_t k0, k1;        // seed words
@@ -98,17 +122,11 @@ __device__ __forceinline__ float4 normals4(unsigned long long group,
   const float t1 = __fmul_rn(TWO_PI, uniform(w.y));
   const float r23 = __fsqrt_rn(__fmul_rn(-2.0f, logf(uniform(w.z))));
   const float t3 = __fmul_rn(TWO_PI, uniform(w.w));
-  return make_float4(__fmul_rn(r01, cosf(t1)), __fmul_rn(r01, sinf(t1)),
-                     __fmul_rn(r23, cosf(t3)), __fmul_rn(r23, sinf(t3)));
-}
-
-// a[c] without indexing the parameter array at run time, which would copy
-// it to local memory in every thread.
-__device__ __forceinline__ float pick(const float (&a)[MAX_C], int c) {
-  float v = a[0];
-#pragma unroll
-  for (int j = 1; j < MAX_C; ++j) v = c == j ? a[j] : v;
-  return v;
+  float s1, c1, s3, c3;
+  sincosf(t1, &s1, &c1);
+  sincosf(t3, &s3, &c3);
+  return make_float4(__fmul_rn(r01, c1), __fmul_rn(r01, s1),
+                     __fmul_rn(r23, c3), __fmul_rn(r23, s3));
 }
 
 __device__ __forceinline__ float blend(float x, float eps, float r) {
@@ -116,10 +134,9 @@ __device__ __forceinline__ float blend(float x, float eps, float r) {
                    __fmul_rn(__fsqrt_rn(r), eps));
 }
 
-template <bool NORM, typename In>
-__device__ __forceinline__ void blend_group(const In* __restrict__ x,
-                                            float* __restrict__ out,
-                                            const BlendParams& p) {
+__global__ void __launch_bounds__(THREADS)
+noise_blend_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
+                       BlendParams p) {
   const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
   const long long i0 = 4 * g;
   if (i0 >= p.n) return;
@@ -129,30 +146,20 @@ __device__ __forceinline__ void blend_group(const In* __restrict__ x,
 
   float v[4];
   if (p.vec && full) {
-    if constexpr (NORM) {
-      const uchar4 q = *reinterpret_cast<const uchar4*>(x + i0);
-      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-    } else {
-      const float4 q = *reinterpret_cast<const float4*>(x + i0);
-      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-    }
+    const float4 q = *reinterpret_cast<const float4*>(x + i0);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
   } else {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) v[k] = i0 + k < p.n ? (float)x[i0 + k] : 0.f;
+    for (int k = 0; k < 4; ++k) v[k] = i0 + k < p.n ? x[i0 + k] : 0.f;
   }
 
-  // Sample and channel of the first element; the next three follow on.
+  // Sample of the first element; the next three follow on.
   long long b = i0 / p.per_sample;
   long long rem = i0 - b * p.per_sample;
-  int c = (int)(rem % p.chans);
   float r[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    if (NORM)
-      v[k] = __fdiv_rn(__fsub_rn(v[k], pick(p.mean255, c)),
-                     pick(p.std255, c));
     r[k] = i0 + k < p.n ? p.ratios[b] : 0.f;
-    if (++c == p.chans) c = 0;
     if (++rem == p.per_sample) {
       rem = 0;
       ++b;
@@ -171,16 +178,89 @@ __device__ __forceinline__ void blend_group(const In* __restrict__ x,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-normalise_noise_blend_u8_kernel(const uint8_t* __restrict__ x,
-                                float* __restrict__ out, BlendParams p) {
-  blend_group<true>(x, out, p);
+// sqrt(1 - r) and sqrt(r) for element i's sample, in the blocks whose
+// elements straddle samples; out of line, since no other block calls it.
+__device__ __noinline__ float2 sample_factors(const float* ratios, uint32_t i,
+                                              uint32_t n,
+                                              uint32_t per_sample) {
+  const float r = i < n ? ratios[i / per_sample] : 0.f;
+  return make_float2(__fsqrt_rn(__fsub_rn(1.0f, r)), __fsqrt_rn(r));
 }
 
-__global__ void __launch_bounds__(THREADS)
-noise_blend_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
-                       BlendParams p) {
-  blend_group<false>(x, out, p);
+// out = sqrt(1 - r[b]) * table[c][x] + sqrt(r[b]) * eps over a uint8 batch
+// of C channels; n < 2^31 (the host checks it).
+template <int C>
+__global__ void __launch_bounds__(U8_THREADS, 65536 / (64 * U8_THREADS))
+normalise_noise_blend_u8_kernel(const uint8_t* __restrict__ x,
+                                float* __restrict__ out, BlendParams p) {
+  __shared__ float table[C][256];
+  const uint32_t n = (uint32_t)p.n, per_sample = (uint32_t)p.per_sample;
+  const uint32_t first = blockIdx.x * (U8_GROUPS * U8_THREADS);
+  const uint32_t g0 = first + threadIdx.x;
+
+  // The bytes first, so that their latency overlaps the table's staging.
+  uint32_t bytes[U8_GROUPS];
+#pragma unroll
+  for (int j = 0; j < U8_GROUPS; ++j) {
+    const uint32_t i0 = 4 * (g0 + j * U8_THREADS);
+    if (p.vec && i0 + 4 <= n) {
+      bytes[j] = *reinterpret_cast<const uint32_t*>(x + i0);
+    } else {
+      bytes[j] = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (i0 + k < n) bytes[j] |= (uint32_t)x[i0 + k] << (8 * k);
+    }
+  }
+  // One ratio for the block unless its elements straddle samples.
+  const uint32_t lo = 4 * first;
+  const uint32_t hi = min(n, lo + 4 * U8_GROUPS * U8_THREADS) - 1;
+  const uint32_t b = lo / per_sample;
+  const bool one_sample = hi - b * per_sample < per_sample;
+  const float r = p.ratios[b];
+
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    for (int v = threadIdx.x; v < 256; v += U8_THREADS)
+      table[c][v] = __fdiv_rn(__fsub_rn((float)v, p.mean255[c]),
+                              p.std255[c]);
+  __syncthreads();
+
+  const float keep = __fsqrt_rn(__fsub_rn(1.0f, r)), mix = __fsqrt_rn(r);
+#pragma unroll
+  for (int j = 0; j < U8_GROUPS; ++j) {
+    const uint32_t g = g0 + j * U8_THREADS;
+    const uint32_t i0 = 4 * g;
+    if (i0 >= n) break;
+    const float4 e4 = normals4(g, p);
+    const float eps[4] = {e4.x, e4.y, e4.z, e4.w};
+    const int c0 = (int)(i0 % C);
+    float o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float v = table[(c0 + k) % C][(bytes[j] >> (8 * k)) & 0xFF];
+      float2 f = make_float2(keep, mix);
+      if (!one_sample) f = sample_factors(p.ratios, i0 + k, n, per_sample);
+      o[k] = __fadd_rn(__fmul_rn(f.x, v), __fmul_rn(f.y, eps[k]));
+    }
+    if (p.vec && i0 + 4 <= n) {
+      *reinterpret_cast<float4*>(out + i0) =
+          make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (i0 + k < n) out[i0 + k] = o[k];
+    }
+  }
+}
+
+template <int C>
+void launch_u8(long long groups, const uint8_t* x, float* out,
+               const BlendParams& p, cudaStream_t s) {
+  const long long span = (long long)U8_GROUPS * U8_THREADS;
+  normalise_noise_blend_u8_kernel<C>
+      <<<(unsigned)((groups + span - 1) / span), U8_THREADS, 0, s>>>(x, out,
+                                                                     p);
 }
 
 // Debug entry: the raw Philox words of groups 0 .. groups - 1.
@@ -199,8 +279,9 @@ unsigned grid_for(long long groups) {
 
 // One blend over a contiguous (B, H, W, C) batch of n = B * per_sample
 // elements. in_kind 2 (uint8) needs `norm`, a host array of 2 * chans
-// floats (mean*255 then std*255); in_kind 0 (fp32) takes NULL. `ratios` is
-// a device array of B floats. Returns 0 or the CUDA error of the launch.
+// floats (mean*255 then std*255), and n < 2^31; in_kind 0 (fp32) takes
+// NULL. `ratios` is a device array of B floats. Returns 0 or the CUDA error
+// of the launch; refuses before any launch what the kernels cannot take.
 extern "C" int d3f_noise_blend(int in_kind, const void* x, float* out,
                                long long n, long long per_sample, int chans,
                                const float* ratios, const float* norm,
@@ -212,12 +293,12 @@ extern "C" int d3f_noise_blend(int in_kind, const void* x, float* out,
   if ((in_kind == KIND_U8) != (norm != nullptr))
     return (int)cudaErrorInvalidValue;
   const long long groups = (n + 3) / 4;
-  if (groups > (long long)THREADS * 0x7FFFFFFFLL)
+  if (groups > (long long)THREADS * 0x7FFFFFFFLL ||
+      (in_kind == KIND_U8 && n > U8_MAX_N))
     return (int)cudaErrorInvalidValue;
   BlendParams p;
   p.n = n;
   p.per_sample = per_sample;
-  p.chans = chans;
   const size_t in_align = in_kind == KIND_U8 ? 4 : 16;
   p.vec = (uintptr_t)x % in_align == 0 && (uintptr_t)out % 16 == 0;
   p.offset = offset;
@@ -229,14 +310,20 @@ extern "C" int d3f_noise_blend(int in_kind, const void* x, float* out,
     p.std255[c] = (norm && c < chans) ? norm[chans + c] : 1.0f;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_kind == KIND_U8)
-    normalise_noise_blend_u8_kernel<<<grid_for(groups), THREADS, 0, s>>>(
-        static_cast<const uint8_t*>(x), out, p);
-  else if (in_kind == KIND_F32)
+  const uint8_t* x8 = static_cast<const uint8_t*>(x);
+  if (in_kind == KIND_U8) {
+    switch (chans) {
+      case 1: launch_u8<1>(groups, x8, out, p, s); break;
+      case 2: launch_u8<2>(groups, x8, out, p, s); break;
+      case 3: launch_u8<3>(groups, x8, out, p, s); break;
+      default: launch_u8<4>(groups, x8, out, p, s); break;
+    }
+  } else if (in_kind == KIND_F32) {
     noise_blend_f32_kernel<<<grid_for(groups), THREADS, 0, s>>>(
         static_cast<const float*>(x), out, p);
-  else
+  } else {
     return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -37,6 +37,7 @@ PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 TWO_PI = 6.283185307179586
 _KIND = {torch.float32: 0, torch.uint8: 2}
+U8_MAX_ELEMENTS = 2 ** 31 - 1  # the uint8 kernel's 32-bit indices
 
 
 def noise_constants(mean, std, channels: int) -> list[float]:
@@ -195,22 +196,25 @@ def launch_blend(x: torch.Tensor, out: torch.Tensor, ratios: torch.Tensor,
                  norm: list[float] | None, *, seed: int,
                  offset: int) -> None:
     """Launch one blend of ``csrc/noise.cu`` on the current stream from
-    ``x`` (uint8 with ``norm``, or fp32 without) into the contiguous fp32
-    ``out`` of the same shape."""
+    ``x`` (uint8 with ``norm``, at most ``U8_MAX_ELEMENTS`` elements, or
+    fp32 without) into the contiguous fp32 ``out`` of the same shape."""
     if x.dim() != 4:
         raise ValueError(f"expected an NHWC batch, got {tuple(x.shape)}")
     b, h, w, c = x.shape
     _require_cuda(x.device, ratios.device, out.device)
     if not x.device == ratios.device == out.device:
         raise ValueError("x, out and ratios must be on one CUDA device")
-    if (out.shape != x.shape or out.dtype != torch.float32
-            or not out.is_contiguous()):
-        raise ValueError("out must be a contiguous float32 tensor of x's "
-                         "shape")
     kind = _KIND.get(x.dtype)
     if kind is None or (kind == 2) != (norm is not None):
         raise TypeError(f"unsupported input {x.dtype} (uint8 with mean/std, "
                         "or float32 without)")
+    if kind == 2 and x.numel() > U8_MAX_ELEMENTS:
+        raise ValueError(f"the uint8 kernel indexes in 32 bits: at most "
+                         f"{U8_MAX_ELEMENTS} elements, got {x.numel()}")
+    if (out.shape != x.shape or out.dtype != torch.float32
+            or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous float32 tensor of x's "
+                         "shape")
     if ratios.shape != (b,):
         raise ValueError(f"ratios must have shape ({b},), got "
                          f"{tuple(ratios.shape)}")

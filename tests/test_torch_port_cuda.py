@@ -8,10 +8,12 @@ no JAX, so it also runs on a GPU machine that has none:
 The warp kernels and their plain versions are held to bit equality: both
 round where the TPU kernels do (see ops/cuda/csrc/warp.cu). The noise
 kernels' Philox words are held to bit equality with the plain version's;
-their outputs to one ulp of it (CUDA's logf, sinf and cosf in the kernel
+their outputs to one ulp of it (CUDA's logf and sincosf in the kernel
 against PyTorch's CUDA log, sin and cos in the plain version), with the
 normalisation (ratio 0) exact.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -361,6 +363,57 @@ def test_normalise_noise_kernel_matches_plain(cuda, shape, norm):
     assert torch.equal(zero, nk.fused_normalise_noise_blend_plain(
         u8, torch.zeros(b, device=cuda), nk.noise_constants(mean, std, c),
         seed=3))
+
+
+# C = 1..4; samples whose size is not a multiple of 4 ((3, 5, 7, 3)) or
+# below 4 ((8, 1, 1, 1), (6, 1, 1, 2)), so groups of 4 straddle them; and
+# samples that straddle some of the uint8 kernel's blocks and not others.
+@pytest.mark.parametrize("shape", [(8, 1, 1, 1), (6, 1, 1, 2), (3, 5, 7, 3),
+                                   (5, 9, 13, 4), (3, 64, 64, 1),
+                                   (4, 33, 31, 2), (3, 100, 100, 3),
+                                   (2, 64, 70, 4)])
+@pytest.mark.parametrize("offset", [4, (3 << 32) + 11])
+def test_normalise_noise_kernel_channels_and_straddles(cuda, shape, offset):
+    b, c = shape[0], shape[-1]
+    mean, std = (IMAGENET[0] + (0.5,))[:c], (IMAGENET[1] + (0.25,))[:c]
+    norm = nk.noise_constants(mean, std, c)
+    rng = np.random.default_rng(13)
+    flat = torch.from_numpy(rng.integers(0, 256, int(np.prod(shape)) + 1,
+                                         np.uint8)).to(cuda)
+    # Distinct per-sample ratios, 0 and 1 among them, not in order.
+    ratios = torch.from_numpy(rng.permutation(
+        np.linspace(0, 1, b, dtype=np.float32))).to(cuda)
+    zeros = torch.zeros(b, device=cuda)
+    # An aligned batch, then an unaligned view (the scalar path).
+    for u8 in (flat[:-1].view(shape), flat[1:].view(shape)):
+        got = nk.fused_normalise_noise_blend(u8, ratios, mean, std, seed=3,
+                                             offset=offset)
+        want = nk.fused_normalise_noise_blend_plain(u8, ratios, norm, seed=3,
+                                                    offset=offset)
+        torch.cuda.synchronize()
+        assert _within_one_ulp(got, want)
+        assert torch.equal(
+            nk.fused_normalise_noise_blend(u8, zeros, mean, std, seed=3,
+                                           offset=offset),
+            nk.fused_normalise_noise_blend_plain(u8, zeros, norm, seed=3,
+                                                 offset=offset))
+
+
+def test_uint8_noise_refuses_two_to_the_31_elements_before_a_launch(cuda):
+    n = 1 << 31
+    norm = (ctypes.c_float * 8)(*([0.0] * 4 + [1.0] * 4))
+    # Null pointers: a launch would fault, so a return code of
+    # cudaErrorInvalidValue (1) shows the entry refused first.
+    assert nk._noise_lib().d3f_noise_blend(2, None, None, n, n // 4, 4, None,
+                                           norm, 0, 0, None) == 1
+    torch.cuda.synchronize()
+    # The wrapper says why, before it looks at the output.
+    x = torch.zeros((1, 1, 1, 1), dtype=torch.uint8, device=cuda).expand(
+        2 ** 11, 2 ** 10, 2 ** 10, 1)
+    with pytest.raises(ValueError, match="32 bits"):
+        nk.launch_blend(x, torch.empty(1, device=cuda),
+                        torch.zeros(2 ** 11, device=cuda), [0.0, 1.0],
+                        seed=0, offset=0)
 
 
 @pytest.mark.parametrize("shape", [(16, 64, 64, 3), (3, 5, 7, 3)])

@@ -16,11 +16,16 @@ import torch
 import jax.numpy as jnp
 
 from denoising_diffusion_deep_fake_tpu.ops.augment import (
+    AffineAugmentConfig,
     _inverse_affine_coeffs,
+    select_warp_method as jax_select_warp_method,
 )
 from denoising_diffusion_deep_fake_tpu.ops.pallas import warp_kernel as jk
 from denoising_diffusion_deep_fake_tpu.ops.pallas.warp_fused import (
     affine_warp_pallas_fused,
+)
+from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
+    select_warp_method,
 )
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import warp_fused as pf
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import warp_kernel as pk
@@ -283,3 +288,24 @@ def test_fused_wrapper_checks_raise_before_any_launch():
         pf.launch_fused(x, torch.empty(x.shape), alpha, base, resid, alpha,
                         base, resid, None)
     assert dict(LAUNCHES) == before
+
+
+# Where the port's auto route differs from JAX's on one TPU, it takes a
+# documented stand-in (ops/augment.py select_warp_method, README): the
+# bf16-rounding pass kernels for the XLA "hybrid" layout of the same shear
+# math, the direct bilinear warp for the XLA "shear" layout.
+STAND_INS = {"hybrid": "pallas", "shear": "gather"}
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (256, 256), (384, 384),
+                                (448, 448), (512, 512), (640, 640),
+                                (448, 544), (100, 100)])
+def test_auto_route_is_jax_route_or_its_documented_stand_in(hw):
+    h, w = hw
+    want = jax_select_warp_method(h, w, AffineAugmentConfig.random_affine(),
+                                  backend="tpu", n_devices=1)
+    got = select_warp_method(h, w)
+    if h % 32 == 0 and w % 32 == 0 and min(h, w) >= 384:
+        assert got == want
+    else:
+        assert got == STAND_INS[want]
