@@ -14,8 +14,9 @@ Phases, in order; any failure exits non-zero:
    ranges, timed alone into a preallocated output; the axis pass's row and
    column kernels each on the x-pass and the y-pass layout at 448^2 x 16
    and 640^2 x 4, each pass timed alone, and the whole two-pass warp at
-   640^2 x 4, at the range corners too; the fused warp at 640^2 x 4,
-   recorded only); the noise kernels'
+   640^2 x 4, at the range corners too; both routes also on the deep-fake
+   trainer's ShiftScaleRotate draws, where some samples are not warped;
+   the fused warp at 640^2 x 4, recorded only); the noise kernels'
    Philox words bit-equal, their outputs within one ulp (share of differing
    elements stated), ratio 0 exactly the normalisation, and the noise's
    moments, bound, cross-sample correlation and determinism, each noise
@@ -35,17 +36,33 @@ Phases, in order; any failure exits non-zero:
    lr 0.01, ratio 0.7, 10 classes) at 448^2: 3 warm-up and 20 timed train
    steps through the uint8 noise kernel, a profile of 3 more, then the
    scoring pass over 50 images (5 batches, the last padded from 2 to 12),
-   difficulty classes, and the balanced manifest written and read back.
+   difficulty classes, and the balanced manifest written and read back;
+8. the deep-fake trainer: (a) one fp32 swap step at 64^2, batch 2,
+   resnet18, on the GPU against the same step on the CPU (plain versions),
+   from the same weights (shadows apart from their models, past the EMA
+   warm-up) and the same injected randomness; (b) denoise mode at the
+   width of configs/denoise.yml (two resnet34 U-Nets, batch 16 per
+   identity, bf16) at 448^2: 2 warm-up and 10 timed steps, each warping
+   both identities with the fused kernel and noising both with the fp32
+   noise kernel, then a profile of 3 more; (c) the flip to swap mode with
+   configs/swap.yml overlaid: shadows that are copies, then one step whose
+   decay-0 updates copy b before its step and a after its; (d) swap mode
+   from there, past the EMA warm-up: 3 warm-up and 20 timed steps, the
+   shadows moving, the single-pass forward through model and shadow, and
+   a profile of 3 more.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Every launch count is the count from the
 path that runs the kernel, reset to 0 just before the path and read just
-after it. Without a GPU it exits non-zero and prints no result.
+after it: ``launches`` from the kernel's first path, ``launches_by_path``
+from each path that runs it. Without a GPU it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -317,6 +334,20 @@ def random_params(b: int, seed: int, device) -> dict:
                                 generator=gen, device=device)
 
 
+def shift_scale_rotate_params(b: int, seed: int, device) -> dict:
+    """The deep-fake trainer's draws (ShiftScaleRotate, p = 0.7) from a
+    CPU generator, with both warped and unwarped samples."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
+        AffineAugmentConfig, sample_affine_params)
+
+    params = sample_affine_params(
+        b, AffineAugmentConfig.shift_scale_rotate(),
+        generator=torch.Generator().manual_seed(seed))
+    check(0 < int(params["apply"].sum()) < b,
+          "the ShiftScaleRotate draws are not mixed")
+    return {k: v.to(device) for k, v in params.items()}
+
+
 def kernel_checks(dev) -> dict:
     """Phase 3: each kernel against its plain version at the path shapes."""
     from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
@@ -344,9 +375,13 @@ def kernel_checks(dev) -> dict:
     coeffs = _inverse_affine_coeffs(random_params(b, 1, dev), h, w)
     errs = []
     corner_coeffs = _inverse_affine_coeffs(extreme, h, w)
+    ssr_coeffs = _inverse_affine_coeffs(shift_scale_rotate_params(b, 0, dev),
+                                        h, w)
     for what, cf, (mean, std) in (("random params", coeffs, HALF),
                                   ("random params", coeffs, IMAGENET),
-                                  ("range corners", corner_coeffs, IMAGENET)):
+                                  ("range corners", corner_coeffs, IMAGENET),
+                                  ("ShiftScaleRotate, some unwarped",
+                                   ssr_coeffs, IMAGENET)):
         got = wf.affine_warp_fused_coeffs(u8, cf, mean=mean, std=std)
         want = wf.affine_warp_fused_plain(
             u8, cf, wf.norm_constants(mean, std, c))
@@ -408,13 +443,17 @@ def kernel_checks(dev) -> dict:
     c640 = shapes[1]["coeffs"]
     corner640 = _inverse_affine_coeffs(
         {k: v[:4] for k, v in extreme.items()}, 640, 640)
+    ssr640 = _inverse_affine_coeffs(shift_scale_rotate_params(4, 0, dev),
+                                    640, 640)
     plain640 = wk.affine_warp_twopass_plain(x640, c640)
     for what, xs, cf, want in (
             ("448^2 x16 random params", x, shapes[0]["coeffs"],
              wk.affine_warp_twopass_plain(x, shapes[0]["coeffs"])),
             ("640^2 x4 random params", x640, c640, plain640),
             ("640^2 x4 range corners", x640, corner640,
-             wk.affine_warp_twopass_plain(x640, corner640))):
+             wk.affine_warp_twopass_plain(x640, corner640)),
+            ("640^2 x4 ShiftScaleRotate, some unwarped", x640, ssr640,
+             wk.affine_warp_twopass_plain(x640, ssr640))):
         errs.append(compare(wk.affine_warp_twopass_coeffs(xs, cf), want,
                             f"two-pass {what}"))
     # The whole two-pass warp at 640^2 x 4: its two launches into
@@ -517,25 +556,40 @@ def small_reference(dev) -> None:
           "the GPU step disagrees with the CPU reference")
 
 
-def drive(dev, launches, card: str, trainer, *, size: int, batch: int,
-          warmup: int, steps: int, per_step: dict) -> dict:
-    """Phases 5 to 7: train steps through the entry points, counted;
-    ``per_step`` holds the launches each kernel wrapper must make a step."""
+def single_path(trainer, *, size: int, batch: int) -> dict:
+    """One model's trainer (denoiser or balancer) as a path for ``drive``."""
     state = trainer.init_state(seed=SEED)
+    return dict(
+        trainer=trainer, state=state, size=size, batch=batch, images=batch,
+        step=lambda u8: {"loss": trainer.train_step(state, u8)["loss"]},
+        probes=lambda: [next(state.model.parameters())])
+
+
+def drive(dev, launches, card: str, run: dict, *, warmup: int, steps: int,
+          per_step: dict, after_warmup=None) -> dict:
+    """Phases 5 to 8: train steps through the entry points, counted.
+
+    ``run`` is a path (``single_path``, ``deep_fake_path``): ``step`` takes
+    one uint8 batch of ``batch`` rows and returns the step's losses,
+    ``images`` is the number of images a step trains on, and ``probes``
+    gives tensors that the steps must change. ``per_step`` holds the
+    launches each kernel wrapper must make a step."""
+    size, batch = run["size"], run["batch"]
     rng = np.random.default_rng(SEED)
     batches = [torch.from_numpy(rng.integers(
         0, 256, (batch, size, size, 3), np.uint8)).to(dev)
         for _ in range(min(warmup + steps, 8))]
-    probe = next(state.model.parameters())
-    before = probe.detach().clone()
+    before = [p.detach().clone() for p in run["probes"]()]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     launches.clear()
     losses = []
     for i in range(warmup):
-        losses.append(trainer.train_step(state, batches[i])["loss"])
+        losses.append(run["step"](batches[i]))
     torch.cuda.synchronize()
+    if after_warmup is not None:
+        after_warmup()
     # One event per step boundary on the device's timeline: per-step
     # times without a host synchronisation between steps.
     events = [torch.cuda.Event(enable_timing=True)
@@ -543,8 +597,7 @@ def drive(dev, launches, card: str, trainer, *, size: int, batch: int,
     t0 = time.perf_counter()
     events[0].record()
     for i in range(warmup, warmup + steps):
-        losses.append(trainer.train_step(state, batches[i % len(batches)])
-                      ["loss"])
+        losses.append(run["step"](batches[i % len(batches)]))
         events[i - warmup + 1].record()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
@@ -552,26 +605,31 @@ def drive(dev, launches, card: str, trainer, *, size: int, batch: int,
     step_times = sorted(a.elapsed_time(b)
                         for a, b in zip(events, events[1:]))
 
-    losses = [float(v) for v in losses]
+    losses = {k: [float(m[k]) for m in losses] for k in losses[0]}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  {size}^2 x{batch} resnet34 bf16: losses "
-        f"{[round(v, 5) for v in losses]}")
+    images = run["images"]
+    for key, values in losses.items():
+        log(f"  {size}^2 x{batch} resnet34 bf16: {key} "
+            f"{[round(v, 5) for v in values]}")
     log(f"  {size}^2 x{batch}: {step_ms:.3f} ms/step (host clock, mean of "
-        f"{steps}), {batch / step_ms * 1e3:.1f} imgs/s; per-step device "
-        f"timeline median {step_times[len(step_times) // 2]:.3f} ms, "
-        f"min {step_times[0]:.3f}, max {step_times[-1]:.3f}; peak memory "
+        f"{steps}), {images / step_ms * 1e3:.1f} imgs/s ({images} images a "
+        f"step); per-step device timeline median "
+        f"{step_times[len(step_times) // 2]:.3f} ms, min "
+        f"{step_times[0]:.3f}, max {step_times[-1]:.3f}; peak memory "
         f"{peak_gb:.2f} GB [{card}]")
     log(f"  launches: {counts}")
-    check(all(math.isfinite(v) for v in losses), "non-finite loss")
+    check(all(math.isfinite(v) for vs in losses.values() for v in vs),
+          "non-finite loss")
     n_steps = warmup + steps
     for kernel in KERNELS:
         want = per_step.get(kernel, 0) * n_steps
         check(counts.get(kernel, 0) == want,
               f"{kernel} launched {counts.get(kernel, 0)} times in "
               f"{n_steps} steps, not {want}")
-    check(not torch.equal(before, probe.detach()), "params did not change")
-    return dict(trainer=trainer, state=state, counts=counts,
-                step_ms=step_ms, batch=batch, size=size)
+    check(all(not torch.equal(b, p.detach())
+              for b, p in zip(before, run["probes"]())),
+          "params did not change")
+    return dict(run, counts=counts, step_ms=step_ms)
 
 
 def profile_steps(run: dict, dev, path: Path | None) -> dict:
@@ -579,16 +637,16 @@ def profile_steps(run: dict, dev, path: Path | None) -> dict:
     kernels' time per step by device function."""
     from torch.profiler import ProfilerActivity, profile
 
-    trainer, state, size = run["trainer"], run["state"], run["size"]
+    size = run["size"]
     u8 = torch.randint(0, 256, (run["batch"], size, size, 3),
                        dtype=torch.uint8, device=dev)
-    trainer.train_step(state, u8)
+    run["step"](u8)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(3):
-            trainer.train_step(state, u8)
+            run["step"](u8)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
@@ -680,6 +738,225 @@ def score_and_write(run: dict, dev, launches) -> None:
     log(f"  balanced manifest: {n} lines written and read back")
 
 
+# The values of configs/denoise.yml and configs/swap.yml (the GPU machine
+# may lack PyYAML), at their 448^2 image size.
+DENOISE_YML = dict(
+    mode="denoise", batch_size=16, learning_rate=0.01, adam_b1=0.5,
+    adam_b2=0.999, max_epochs=50, cosine_scheduler_max_epoch=50,
+    encoder_name="resnet34", noise_exponential_sampling_lambda=3,
+    data_path_a="synthetic/a", data_path_b="synthetic/b",
+    mean_a=(0.5, 0.5, 0.5), std_a=(0.5, 0.5, 0.5), mean_b=(0.5, 0.5, 0.5),
+    std_b=(0.5, 0.5, 0.5), image_size=448, compute_dtype="bfloat16",
+    seed=SEED)
+SWAP_YML = dict(
+    mode="swap", batch_size=16, learning_rate=0.01, adam_b1=0.5,
+    adam_b2=0.999, max_epochs=200, cosine_scheduler_max_epoch=200,
+    noise_exponential_sampling_lambda=8, ema_beta=0.9999,
+    ema_update_every=1)
+SWAP_KEYS = ("loss_swap/train_a", "loss_swap/train_b", "swap_difference/a",
+             "swap_difference/b")
+
+
+def make_deep_fake(device, cfg: dict | None = None, **overrides):
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DeepFakeConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.training.deep_fake import (
+        DeepFakeTrainer)
+
+    cfg = config_from_dict(DeepFakeConfig, dict(cfg or DENOISE_YML,
+                                                **overrides))
+    return DeepFakeTrainer(cfg, steps_per_epoch=1000,
+                           image_size=cfg.image_size, device=device)
+
+
+def deep_fake_reference(dev) -> None:
+    """Phase 8a: a 64^2 fp32 swap step on the GPU against the CPU plain
+    path, the shadows apart from their models. The shadows' ``ema_step``
+    lies so far past the warm-up that the decay is ``ema_beta``: a's
+    post-step params, whose tiny gradients' signs (and so Adam's +-lr
+    steps) may differ between the devices, reach fake_b damped by
+    ``1 - ema_beta``."""
+    from denoising_diffusion_deep_fake_tpu_torch.training.state import (
+        create_model_state)
+
+    rng = np.random.default_rng(SEED + 5)
+    b, s = 2, 64
+    draws = {name: dict(
+        u8=torch.from_numpy(rng.integers(0, 256, (b, s, s, 3), np.uint8)),
+        params=shift_scale_rotate_params(b, 3, "cpu"),
+        ratios=torch.from_numpy(rng.uniform(0, 0.5, b).astype(np.float32)),
+        noise=torch.from_numpy(rng.standard_normal((b, s, s, 3)).astype(
+            np.float32))) for name in ("a", "b")}
+    results = {}
+    for name, device in (("cpu", "cpu"), ("cuda", dev)):
+        on = torch.device(device)
+        trainer = make_deep_fake(
+            device, dict(DENOISE_YML, **SWAP_YML), batch_size=b,
+            encoder_name="resnet18", compute_dtype="float32", image_size=s,
+            warp_method="pallas_fused")
+        states = trainer.init_states(seed=7)
+        for i, state in enumerate(states.values()):
+            apart = create_model_state(trainer.cfg, trainer.dtype, on,
+                                       seed=20 + i)
+            state.ema_model.load_state_dict(apart.model.state_dict())
+            state.ema_step = 10 ** 7
+
+        def per(key, move):
+            return {n: move(d[key]) for n, d in draws.items()}
+
+        m = trainer.train_step(
+            states, draws["a"]["u8"], draws["b"]["u8"],
+            affine_params=per("params", lambda p: {
+                k: v.to(on) for k, v in p.items()}),
+            ratios=per("ratios", lambda t: t.to(on)),
+            noise=per("noise", lambda t: t.to(on)))
+        results[name] = {k: float(m[k]) for k in SWAP_KEYS}
+    for key in SWAP_KEYS:
+        got, want = results["cuda"][key], results["cpu"][key]
+        rel = abs(got - want) / abs(want)
+        log(f"  64^2 fp32 swap step {key}: cuda {got:.7f}, cpu {want:.7f}, "
+            f"relative difference {rel:.2e} (limit 1e-4: cuDNN and the CPU "
+            "sum convolutions in other orders)")
+        check(math.isfinite(got) and rel < 1e-4,
+              f"the GPU swap step's {key} disagrees with the CPU reference")
+
+
+def deep_fake_path(trainer, states: dict, *, probes) -> dict:
+    """The two-identity trainer as a path for ``drive``: each uint8 batch
+    holds both identities' images, a's first."""
+    batch = trainer.cfg.batch_size
+
+    def step(u8):
+        m = trainer.train_step(states, u8[:batch], u8[batch:])
+        return {k: v for k, v in m.items() if k != "lr"}
+
+    return dict(trainer=trainer, state=states, size=trainer.image_size,
+                batch=2 * batch, images=2 * batch, step=step, probes=probes)
+
+
+def online_probes(states: dict):
+    return lambda: [next(s.model.parameters()) for s in states.values()]
+
+
+def deep_fake_flip(run: dict, dev):
+    """Phase 8c: configs/swap.yml overlaid on 8b's config, shadows
+    attached as copies, then one swap step whose decay-0 updates copy b
+    before its update and a after its. Returns the swap trainer."""
+    import dataclasses
+
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DeepFakeConfig, overlay_config)
+    from denoising_diffusion_deep_fake_tpu_torch.training.deep_fake import (
+        DeepFakeTrainer)
+    from denoising_diffusion_deep_fake_tpu_torch.training.state import (
+        shadow_tensors)
+
+    cfg = overlay_config(DeepFakeConfig,
+                         dataclasses.asdict(run["trainer"].cfg), SWAP_YML)
+    trainer = DeepFakeTrainer(cfg, steps_per_epoch=1000,
+                              image_size=cfg.image_size, device=dev)
+    states = trainer.ensure_ema(run["state"])
+    for name, state in states.items():
+        check(state.ema_step == 0 and all(
+            torch.equal(e, p) for e, p in zip(shadow_tensors(state.ema_model),
+                                              shadow_tensors(state.model))),
+            f"the shadow of {name} is not a copy of its model")
+        check(all(e.stride() == p.stride() for e, p in zip(
+            state.ema_model.parameters(), state.model.parameters())),
+            f"the shadow of {name} has another layout than its model "
+            "(channels_last on the GPU)")
+    b_before = [t.clone() for t in shadow_tensors(states["b"].model)]
+    u8 = torch.randint(0, 256, (2, cfg.batch_size, cfg.image_size,
+                                cfg.image_size, 3), dtype=torch.uint8,
+                       device=dev)
+    trainer.train_step(states, u8[0], u8[1])
+    torch.cuda.synchronize()
+    check(all(torch.equal(e, p) for e, p in zip(
+        shadow_tensors(states["b"].ema_model), b_before)),
+        "ema_b is not b's pre-step copy")
+    check(all(torch.equal(e, p) for e, p in zip(
+        shadow_tensors(states["a"].ema_model),
+        shadow_tensors(states["a"].model))),
+        "ema_a is not a's post-step copy")
+    check(not all(torch.equal(e, p) for e, p in zip(
+        b_before, shadow_tensors(states["b"].model))), "b did not move")
+    log(f"  mode {cfg.mode}, lr {cfg.learning_rate}, lambda "
+        f"{cfg.noise_exponential_sampling_lambda}, ema_beta {cfg.ema_beta}, "
+        f"cosine {cfg.cosine_t_max}: shadows attached as bit-equal copies "
+        "(ema_step 0); after one step ema_b equals b's pre-step and ema_a "
+        "a's post-step weights and BN buffers, bit for bit")
+    return trainer
+
+
+def deep_fake_swap(trainer, states: dict, dev, launches, card: str) -> dict:
+    """Phase 8d: swap steps past the EMA warm-up; the shadows must move
+    and stay off their models."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
+        augment_batch)
+    from denoising_diffusion_deep_fake_tpu_torch.training.state import (
+        shadow_tensors)
+
+    for state in states.values():
+        state.ema_step = trainer.ema_cfg.update_after_step + 1
+    log(f"  ema_step set to {trainer.ema_cfg.update_after_step + 1} on both "
+        "states (a run past its EMA warm-up): the timed steps blend with "
+        "decay > 0")
+    shadows = {}
+
+    def snapshot():
+        for name, state in states.items():
+            shadows[name] = [t.clone()
+                             for t in shadow_tensors(state.ema_model)]
+
+    run = drive(dev, launches, card,
+                deep_fake_path(trainer, states,
+                               probes=online_probes(states)),
+                warmup=3, steps=20, after_warmup=snapshot,
+                per_step={"affine_warp_fused": 2, "fused_noise_blend": 2})
+    for name, state in states.items():
+        now = shadow_tensors(state.ema_model)
+        n_params = len(list(state.ema_model.parameters()))
+        for what, sl in (("weights", slice(0, n_params)),
+                         ("BN buffers", slice(n_params, None))):
+            check(not any(torch.equal(a, b) for a, b in zip(
+                shadows[name][sl], now[sl])),
+                f"a {what} tensor of {name}'s shadow did not move")
+            check(not all(torch.equal(a, b) for a, b in zip(
+                now[sl], shadow_tensors(state.model)[sl])),
+                f"the {what} of {name}'s shadow equal its model's")
+    log("  both shadows' weights and BN buffers moved in every tensor "
+        "during the timed steps and differ from their models'")
+    # Recorded only: the two pieces the swap step adds to two updates. The
+    # EMA blend must read the shadow and the model and write the shadow
+    # (12 bytes a value); it makes one more pass through a scaled copy of
+    # the model, which it allocates.
+    state = states["a"]
+    n_values = sum(t.numel() for t in shadow_tensors(state.ema_model))
+    ema_ms = time_ms(lambda: state.update_ema(trainer.ema_cfg), 10)
+    ema_bound, _ = bound(12 * n_values, 3 * n_values)
+    u8 = torch.randint(0, 256, (trainer.cfg.batch_size, run["size"],
+                                run["size"], 3), dtype=torch.uint8,
+                       device=dev)
+    real = augment_batch(u8, trainer.cfg.mean_a, trainer.cfg.std_a,
+                         trainer.aug)
+    fake_ms = time_ms(lambda: trainer._ema_forward(state, real), 10)
+    log(f"  one EMA update of a model ({n_values} values): {ema_ms:.4f} ms "
+        f"(bound {ema_bound:.4f} ms, bytes); one shadow forward at "
+        f"{run['size']}^2 x{trainer.cfg.batch_size}: {fake_ms:.3f} ms "
+        f"(device time, mean of 10) [{card}]")
+    size = trainer.image_size
+    x = torch.rand((4, size, size, 3), device=dev) * 2 - 1
+    for use_ema in (False, True):
+        out = trainer.make_predict_fake(use_ema=use_ema)(states["a"], x)
+        torch.cuda.synchronize()
+        check(out.shape == x.shape and out.dtype == torch.float32
+              and torch.isfinite(out).all().item(),
+              f"predict_fake (use_ema={use_ema}) is not finite")
+    log(f"  predict_fake through model and shadow: {tuple(x.shape)} fp32 "
+        "finite")
+    return run
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", type=Path, default=None,
@@ -721,10 +998,10 @@ def main() -> int:
     small_reference(dev)
 
     log("[5] main path: 448^2, batch 16, auto warp route")
-    main_run = drive(dev, _build.LAUNCHES, card,
-                     make_trainer(dev, encoder="resnet34", batch=16,
-                                  size=448, dtype="bfloat16"),
-                     size=448, batch=16, warmup=3, steps=30,
+    main_run = drive(dev, _build.LAUNCHES, card, single_path(
+        make_trainer(dev, encoder="resnet34", batch=16, size=448,
+                     dtype="bfloat16"), size=448, batch=16),
+                     warmup=3, steps=30,
                      per_step={"affine_warp_fused": 1,
                                "fused_noise_blend": 1})
     denoise = main_run["trainer"].make_denoise_fn()
@@ -737,17 +1014,18 @@ def main() -> int:
     profile_steps(main_run, dev, args.profile_out)
 
     log("[6] two-pass route: 640^2, batch 4, auto warp route")
-    twopass_run = drive(dev, _build.LAUNCHES, card,
-                        make_trainer(dev, encoder="resnet34", batch=4,
-                                     size=640, dtype="bfloat16"),
-                        size=640, batch=4, warmup=2, steps=10,
+    twopass_run = drive(dev, _build.LAUNCHES, card, single_path(
+        make_trainer(dev, encoder="resnet34", batch=4, size=640,
+                     dtype="bfloat16"), size=640, batch=4),
+                        warmup=2, steps=10,
                         per_step={"warp_axis_pass": 2,
                                   "fused_noise_blend": 1})
     profile_steps(twopass_run, dev, None)
 
     log("[7] balancer: 448^2, batch 12, fixed ratio 0.7")
-    balance_run = drive(dev, _build.LAUNCHES, card, make_balancer(dev),
-                        size=448, batch=12, warmup=3, steps=20,
+    balance_run = drive(dev, _build.LAUNCHES, card,
+                        single_path(make_balancer(dev), size=448, batch=12),
+                        warmup=3, steps=20,
                         per_step={"fused_normalise_noise_blend": 1})
     # The path goes on to the scoring pass: its counts are read after it.
     score_and_write(balance_run, dev, _build.LAUNCHES)
@@ -755,22 +1033,46 @@ def main() -> int:
     log(f"  launches on the balancer path: {balance_counts}")
     profile_steps(balance_run, dev, None)
 
-    launches = {
-        "affine_warp_fused": main_run["counts"].get("affine_warp_fused", 0),
-        "warp_axis_pass": twopass_run["counts"].get("warp_axis_pass", 0),
-        "fused_noise_blend": main_run["counts"].get("fused_noise_blend", 0),
-        "fused_normalise_noise_blend":
-            balance_counts.get("fused_normalise_noise_blend", 0)}
-    kernels = [dict(name=k, route="cuda", source=f"{CSRC}/{src}",
-                    replaces=f"{REPO}/{tpu}", launches=launches[k],
-                    library_ms=None, **results[k])
-               for k, (src, tpu, *_) in KERNELS.items()]
+    log("[8a] deep-fake small reference: 64^2 fp32 swap step")
+    deep_fake_reference(dev)
+    log("[8b] deep-fake denoise mode: 448^2, batch 16 per identity")
+    trainer = make_deep_fake(dev)
+    states = trainer.init_states(seed=SEED)
+    denoise_run = drive(dev, _build.LAUNCHES, card,
+                        deep_fake_path(trainer, states,
+                                       probes=online_probes(states)),
+                        warmup=2, steps=10,
+                        per_step={"affine_warp_fused": 2,
+                                  "fused_noise_blend": 2})
+    profile_steps(denoise_run, dev, None)
+    log("[8c] the flip to swap mode (configs/swap.yml overlaid)")
+    swap_trainer = deep_fake_flip(denoise_run, dev)
+    log("[8d] deep-fake swap mode: 448^2, batch 16 per identity")
+    swap_run = deep_fake_swap(swap_trainer, states, dev, _build.LAUNCHES,
+                              card)
+    profile_steps(swap_run, dev, None)
+
+    paths = {"denoiser_448": main_run["counts"],
+             "twopass_640": twopass_run["counts"],
+             "balancer_448": balance_counts,
+             "deep_fake_denoise_448": denoise_run["counts"],
+             "deep_fake_swap_448": swap_run["counts"]}
+    first_path = {"affine_warp_fused": "denoiser_448",
+                  "warp_axis_pass": "twopass_640",
+                  "fused_noise_blend": "denoiser_448",
+                  "fused_normalise_noise_blend": "balancer_448"}
+    kernels = []
+    for k, (src, tpu, *_) in KERNELS.items():
+        by_path = {p: c[k] for p, c in paths.items() if c.get(k)}
+        kernels.append(dict(
+            name=k, route="cuda", source=f"{CSRC}/{src}",
+            replaces=f"{REPO}/{tpu}", launches=by_path[first_path[k]],
+            launches_by_path=by_path, library_ms=None, **results[k]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,10 +1,11 @@
 """Typed workload configs (YAML -> validated dataclass).
 
 Own copy of the JAX package's schema (``denoising_diffusion_deep_fake_tpu/
-config.py``: ``BaseConfig``, ``DenoiserConfig``, ``BalanceConfig``,
-``config_from_dict``, ``_rescale_mean_std``, ``load_config``), so the port
-reads the same YAML files (``configs/denoiser.yml``, ``configs/balance.yml``)
-with the same key names and defaults.
+config.py``: ``BaseConfig``, ``DeepFakeConfig``, ``DenoiserConfig``,
+``BalanceConfig``, ``config_from_dict``, ``_rescale_mean_std``,
+``load_config``, ``overlay_config``), so the port reads the same YAML files
+(``configs/denoiser.yml``, ``configs/denoise.yml``, ``configs/swap.yml``,
+``configs/balance.yml``) with the same key names and defaults.
 ``yaml`` is imported only by ``load_config``: the GPU machine may lack
 PyYAML, and ``chip_smoke.py`` builds its config from a dict.
 
@@ -105,6 +106,40 @@ class BaseConfig:
                 else self.max_epochs)
 
 
+@dataclasses.dataclass
+class DeepFakeConfig(BaseConfig):
+    """Two-identity trainer (reference `d3f train`, denoise + swap modes)."""
+
+    mode: str = "denoise"
+    data_path_a: str = ""
+    data_path_b: str = ""
+    mean_a: tuple = (0.5, 0.5, 0.5)
+    std_a: tuple = (0.5, 0.5, 0.5)
+    mean_b: tuple = (0.5, 0.5, 0.5)
+    std_b: tuple = (0.5, 0.5, 0.5)
+    noise_exponential_sampling_lambda: float = 5.0
+    ema_beta: float = 0.9999
+    ema_update_every: int = 1
+    ema_update_after_step: int = 100   # ema_pytorch default, made explicit
+    # albumentations ShiftScaleRotate (lit_module.py:99-111), applied on the
+    # device by ops/augment.py.
+    aug_shift_limit: float = 0.2
+    aug_scale_limit: float = 0.1
+    aug_rotate_limit: float = 15.0
+    aug_probability: float = 0.7
+
+    def validate(self) -> None:
+        super().validate()
+        if self.mode not in ("denoise", "swap"):
+            raise ValueError(
+                f"mode must be 'denoise' or 'swap', got {self.mode!r}")
+        if not self.data_path_a or not self.data_path_b:
+            raise ValueError("data_path_a and data_path_b are required")
+        if self.noise_exponential_sampling_lambda <= 0:
+            raise ValueError(
+                "noise_exponential_sampling_lambda must be positive")
+
+
 def _rescale_mean_std(cfg) -> None:
     """Auto-convert 0-255-scale mean/std to 0-1 scale."""
     if any(v > 1.0 for v in cfg.mean) or any(v > 1.0 for v in cfg.std):
@@ -196,3 +231,9 @@ def load_config(cls, yaml_path, overrides: dict | None = None):
     if overrides:
         data.update({k: v for k, v in overrides.items() if v is not None})
     return config_from_dict(cls, data)
+
+
+def overlay_config(cls, base: dict, new: dict):
+    """``modify`` semantics: checkpoint hparams with the new YAML's keys on
+    top; keys the new YAML leaves out keep the checkpoint's values."""
+    return config_from_dict(cls, {**base, **new})

@@ -16,6 +16,12 @@ Numerics follow the flax model, not ``torch.nn`` defaults:
   ``E[x^2] - E[x]^2`` (``torch.nn.BatchNorm2d`` would use momentum 0.1 on
   the new value and the unbiased variance).
 
+An EMA shadow runs train-mode BN without writing its running statistics
+(``freeze_running_stats_``): it normalises with the batch's statistics, and
+its own statistics move only through the EMA blend, as the JAX package
+discards the mutated ``batch_stats`` of its shadow forward
+(``training/deep_fake.py:145-148``).
+
 The Bottleneck families (resnet50+, resnext, wide_resnet) and the other
 encoder families are not ported yet.
 """
@@ -46,6 +52,9 @@ class BatchNorm2d(nn.Module):
     """Batch norm with flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``
     semantics (see the module docstring)."""
 
+    # Train mode writes running_mean/running_var unless this is False.
+    update_running_stats = True
+
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.9):
         super().__init__()
@@ -60,16 +69,26 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        with torch.no_grad():
-            xf = x.detach().to(torch.float32)
-            mean = xf.mean(dim=(0, 2, 3))
-            var = (xf.square().mean(dim=(0, 2, 3))
-                   - mean.square()).clamp_min(0.0)
-            m = self.momentum
-            self.running_mean.mul_(m).add_((1.0 - m) * mean)
-            self.running_var.mul_(m).add_((1.0 - m) * var)
+        if self.update_running_stats:
+            with torch.no_grad():
+                xf = x.detach().to(torch.float32)
+                mean = xf.mean(dim=(0, 2, 3))
+                var = (xf.square().mean(dim=(0, 2, 3))
+                       - mean.square()).clamp_min(0.0)
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1.0 - m) * mean)
+                self.running_var.mul_(m).add_((1.0 - m) * var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+
+def freeze_running_stats_(model: nn.Module) -> nn.Module:
+    """Make every ``BatchNorm2d`` of ``model`` keep its running statistics
+    in train mode (the EMA shadow's forward); returns ``model``."""
+    for module in model.modules():
+        if isinstance(module, BatchNorm2d):
+            module.update_running_stats = False
+    return model
 
 
 class BasicBlock(nn.Module):

@@ -47,7 +47,6 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.noise_kernel import (
 )
 from denoising_diffusion_deep_fake_tpu_torch.ops.losses import (
     l1_difficulty_loss,
-    mse_ssim_loss,
 )
 from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
     blend_fixed_amount_of_noise,
@@ -55,6 +54,7 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
 from denoising_diffusion_deep_fake_tpu_torch.training.state import (
     ModelState,
     create_model_state,
+    train_one_model,
 )
 
 SCORE_STREAM = 1 << 32
@@ -132,14 +132,7 @@ class BalanceTrainer:
             raise NotImplementedError(
                 "image panels are not ported to the PyTorch balancer yet")
         image, noisy = self._images(batch_u8, state.step, noise)
-        model, optimizer = state.model, state.optimizer
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        loss = mse_ssim_loss(model(noisy), image)
-        loss.backward()
-        optimizer.step()
-        state.step += 1
-        return {"loss": loss.detach()}
+        return {"loss": train_one_model(state, noisy, image)}
 
     def make_validation_step(self):
         """Per-batch difficulty scoring: ``(state, batch_u8, *, offset,

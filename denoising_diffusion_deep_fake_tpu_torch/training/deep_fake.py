@@ -1,0 +1,212 @@
+"""Two-identity deep-fake trainer, denoise and swap modes.
+
+Port of ``denoising_diffusion_deep_fake_tpu/training/deep_fake.py:64-311``
+(reference: ``d3f/train_deep_fake/lit_module.py``). Two U-Nets, ``a`` and
+``b``, one per identity. Each step augments both uint8 NHWC batches with
+their own mean and std (albumentations ShiftScaleRotate on the device: the
+CUDA fused warp at 448^2), then:
+
+* ``denoise`` mode: each model learns to recover its own augmented image
+  from a noised copy (the CUDA fp32 noise kernel);
+* ``swap`` mode: each model also carries an EMA shadow, and training is
+  cross-fed in the JAX (and Lightning) order
+
+      ema_b update -> fake_a = ema_b(real_a) -> train a on noised fake_a
+      -> ema_a update (a's post-step weights) -> fake_b = ema_a(real_b)
+      -> train b on noised fake_b,
+
+  where a shadow's forward runs train-mode BN with the batch's statistics,
+  writes no running statistics and has no gradient (JAX ``:145-148``).
+
+``ensure_ema`` attaches shadows to states that lack them: the ``modify``
+flip from denoise to swap. ``make_predict_fake`` is the single-pass
+eval-mode forward.
+
+Random streams: the affine params and noise ratios come from the trainer's
+seeded ``torch.Generator``; the noise from the noise kernel's stream keyed
+by ``cfg.seed``, model ``a`` at offset ``2 * step`` and model ``b`` at
+``2 * step + 1``, with ``step = states["a"].step`` at the start of the
+step, so no two draws of a run share an offset. The JAX trainer splits a
+key folded with the step instead; the two streams differ by design (as in
+``training/denoiser.py``). ``train_step`` accepts the affine params, the
+ratios and the noise of each identity, so a test can feed both frameworks
+the same numbers; given noise is blended with ``blend_noise``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from denoising_diffusion_deep_fake_tpu_torch.config import (
+    DeepFakeConfig,
+    refuse_unported,
+)
+from denoising_diffusion_deep_fake_tpu_torch.device import resolve_device
+from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
+    AffineAugmentConfig,
+    augment_batch,
+)
+from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.noise_kernel import (
+    fused_noise_blend,
+)
+from denoising_diffusion_deep_fake_tpu_torch.ops.losses import mse_loss
+from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
+    blend_noise,
+    sample_truncated_exponential,
+)
+from denoising_diffusion_deep_fake_tpu_torch.training.ema import EmaConfig
+from denoising_diffusion_deep_fake_tpu_torch.training.optim import (
+    learning_rate_at,
+)
+from denoising_diffusion_deep_fake_tpu_torch.training.state import (
+    ModelState,
+    create_model_state,
+    train_one_model,
+)
+
+IDENTITIES = ("a", "b")
+_UNPORTED = ("upload_format", "data_cache", "data_parallel",
+             "spatial_parallel", "remat", "steps_per_call", "patchify_stem",
+             "color_jitter")
+
+
+def noise_offset(step: int, name: str) -> int:
+    """Noise-stream offset of identity ``name``'s model at ``step``."""
+    return 2 * step + IDENTITIES.index(name)
+
+
+class DeepFakeTrainer:
+    """The two-identity train step and the swap forward on one device."""
+
+    def __init__(self, cfg: DeepFakeConfig, *, steps_per_epoch: int,
+                 image_size: int, device=None):
+        cfg.validate()
+        refuse_unported(cfg, _UNPORTED)
+        self.cfg = cfg
+        self.image_size = image_size
+        self.steps_per_epoch = steps_per_epoch
+        self.device = resolve_device(device)
+        self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                      else torch.float32)
+        self.aug = AffineAugmentConfig.shift_scale_rotate(
+            shift_limit=cfg.aug_shift_limit, scale_limit=cfg.aug_scale_limit,
+            rotate_limit=cfg.aug_rotate_limit, p=cfg.aug_probability)
+        self.ema_cfg = EmaConfig(beta=cfg.ema_beta,
+                                 update_every=cfg.ema_update_every,
+                                 update_after_step=cfg.ema_update_after_step)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(cfg.seed)
+        if self.device.type == "cuda":
+            # fp32 SSIM blur in full fp32 (see training/denoiser.py).
+            torch.backends.cudnn.allow_tf32 = False
+
+    # ---------------------------------------------------------------- states
+
+    def init_states(self, seed: int, with_ema: bool | None = None
+                    ) -> dict[str, ModelState]:
+        """Fresh states ``{"a", "b"}`` drawn from ``seed`` and ``seed + 1``;
+        with shadows in swap mode, or as ``with_ema`` says."""
+        if with_ema is None:
+            with_ema = self.cfg.mode == "swap"
+        return {name: create_model_state(self.cfg, self.dtype, self.device,
+                                         seed + i, with_ema=with_ema)
+                for i, name in enumerate(IDENTITIES)}
+
+    @staticmethod
+    def ensure_ema(states: dict[str, ModelState]) -> dict[str, ModelState]:
+        """Attach a shadow, a copy of the model with ``ema_step`` 0, to each
+        state that has none (the ``modify`` denoise -> swap flip)."""
+        for state in states.values():
+            if not state.has_ema:
+                state.attach_ema()
+        return states
+
+    # ------------------------------------------------------------ train step
+
+    def _ema_forward(self, state: ModelState, x: torch.Tensor
+                     ) -> torch.Tensor:
+        """Shadow forward: train-mode BN, no stat writes, no gradient."""
+        state.ema_model.train()
+        with torch.no_grad():
+            return state.ema_model(x)
+
+    def _noisy(self, x: torch.Tensor, name: str, step: int, ratios,
+               noise) -> torch.Tensor:
+        b = x.shape[0]
+        r = (ratios[name] if ratios is not None else
+             sample_truncated_exponential(
+                 (b, 1, 1, 1), self.cfg.noise_exponential_sampling_lambda,
+                 generator=self.generator, device=self.device))
+        r = r.to(self.device)
+        if noise is None:
+            return fused_noise_blend(x, r.reshape(b), seed=self.cfg.seed,
+                                     offset=noise_offset(step, name))
+        return blend_noise(x, noise[name].to(self.device),
+                           r.reshape(b, 1, 1, 1))
+
+    def train_step(self, states: dict[str, ModelState],
+                   batch_a_u8: torch.Tensor, batch_b_u8: torch.Tensor, *,
+                   affine_params: dict | None = None,
+                   ratios: dict | None = None, noise: dict | None = None,
+                   with_images: bool = False) -> dict:
+        """One step of both models in place. ``affine_params``, ``ratios``
+        and ``noise``, when given, map each identity to its draws. Returns
+        ``lr`` and the losses (device scalars) under the JAX metric names."""
+        if with_images:
+            raise NotImplementedError(
+                "image panels need panel_grid_u8, not ported to the PyTorch "
+                "trainer yet")
+        cfg = self.cfg
+        step = states["a"].step
+        real = {}
+        for name, batch, mean, std in (
+                ("a", batch_a_u8, cfg.mean_a, cfg.std_a),
+                ("b", batch_b_u8, cfg.mean_b, cfg.std_b)):
+            real[name] = augment_batch(
+                batch.to(self.device, non_blocking=True), mean, std,
+                self.aug, generator=self.generator,
+                params=None if affine_params is None else affine_params[name],
+                method=cfg.warp_method)
+
+        metrics = {"lr": learning_rate_at(
+            step, cfg.learning_rate, cosine_t_max=cfg.cosine_t_max,
+            steps_per_epoch=self.steps_per_epoch)}
+        if cfg.mode == "denoise":
+            for name in IDENTITIES:
+                noisy = self._noisy(real[name], name, step, ratios, noise)
+                metrics[f"loss_denoise/train_{name}"] = self._update(
+                    states[name], noisy, real[name])
+            return metrics
+
+        # Swap: a learns from b's shadow's fakes, then b from a's shadow's,
+        # each shadow updated just before it makes its fake.
+        for name, other in (("a", "b"), ("b", "a")):
+            states[other].update_ema(self.ema_cfg)
+            fake = self._ema_forward(states[other], real[name])
+            metrics[f"swap_difference/{name}"] = mse_loss(real[name], fake)
+            noisy = self._noisy(fake, name, step, ratios, noise)
+            metrics[f"loss_swap/train_{name}"] = self._update(
+                states[name], noisy, real[name])
+        return metrics
+
+    def _update(self, state: ModelState, noisy: torch.Tensor,
+                target: torch.Tensor) -> torch.Tensor:
+        lr = learning_rate_at(state.step, self.cfg.learning_rate,
+                              cosine_t_max=self.cfg.cosine_t_max,
+                              steps_per_epoch=self.steps_per_epoch)
+        return train_one_model(state, noisy, target, lr)
+
+    # -------------------------------------------------------------- inference
+
+    def make_predict_fake(self, *, use_ema: bool = False):
+        """Single-forward face swap: a normalised NHWC batch -> the fp32
+        NHWC fake, eval-mode BN (running averages), through the online
+        model or, with ``use_ema``, its shadow (when it has one)."""
+        def predict(state: ModelState, x: torch.Tensor) -> torch.Tensor:
+            model = (state.ema_model if use_ema and state.has_ema
+                     else state.model)
+            model.eval()
+            with torch.inference_mode():
+                return model(x.to(self.device))
+
+        return predict

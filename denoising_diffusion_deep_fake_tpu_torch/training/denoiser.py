@@ -41,7 +41,6 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.noise_kernel import (
     fused_noise_blend,
 )
-from denoising_diffusion_deep_fake_tpu_torch.ops.losses import mse_ssim_loss
 from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
     blend_noise,
     sample_truncated_exponential,
@@ -52,6 +51,7 @@ from denoising_diffusion_deep_fake_tpu_torch.training.optim import (
 from denoising_diffusion_deep_fake_tpu_torch.training.state import (
     ModelState,
     create_model_state,
+    train_one_model,
 )
 
 _UNPORTED = ("upload_format", "data_cache", "data_parallel",
@@ -106,20 +106,10 @@ class DenoiserTrainer:
                                       offset=state.step)
         else:
             noisy = blend_noise(image, noise, ratios.reshape(b, 1, 1, 1))
-
-        model, optimizer = state.model, state.optimizer
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        loss = mse_ssim_loss(model(noisy), image)
-        loss.backward()
         lr = learning_rate_at(state.step, cfg.learning_rate,
                               cosine_t_max=cfg.cosine_t_max,
                               steps_per_epoch=self.steps_per_epoch)
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
-        state.step += 1
-        return {"loss": loss.detach(), "lr": lr}
+        return {"loss": train_one_model(state, noisy, image, lr), "lr": lr}
 
     def make_denoise_fn(self):
         """Eval-mode forward (running-average BN), NHWC in and out."""

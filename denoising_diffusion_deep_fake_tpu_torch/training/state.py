@@ -1,32 +1,74 @@
-"""Train state for one U-Net.
+"""Train state for one U-Net, and its one-model update.
 
 Port of ``denoising_diffusion_deep_fake_tpu/training/state.py:26-84``: the
-flax pytree (params, BN stats, optimizer state, step) becomes the
-``nn.Module`` (params and BN buffers), its ``torch.optim`` optimizer and
-the step counter. The EMA shadow of the swap workload is not ported yet.
+flax pytree (params, BN stats, optimizer state, step, optional EMA shadow)
+becomes the ``nn.Module`` (params and BN buffers), its ``torch.optim``
+optimizer, the step counter and, in the deep-fake workload's swap mode, a
+shadow ``nn.Module`` (the JAX ``ema_params`` + ``ema_batch_stats``) with its
+own ``ema_step``. The shadow has no optimizer and no gradients, and its
+train-mode BN writes no running statistics: they move only through
+``update_ema``, one blend over its params and BN buffers with one step.
+
+``train_one_model`` is the update every trainer shares (JAX
+``training/deep_fake.py:150-166``): train-mode forward,
+``mse_ssim_loss``, backward, Adam.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
 from torch import nn
 
+from denoising_diffusion_deep_fake_tpu_torch.models.resnet import (
+    freeze_running_stats_,
+)
 from denoising_diffusion_deep_fake_tpu_torch.models.unet import (
     create_unet,
     init_unet_,
+)
+from denoising_diffusion_deep_fake_tpu_torch.ops.losses import mse_ssim_loss
+from denoising_diffusion_deep_fake_tpu_torch.training.ema import (
+    EmaConfig,
+    ema_update,
 )
 from denoising_diffusion_deep_fake_tpu_torch.training.optim import make_adam
 
 
 @dataclasses.dataclass
 class ModelState:
-    """Module, optimizer and the number of updates applied so far."""
+    """Module, optimizer, the number of updates applied so far and, in swap
+    mode, the EMA shadow and its number of ``update_ema`` calls."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    ema_model: nn.Module | None = None
+    ema_step: int = 0
+
+    @property
+    def has_ema(self) -> bool:
+        return self.ema_model is not None
+
+    def attach_ema(self) -> None:
+        """A shadow that is a copy of the model now (same device and memory
+        format), with ``ema_step`` 0."""
+        shadow = copy.deepcopy(self.model).requires_grad_(False)
+        self.ema_model = freeze_running_stats_(shadow.train())
+        self.ema_step = 0
+
+    def update_ema(self, cfg: EmaConfig) -> None:
+        """One ema_pytorch ``update()`` over the params and BN buffers."""
+        self.ema_step = ema_update(
+            shadow_tensors(self.ema_model), shadow_tensors(self.model),
+            self.ema_step, cfg)
+
+
+def shadow_tensors(model: nn.Module) -> list[torch.Tensor]:
+    """The tensors an EMA blends: the params, then the BN buffers."""
+    return list(model.parameters()) + list(model.buffers())
 
 
 def param_count(model: nn.Module) -> int:
@@ -34,10 +76,10 @@ def param_count(model: nn.Module) -> int:
 
 
 def create_model_state(cfg, dtype: torch.dtype, device: torch.device,
-                       seed: int) -> ModelState:
+                       seed: int, *, with_ema: bool = False) -> ModelState:
     """A ``cfg.encoder_name`` U-Net with smp/torchvision init drawn from
     ``seed``, on ``device`` (``channels_last`` on the GPU) in train mode,
-    and its Adam with ``cfg``'s betas."""
+    its Adam with ``cfg``'s betas and, ``with_ema``, its shadow."""
     gen = torch.Generator()
     gen.manual_seed(seed)
     model = init_unet_(create_unet(cfg.encoder_name, dtype=dtype), gen)
@@ -47,4 +89,26 @@ def create_model_state(cfg, dtype: torch.dtype, device: torch.device,
     model.train()
     optimizer = make_adam(model.parameters(), cfg.learning_rate,
                           b1=cfg.adam_b1, b2=cfg.adam_b2, device=device)
-    return ModelState(model=model, optimizer=optimizer, step=0)
+    state = ModelState(model=model, optimizer=optimizer, step=0)
+    if with_ema:
+        state.attach_ema()
+    return state
+
+
+def train_one_model(state: ModelState, noisy: torch.Tensor,
+                    target: torch.Tensor, lr: float | None = None
+                    ) -> torch.Tensor:
+    """One update of ``state`` in place: ``mse_ssim_loss(model(noisy),
+    target)`` in train mode, backward, Adam at ``lr`` (the optimizer's own
+    when None). Returns the loss as a device scalar."""
+    model, optimizer = state.model, state.optimizer
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    loss = mse_ssim_loss(model(noisy), target)
+    loss.backward()
+    if lr is not None:
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+    optimizer.step()
+    state.step += 1
+    return loss.detach()

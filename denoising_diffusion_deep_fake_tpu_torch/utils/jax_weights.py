@@ -7,6 +7,10 @@ keys are smp's. The mapping is the one the JAX package's exporter uses
 inverse of ``utils/torch_import.py``), kept here as its own copy: conv
 kernels go HWIO -> OIHW, BN ``scale``/``bias`` -> ``weight``/``bias``,
 ``mean``/``var`` -> ``running_mean``/``running_var``.
+
+``load_jax_state`` carries a whole JAX ``ModelState`` (``training/state.py``
+there) into the port's: the online weights, and where present the EMA
+shadow's weights and ``ema_step``, plus ``step``.
 """
 
 from __future__ import annotations
@@ -81,3 +85,20 @@ def state_dict_from_jax(params: dict, batch_stats: dict
             sd[key] = torch.from_numpy(
                 np.array(value, dtype=np.float32, copy=True))
     return sd
+
+
+def load_jax_state(state, jax_state) -> None:
+    """Fill the port's ``ModelState`` in place from a JAX ``ModelState``
+    whose arrays are on the host (``jax.device_get``): ``params`` and
+    ``batch_stats`` into the model, ``ema_params`` and ``ema_batch_stats``
+    into a shadow (attached when the port state has none) with
+    ``ema_step``, and ``step``. The optimizer's moments are not carried."""
+    state.model.load_state_dict(state_dict_from_jax(jax_state.params,
+                                                    jax_state.batch_stats))
+    state.step = int(jax_state.step)
+    if jax_state.ema_params is not None:
+        if not state.has_ema:
+            state.attach_ema()
+        state.ema_model.load_state_dict(state_dict_from_jax(
+            jax_state.ema_params, jax_state.ema_batch_stats))
+        state.ema_step = int(jax_state.ema_step)

@@ -182,6 +182,37 @@ def test_twopass_kernel_matches_plain_at_fixed_params(cuda, rows, hw):
     assert torch.equal(got, pk.affine_warp_twopass_plain(x, coeffs))
 
 
+def _shift_scale_rotate_params(b, seed, device):
+    """The deep-fake trainer's draws (p = 0.7), some samples unwarped."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
+        AffineAugmentConfig, sample_affine_params)
+
+    params = sample_affine_params(
+        b, AffineAugmentConfig.shift_scale_rotate(),
+        generator=torch.Generator().manual_seed(seed))
+    assert 0 < int(params["apply"].sum()) < b
+    return {k: v.to(device) for k, v in params.items()}
+
+
+@pytest.mark.parametrize("route,shape,seed", [
+    ("fused", (16, 448, 448), 0), ("fused", (2, 64, 64), 3),
+    ("twopass", (4, 640, 640), 0), ("twopass", (2, 96, 64), 3)])
+def test_warp_kernels_match_plain_with_unwarped_samples(cuda, route, shape,
+                                                        seed):
+    b, h, w = shape
+    params = _shift_scale_rotate_params(b, seed, cuda)
+    if route == "fused":
+        u8 = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, 256, (b, h, w, 3), np.uint8)).to(cuda)
+        _fused_vs_plain(u8, params, *IMAGENET)
+    else:
+        x = torch.randn((b, h, w, 3), generator=torch.Generator().manual_seed(
+            seed)).to(cuda)
+        coeffs = _coeffs(params, h, w)
+        got = pk.affine_warp_twopass_coeffs(x, coeffs)
+        assert torch.equal(got, pk.affine_warp_twopass_plain(x, coeffs))
+
+
 def test_twopass_route_is_one_row_and_one_column_launch(cuda):
     from torch.profiler import ProfilerActivity, profile
 
@@ -320,6 +351,59 @@ def test_train_step_on_gpu(cuda, dtype):
     assert np.isfinite(losses).all() and state.step == 2
     out = trainer.make_denoise_fn()(state, u8.float().to(cuda) / 127.5 - 1)
     assert out.shape == (2, 64, 64, 3) and out.dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_deep_fake_steps_on_gpu(cuda, dtype):
+    """Denoise, the flip, and swap: finite losses, two fused warps and two
+    noise launches a step, shadows that copy and then blend."""
+    import dataclasses
+
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DeepFakeConfig, config_from_dict, overlay_config)
+    from denoising_diffusion_deep_fake_tpu_torch.training.deep_fake import (
+        DeepFakeTrainer)
+    from denoising_diffusion_deep_fake_tpu_torch.training.state import (
+        shadow_tensors)
+
+    cfg = config_from_dict(DeepFakeConfig, dict(
+        data_path_a="a", data_path_b="b", batch_size=2, learning_rate=1e-3,
+        encoder_name="resnet18", compute_dtype=dtype,
+        warp_method="pallas_fused"))
+    trainer = DeepFakeTrainer(cfg, steps_per_epoch=4, image_size=64)
+    states = trainer.init_states(seed=0)
+    gen = torch.Generator().manual_seed(9)
+    u8 = torch.randint(0, 256, (2, 2, 64, 64, 3), dtype=torch.uint8,
+                       generator=gen)
+    before = dict(LAUNCHES)
+    m = trainer.train_step(states, u8[0], u8[1])
+    assert np.isfinite([float(m[f"loss_denoise/train_{n}"])
+                        for n in "ab"]).all()
+    swap = DeepFakeTrainer(overlay_config(
+        DeepFakeConfig, dataclasses.asdict(cfg),
+        dict(mode="swap", ema_update_after_step=0)),
+        steps_per_epoch=4, image_size=64)
+    swap.ensure_ema(states)
+    assert all(s.model.encoder.conv1.weight.is_contiguous(
+        memory_format=torch.channels_last) for s in states.values())
+    assert all(s.ema_model.encoder.conv1.weight.is_contiguous(
+        memory_format=torch.channels_last) for s in states.values())
+    for _ in range(3):
+        m = swap.train_step(states, u8[0], u8[1])
+    for key in ("loss_swap/train_a", "loss_swap/train_b",
+                "swap_difference/a", "swap_difference/b"):
+        assert np.isfinite(float(m[key])), key
+    for name in ("affine_warp_fused", "fused_noise_blend"):
+        assert LAUNCHES[name] == before.get(name, 0) + 8, name
+    for s in states.values():
+        assert s.step == 4 and s.ema_step == 3
+        # ema_step 2 blended (decay > 0): the shadow is off the model.
+        assert not all(torch.equal(e, p) for e, p in zip(
+            shadow_tensors(s.ema_model), shadow_tensors(s.model)))
+    for use_ema in (False, True):
+        out = swap.make_predict_fake(use_ema=use_ema)(
+            states["a"], torch.rand((2, 64, 64, 3), device=cuda) * 2 - 1)
+        assert out.dtype == torch.float32 and torch.isfinite(out).all()
 
 
 def _within_one_ulp(got, want):

@@ -30,6 +30,9 @@ from denoising_diffusion_deep_fake_tpu.training.optim import (
 from denoising_diffusion_deep_fake_tpu_torch import config as port_config
 from denoising_diffusion_deep_fake_tpu_torch.device import resolve_device
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import warp_kernel
+from denoising_diffusion_deep_fake_tpu_torch.training.deep_fake import (
+    DeepFakeTrainer,
+)
 from denoising_diffusion_deep_fake_tpu_torch.training.denoiser import (
     DenoiserTrainer,
 )
@@ -73,13 +76,36 @@ def test_config_validation_and_rescale():
     assert cfg.mean == pytest.approx((128 / 255,) * 3)
 
 
-@pytest.mark.parametrize("knob", [dict(remat="dots"), dict(steps_per_call=2),
-                                  dict(color_jitter=(0.1, 0, 0, 0)),
-                                  dict(upload_format="i420"), dict(patchify_stem=2)])
-def test_trainer_refuses_unported_knobs(knob):
+def _deep_fake_cfg(**overrides):
+    base = dict(data_path_a="a", data_path_b="b", batch_size=2,
+                encoder_name="resnet18", compute_dtype="float32")
+    return port_config.config_from_dict(port_config.DeepFakeConfig,
+                                        dict(base, **overrides))
+
+
+TRAINERS = {"denoiser": (DenoiserTrainer, _cfg),
+            "deep_fake": (DeepFakeTrainer, _deep_fake_cfg)}
+KNOBS = [dict(remat="dots"), dict(steps_per_call=2),
+         dict(color_jitter=(0.1, 0, 0, 0)), dict(upload_format="i420"),
+         dict(patchify_stem=2)]
+
+
+@pytest.mark.parametrize("trainer,knob", [
+    pytest.param(name, knob, id=f"knob{i}" if name == "denoiser"
+                 else f"{name}-knob{i}")
+    for name in TRAINERS for i, knob in enumerate(KNOBS)])
+def test_trainer_refuses_unported_knobs(trainer, knob):
+    cls, make_cfg = TRAINERS[trainer]
     with pytest.raises(NotImplementedError):
-        DenoiserTrainer(_cfg(**knob), steps_per_epoch=1, image_size=64,
-                        device="cpu")
+        cls(make_cfg(**knob), steps_per_epoch=1, image_size=64, device="cpu")
+
+
+def test_deep_fake_step_refuses_image_panels():
+    # The panels need panel_grid_u8, which the port does not have yet.
+    trainer = DeepFakeTrainer(_deep_fake_cfg(), steps_per_epoch=1,
+                              image_size=64, device="cpu")
+    with pytest.raises(NotImplementedError, match="panel_grid_u8"):
+        trainer.train_step({}, None, None, with_images=True)
 
 
 def test_learning_rate_follows_the_jax_schedule():

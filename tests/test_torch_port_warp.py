@@ -188,6 +188,23 @@ def test_fused_plain_uint8_fold_matches_pallas_exactly(hw, norm):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+def test_fused_plain_with_unwarped_samples_matches_pallas_exactly():
+    # ShiftScaleRotate at p = 0.7 leaves about 30% of samples unwarped:
+    # identity coefficients, integer source positions, the bf16 strip.
+    u8 = np.random.default_rng(9).integers(0, 256, (B, 64, 64, 3), np.uint8)
+    params = dict(_params(10), apply=jnp.asarray([True, False]))
+    mean, std = IMAGENET
+    ref = np.asarray(affine_warp_pallas_fused(
+        jnp.asarray(u8), params, mean=mean, std=std, interpret=True))
+    got = pf.affine_warp_fused_coeffs(torch.from_numpy(u8),
+                                      _coeffs(params, 64, 64), mean=mean,
+                                      std=std)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    # The unwarped sample is its normalisation, rounded through bf16.
+    norm = (u8[1] - np.float32(mean) * 255) / (np.float32(std) * 255)
+    np.testing.assert_allclose(ref[1], norm, rtol=2.0 ** -8, atol=0)
+
+
 def _fixed_params(rows):
     """One sample per ``(angle, scale, tx, ty)`` row."""
     cols = np.asarray(rows, np.float32).T
