@@ -49,7 +49,21 @@ Phases, in order; any failure exits non-zero:
    decay-0 updates copy b before its step and a after its; (d) swap mode
    from there, past the EMA warm-up: 3 warm-up and 20 timed steps, the
    shadows moving, the single-pass forward through model and shadow, and
-   a profile of 3 more.
+   a profile of 3 more;
+9. serving, from 8d's swap-mode states: (a) saved through the port's
+   CheckpointManager and loaded back per identity, model and shadow, bit
+   for bit; (b) a 64^2 fp32 resnet18 pair's uint8 pipeline on the GPU
+   against the CPU (single-pass within 1 LSB, DDIM at 3 steps with the
+   noise injected within 1e-4); (c) the single-pass pipeline at 448^2 x
+   16 (configs/swap.yml's batch), no noise launch; (d) the DDIM pipeline
+   at 448^2 x 8, 10 steps: one fp32 noise kernel launch a batch, its
+   blend equal to the plain version's, the same batch index giving the
+   same frames and another index other frames; (e) SwapEngine at 448^2,
+   batch 8, behind SwapServer on 127.0.0.1: 4 client threads post 2
+   untimed and then 75 timed /v1/swap_raw requests each, every reply
+   bit-equal to the output of the device batch that carried it and that
+   batch within 1 LSB of the pipeline run directly on it; /healthz,
+   /v1/stats and a bad X-Shape.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Every launch count is the count from the
@@ -63,11 +77,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import faulthandler
+import http.client
 import json
 import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -957,6 +974,392 @@ def deep_fake_swap(trainer, states: dict, dev, launches, card: str) -> dict:
     return run
 
 
+def u8_compare(got: torch.Tensor, want: torch.Tensor, what: str, *,
+               quiet: bool = False) -> float:
+    """uint8 frames within 1 LSB (a float on an integer boundary may
+    truncate either way); returns the share of differing values."""
+    diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    share = float((diff > 0).float().mean())
+    if not quiet:
+        log(f"  {what}: max |difference| {int(diff.max())} LSB, differing "
+            f"share {share:.3e}")
+    check(int(diff.max()) <= 1, f"{what}: more than 1 LSB apart")
+    return share
+
+
+def serving_checkpoint(trainer, states: dict, path: Path) -> None:
+    """Phase 9a: save 8d's states, load each identity's model and shadow
+    back, bit for bit, in channels_last on the card."""
+    from denoising_diffusion_deep_fake_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        load_swap_model)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = states["a"].step
+    CheckpointManager(path).save(step, states,
+                                 dataclasses.asdict(trainer.cfg))
+    save_s = time.perf_counter() - t0
+    n_bytes = sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+    loads = []
+    for name, state in states.items():
+        for use_ema, module in ((False, state.model),
+                                (True, state.ema_model)):
+            t0 = time.perf_counter()
+            model = load_swap_model(path, name, use_ema=use_ema)
+            loads.append(time.perf_counter() - t0)
+            got, want = model.model.state_dict(), module.state_dict()
+            check(got.keys() == want.keys() and all(
+                torch.equal(got[k], want[k]) for k in want),
+                f"{name} (use_ema={use_ema}) does not load back bit-equal")
+            weight = model.model.encoder.conv1.weight
+            check(weight.is_contiguous(memory_format=torch.channels_last)
+                  and not model.model.training,
+                f"{name}'s swap model is not in eval mode and channels_last")
+    log(f"  step {step}: saved both identities ({n_bytes / 1e6:.1f} MB: "
+        f"models, shadows, Adam, counters) in {save_s:.2f} s; loaded a and "
+        f"b, model and shadow, each bit-equal to the saved tensors, "
+        f"{min(loads):.2f}-{max(loads):.2f} s a load")
+
+
+def serving_reference(dev, path: Path) -> None:
+    """Phase 9b: a 64^2 fp32 resnet18 pair's pipeline, GPU against CPU."""
+    from denoising_diffusion_deep_fake_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        load_swap_model, make_device_pipeline)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
+        normalise_batch)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.sampler import (
+        swap_refine)
+
+    trainer = make_deep_fake("cpu", dict(DENOISE_YML, **SWAP_YML),
+                             batch_size=2, encoder_name="resnet18",
+                             compute_dtype="float32", image_size=64,
+                             mean_a=IMAGENET[0], std_a=IMAGENET[1])
+    CheckpointManager(path).save(1, trainer.init_states(seed=11),
+                                 dataclasses.asdict(trainer.cfg))
+    rng = np.random.default_rng(SEED + 9)
+    frames = torch.from_numpy(rng.integers(0, 256, (4, 64, 64, 3),
+                                           np.uint8))
+    noise = torch.from_numpy(rng.standard_normal((4, 64, 64, 3)).astype(
+        np.float32))
+    single, refined = {}, {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        model = load_swap_model(path, "a", device=device)
+        single[name] = make_device_pipeline(model)(frames.to(device),
+                                                   0).cpu()
+        x = normalise_batch(frames.to(device), model.mean, model.std)
+        refined[name] = swap_refine(model.predict, x, steps=3, seed=SEED,
+                                    offset=0, noise=noise.to(device)).cpu()
+    u8_compare(single["gpu"], single["cpu"],
+               "64^2 fp32 single-pass uint8, GPU vs CPU")
+    err = float((refined["gpu"] - refined["cpu"]).abs().max()
+                / refined["cpu"].abs().max())
+    log(f"  64^2 fp32 DDIM 3 steps, injected noise: max |GPU - CPU| "
+        f"{err:.2e} of the largest magnitude (limit 1e-4)")
+    check(math.isfinite(err) and err < 1e-4,
+          "the GPU DDIM refinement disagrees with the CPU reference")
+
+
+def time_pipeline(pipe, frames, launches, *, warmup: int, batches: int,
+                  first_idx: int = 0) -> dict:
+    """Drive ``pipe`` on device-resident frames, counted from 0: per-batch
+    device times (CUDA events) and frames/s on the host clock."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    outs = [pipe(frames, first_idx + i) for i in range(warmup)]
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(batches + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(batches):
+        outs.append(pipe(frames, first_idx + warmup + i))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / batches
+    times = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    return dict(outs=outs, counts=dict(launches), host_ms=host_ms,
+                times=times, n=warmup + batches,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def report_pipeline(what: str, run: dict, b: int, size: int,
+                    card: str) -> None:
+    t = run["times"]
+    log(f"  {what}: {run['host_ms']:.3f} ms a batch of {b} (host clock, "
+        f"mean of {len(t)}), {b / run['host_ms'] * 1e3:.1f} frames/s; "
+        f"per-batch device timeline median {t[len(t) // 2]:.3f} ms, min "
+        f"{t[0]:.3f}, max {t[-1]:.3f}; peak memory {run['peak_gb']:.2f} GB "
+        f"[{card}]")
+    log(f"  launches: {run['counts']}")
+    for out in run["outs"]:
+        check(out.dtype == torch.uint8 and out.shape == (b, size, size, 3)
+              and float(out.float().std()) > 0,
+              f"{what}: the output is not varied uint8 frames")
+
+
+def serving_single(path: Path, dev, launches, card: str, *,
+                   size: int = 448, batch: int = 16) -> dict:
+    """Phase 9c: the single-pass pipeline at 448^2 x 16; returns it as a
+    path for ``profile_steps``."""
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        load_swap_model, make_device_pipeline)
+
+    pipe = make_device_pipeline(load_swap_model(path, "a"))
+    frames = torch.from_numpy(np.random.default_rng(SEED + 10).integers(
+        0, 256, (batch, size, size, 3), np.uint8)).to(dev)
+    run = time_pipeline(pipe, frames, launches, warmup=3, batches=20)
+    report_pipeline(f"{size}^2 x{batch} single-pass swap (uint8 on the card "
+                    "both ways)", run, batch, size, card)
+    check(not any(run["counts"].values()),
+          "the single-pass pipeline launched a noise kernel")
+    check(torch.equal(run["outs"][0], run["outs"][-1]),
+          "the single-pass pipeline is not deterministic")
+    return dict(step=lambda u8: pipe(u8, 0), size=size, batch=batch,
+                step_ms=run["host_ms"])
+
+
+def serving_ddim(path: Path, dev, launches, card: str, *, size: int = 448,
+                 batch: int = 8, steps: int = 10) -> tuple[dict, dict]:
+    """Phase 9d: the DDIM pipeline at 448^2 x 8, 10 steps, through the
+    shadow of a. Returns the path's launch counts, and the pipeline as a
+    path for ``profile_steps``."""
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        load_swap_model, make_device_pipeline)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
+        normalise_batch)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import (
+        noise_kernel as nk)
+
+    model = load_swap_model(path, "a", use_ema=True)
+    pipe = make_device_pipeline(model, sampler_steps=steps, seed=SEED)
+    frames = torch.from_numpy(np.random.default_rng(SEED + 11).integers(
+        0, 256, (batch, size, size, 3), np.uint8)).to(dev)
+    run = time_pipeline(pipe, frames, launches, warmup=2, batches=24)
+    report_pipeline(f"{size}^2 x{batch} DDIM, {steps} steps ({steps + 1} "
+                    "forwards)", run, batch, size, card)
+    counts = run["counts"]
+    check(counts == {"fused_noise_blend": run["n"]},
+          f"the DDIM pipeline launched {counts} in {run['n']} batches, not "
+          "one fp32 noise blend a batch")
+    # Outside the counted run: determinism, and the pipeline's own first
+    # U-Net input (x_init) against the plain blend of the same stream.
+    check(torch.equal(pipe(frames, 0), run["outs"][0]),
+          "the same batch index gave other frames")
+    check(not torch.equal(pipe(frames, 1), run["outs"][0]),
+          "another batch index gave the same frames")
+    inputs = []
+    forward = model.predict
+
+    def recorded(z):
+        inputs.append(z.clone())
+        return forward(z)
+
+    model.predict = recorded
+    pipe(frames, 5)
+    del model.predict
+    x = normalise_batch(frames, model.mean, model.std)
+    r0 = torch.full((batch,), 0.7, device=dev)
+    compare_ulp(inputs[0], nk.fused_noise_blend_plain(x, r0, seed=SEED,
+                                                      offset=5),
+                f"{size}^2 x{batch} DDIM x_init (kernel) vs the plain blend")
+    log(f"  the same batch index gives the same frames, another index "
+        f"other frames; {len(inputs)} forwards a batch")
+    check(len(inputs) == steps + 1,
+          f"a {steps}-step DDIM batch did not run {steps + 1} forwards")
+    return counts, dict(step=lambda u8: pipe(u8, 0), size=size,
+                        batch=batch, step_ms=run["host_ms"])
+
+
+def post_raw(port: int, frames: np.ndarray, shape_hdr: str | None = None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", "/v1/swap_raw", body=frames.tobytes(),
+                     headers={"X-Shape": shape_hdr or ",".join(
+                         str(d) for d in frames.shape)})
+        resp = conn.getresponse()
+        return resp.status, resp.read(), resp.getheader("X-Shape")
+    finally:
+        conn.close()
+
+
+def get_json(port: int, route: str) -> dict:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", route)
+        resp = conn.getresponse()
+        check(resp.status == 200, f"GET {route} answered {resp.status}")
+        return json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def serving_http(path: Path, dev, launches, card: str, *, size: int = 448,
+                 batch: int = 8, clients: int = 4, requests: int = 75) -> None:
+    """Phase 9e: SwapEngine + SwapServer answering ``clients`` closed-loop
+    clients, each posting ``requests`` timed ``/v1/swap_raw`` requests of
+    1-3 frames after 2 untimed ones.
+
+    cuDNN's bf16 convolutions do not promise a frame the same low bits in
+    every slot of a batch, so each reply is held against the device batch
+    that carried it: the batch's frames bit-equal to the request's, the
+    reply bit-equal to the batch's output there, and that output within 1
+    LSB of the pipeline run directly on the same batch. Each request's
+    frames carry its number in their first pixel, which finds them there.
+    How far a reply lies from the pipeline on its frames alone (padded from
+    slot 0) is printed."""
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        make_device_pipeline)
+    from denoising_diffusion_deep_fake_tpu_torch.serving import SwapEngine
+    from denoising_diffusion_deep_fake_tpu_torch.serving.server import (
+        SwapServer)
+
+    engine = SwapEngine(path, "a", height=size, width=size,
+                        batch_size=batch)
+    warm_s = engine.warmup()
+    ran = []                       # (frames, output, batch index), on card
+    pipeline = engine._dispatcher.pipeline
+
+    def recorded(frames, batch_idx):
+        out = pipeline(frames, batch_idx)
+        ran.append((frames.clone(), out, batch_idx))
+        return out
+
+    engine._dispatcher.pipeline = recorded
+    rng = np.random.default_rng(SEED + 12)
+    stacks = [rng.integers(0, 256, (int(rng.integers(1, 4)), size, size, 3),
+                           np.uint8) for _ in range(24)]
+    sent = []                      # request number -> its frames
+
+    def stamped(k):
+        frames = stacks[k].copy()
+        r = len(sent)
+        frames[:, 0, 0] = [[r & 255, r >> 8, j + 1]
+                           for j in range(len(frames))]
+        sent.append(frames)
+        return frames
+
+    server = SwapServer(engine, host="127.0.0.1", port=0)
+    server.start()
+
+    def traffic(n: int):
+        """Each client posts ``n`` stamped stacks; returns the wall seconds
+        and, per request, (request number, latency ms, reply)."""
+        plan = [[stamped(k) for k in row]
+                for row in rng.integers(0, len(stacks), (clients, n))]
+        done = [[] for _ in range(clients)]
+
+        def client(c):
+            for frames in plan[c]:
+                r = int(frames[0, 0, 0, 0]) | int(frames[0, 0, 0, 1]) << 8
+                t0 = time.perf_counter()
+                reply = post_raw(server.port, frames)
+                done[c].append((r, (time.perf_counter() - t0) * 1e3, reply))
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall_s = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "a client hung")
+        return wall_s, [r for d in done for r in d]
+
+    try:
+        _, warm = traffic(2)
+        before = engine.stats()
+        launches.clear()
+        wall_s, timed = traffic(requests)
+        counts = dict(launches)
+        stats = get_json(server.port, "/v1/stats")
+        # The device-batch times of the timed window alone: the engine's
+        # rolling window also holds the warm-up batches.
+        n_batches = stats["batches"] - before["batches"]
+        with engine._stats_lock:
+            batch_ms = sorted(engine._stats.recent_batch_ms[-n_batches:])
+        n_frames = sum(sent[r].shape[0] for r, _, _ in timed)
+        lat = sorted(ms for _, ms, _ in timed)
+
+        def pct(xs, q):
+            return float(np.percentile(xs, q))
+
+        log(f"  engine warm-up {warm_s:.2f} s, then {clients} x 2 untimed "
+            f"requests; timed: {clients} clients x {requests} requests, "
+            f"{n_frames} frames in {wall_s * 1e3:.1f} ms: "
+            f"{n_frames / wall_s:.1f} frames/s served over HTTP, "
+            f"{n_batches} device batches, occupancy "
+            f"{n_frames / (n_batches * batch):.4f}; device batch "
+            f"(dispatch to fetch) p50 {pct(batch_ms, 50):.3f} ms, p99 "
+            f"{pct(batch_ms, 99):.3f} ms, max {batch_ms[-1]:.3f} ms; request "
+            f"latency p50 {pct(lat, 50):.1f} ms, p90 {pct(lat, 90):.1f} ms, "
+            f"p99 {pct(lat, 99):.1f} ms, max {lat[-1]:.1f} ms [{card}]")
+        log(f"  launches: {counts}")
+        check(not any(counts.values()), "the engine launched a noise kernel")
+        check(stats["errors"] == 0 and stats["shed_requests"] == 0
+              and stats["frames"] - before["frames"] == n_frames
+              and len(batch_ms) == n_batches,
+              f"engine stats off: {stats}")
+        check(all(k in stats for k in ("batch_occupancy",
+                                       "p50_device_batch_ms",
+                                       "p99_device_batch_ms")),
+              "/v1/stats lacks occupancy or latency percentiles")
+
+        # Each device batch against the pipeline run directly on it.
+        direct = make_device_pipeline(engine.model)
+        shares = [u8_compare(out, direct(frames, idx), "an engine batch "
+                             "against the pipeline on the same batch",
+                             quiet=True) for frames, out, idx in ran]
+        log(f"  {len(ran)} device batches of the engine: each within 1 LSB "
+            f"of the pipeline run directly on the same batch; differing "
+            f"share {min(shares):.3e}-{max(shares):.3e}")
+        # Each reply found in its batch by the stamps, bit for bit.
+        host = [(f.cpu().numpy(), o.cpu().numpy()) for f, o, _ in ran]
+        slot = {}
+        for b, (frames, _) in enumerate(host):
+            for s, (lo, hi, j) in enumerate(frames[:, 0, 0]):
+                if j:
+                    slot[(int(lo) | int(hi) << 8, int(j) - 1)] = (b, s)
+        alone_max, alone_n, alone_of = 0, 0, 0
+        for r, _, (status, body, shape) in warm + timed:
+            check(status == 200, f"/v1/swap_raw answered {status}")
+            got = np.frombuffer(body, np.uint8).reshape(
+                tuple(int(d) for d in shape.split(",")))
+            check(got.shape == sent[r].shape, "a reply has the wrong shape")
+            for j in range(len(got)):
+                b, s = slot[(r, j)]
+                check(np.array_equal(host[b][0][s], sent[r][j])
+                      and np.array_equal(host[b][1][s], got[j]),
+                      "an HTTP reply is not the output of its device batch")
+            padded = torch.zeros((batch, size, size, 3), dtype=torch.uint8,
+                                 device=dev)
+            padded[:len(got)] = torch.from_numpy(sent[r]).to(dev)
+            diff = (torch.from_numpy(got.copy()).to(dev).to(torch.int16)
+                    - direct(padded, 0)[:len(got)].to(torch.int16)).abs()
+            alone_max = max(alone_max, int(diff.max()))
+            alone_n += int((diff > 0).sum())
+            alone_of += diff.numel()
+        log(f"  all {len(warm) + len(timed)} replies bit-equal to their "
+            f"device batch's output; against the pipeline on their frames "
+            f"alone (padded from slot 0): max |difference| {alone_max} LSB, "
+            f"differing share {alone_n / alone_of:.3e} (cuDNN's bf16 "
+            f"convolutions by batch slot; reported, not checked)")
+        health = get_json(server.port, "/healthz")
+        check(health["status"] == "ok" and health["frame_shape"] == [
+            size, size, 3], f"/healthz answered {health}")
+        status, body, _ = post_raw(server.port, stacks[0],
+                                   f"1,{size},{size + 1},3")
+        check(status == 400, f"a bad X-Shape answered {status}")
+        log(f"  /healthz ok, /v1/stats ok, bad X-Shape -> {status}")
+    finally:
+        server.shutdown()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", type=Path, default=None,
@@ -965,6 +1368,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    # A hang anywhere prints every thread's stack and exits non-zero within
+    # the script's 1200 s limit.
+    faulthandler.dump_traceback_later(1100, exit=True)
     from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import _build
 
     dev = torch.device("cuda")
@@ -1052,11 +1458,29 @@ def main() -> int:
                               card)
     profile_steps(swap_run, dev, None)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "swap"
+        log("[9a] serving: checkpoint of 8d's states, loaded back")
+        serving_checkpoint(swap_trainer, states, ckpt)
+        log("[9b] serving small reference: 64^2 fp32 pipeline, GPU vs CPU")
+        serving_reference(dev, Path(tmp) / "small")
+        log("[9c] single-pass pipeline: 448^2, batch 16")
+        profile_steps(serving_single(ckpt, dev, _build.LAUNCHES, card), dev,
+                      None)
+        log("[9d] DDIM pipeline: 448^2, batch 8, 10 steps")
+        ddim_counts, ddim_run = serving_ddim(ckpt, dev, _build.LAUNCHES,
+                                             card)
+        profile_steps(ddim_run, dev, None)
+        log("[9e] SwapEngine + SwapServer: 448^2, batch 8, 4 clients x 75 "
+            "requests")
+        serving_http(ckpt, dev, _build.LAUNCHES, card)
+
     paths = {"denoiser_448": main_run["counts"],
              "twopass_640": twopass_run["counts"],
              "balancer_448": balance_counts,
              "deep_fake_denoise_448": denoise_run["counts"],
-             "deep_fake_swap_448": swap_run["counts"]}
+             "deep_fake_swap_448": swap_run["counts"],
+             "serve_ddim_448": ddim_counts}
     first_path = {"affine_warp_fused": "denoiser_448",
                   "warp_axis_pass": "twopass_640",
                   "fused_noise_blend": "denoiser_448",

@@ -132,7 +132,8 @@ class BalanceTrainer:
             raise NotImplementedError(
                 "image panels are not ported to the PyTorch balancer yet")
         image, noisy = self._images(batch_u8, state.step, noise)
-        return {"loss": train_one_model(state, noisy, image)}
+        loss, _ = train_one_model(state, noisy, image)
+        return {"loss": loss}
 
     def make_validation_step(self):
         """Per-batch difficulty scoring: ``(state, batch_u8, *, offset,

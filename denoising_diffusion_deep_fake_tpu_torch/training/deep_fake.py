@@ -31,6 +31,10 @@ key folded with the step instead; the two streams differ by design (as in
 ``training/denoiser.py``). ``train_step`` accepts the affine params, the
 ratios and the noise of each identity, so a test can feed both frameworks
 the same numbers; given noise is blended with ``blend_noise``.
+
+``with_images`` also returns the TensorBoard panels under the JAX tags
+(``:239-287`` there), each the step's own tensor through ``panel_grid_u8``:
+a uint8 3x3 grid made on the device.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.noise_kernel import (
     fused_noise_blend,
 )
+from denoising_diffusion_deep_fake_tpu_torch.ops.image import panel_grid_u8
 from denoising_diffusion_deep_fake_tpu_torch.ops.losses import mse_loss
 from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
     blend_noise,
@@ -148,14 +153,12 @@ class DeepFakeTrainer:
                    batch_a_u8: torch.Tensor, batch_b_u8: torch.Tensor, *,
                    affine_params: dict | None = None,
                    ratios: dict | None = None, noise: dict | None = None,
-                   with_images: bool = False) -> dict:
+                   with_images: bool = False):
         """One step of both models in place. ``affine_params``, ``ratios``
         and ``noise``, when given, map each identity to its draws. Returns
-        ``lr`` and the losses (device scalars) under the JAX metric names."""
-        if with_images:
-            raise NotImplementedError(
-                "image panels need panel_grid_u8, not ported to the PyTorch "
-                "trainer yet")
+        ``lr`` and the losses (device scalars) under the JAX metric names;
+        ``with_images``, ``(metrics, panels)`` with the uint8 panels under
+        the JAX image tags."""
         cfg = self.cfg
         step = states["a"].step
         real = {}
@@ -171,26 +174,39 @@ class DeepFakeTrainer:
         metrics = {"lr": learning_rate_at(
             step, cfg.learning_rate, cosine_t_max=cfg.cosine_t_max,
             steps_per_epoch=self.steps_per_epoch)}
+        panels = {}
         if cfg.mode == "denoise":
             for name in IDENTITIES:
                 noisy = self._noisy(real[name], name, step, ratios, noise)
-                metrics[f"loss_denoise/train_{name}"] = self._update(
-                    states[name], noisy, real[name])
-            return metrics
-
-        # Swap: a learns from b's shadow's fakes, then b from a's shadow's,
-        # each shadow updated just before it makes its fake.
-        for name, other in (("a", "b"), ("b", "a")):
-            states[other].update_ema(self.ema_cfg)
-            fake = self._ema_forward(states[other], real[name])
-            metrics[f"swap_difference/{name}"] = mse_loss(real[name], fake)
-            noisy = self._noisy(fake, name, step, ratios, noise)
-            metrics[f"loss_swap/train_{name}"] = self._update(
-                states[name], noisy, real[name])
-        return metrics
+                loss, pred = self._update(states[name], noisy, real[name])
+                metrics[f"loss_denoise/train_{name}"] = loss
+                if with_images:
+                    panels[f"denoise_1_model_input/{name}"] = (
+                        panel_grid_u8(noisy))
+                    panels[f"denoise_2_model_prediction/{name}"] = (
+                        panel_grid_u8(pred))
+        else:
+            # Swap: a learns from b's shadow's fakes, then b from a's
+            # shadow's, each shadow updated just before it makes its fake.
+            for name, other in (("a", "b"), ("b", "a")):
+                states[other].update_ema(self.ema_cfg)
+                fake = self._ema_forward(states[other], real[name])
+                metrics[f"swap_difference/{name}"] = mse_loss(real[name],
+                                                              fake)
+                noisy = self._noisy(fake, name, step, ratios, noise)
+                loss, pred = self._update(states[name], noisy, real[name])
+                metrics[f"loss_swap/train_{name}"] = loss
+                if with_images:
+                    panels.update({
+                        f"swap_1_real/{name}": panel_grid_u8(real[name]),
+                        f"swap_2_fake/{name}_to_fake": panel_grid_u8(fake),
+                        f"swap_3_model_input/{name}": panel_grid_u8(noisy),
+                        f"swap_4_model_prediction/{name}": panel_grid_u8(
+                            pred)})
+        return (metrics, panels) if with_images else metrics
 
     def _update(self, state: ModelState, noisy: torch.Tensor,
-                target: torch.Tensor) -> torch.Tensor:
+                target: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         lr = learning_rate_at(state.step, self.cfg.learning_rate,
                               cosine_t_max=self.cfg.cosine_t_max,
                               steps_per_epoch=self.steps_per_epoch)

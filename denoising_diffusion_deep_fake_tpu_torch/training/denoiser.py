@@ -109,7 +109,8 @@ class DenoiserTrainer:
         lr = learning_rate_at(state.step, cfg.learning_rate,
                               cosine_t_max=cfg.cosine_t_max,
                               steps_per_epoch=self.steps_per_epoch)
-        return {"loss": train_one_model(state, noisy, image, lr), "lr": lr}
+        loss, _ = train_one_model(state, noisy, image, lr)
+        return {"loss": loss, "lr": lr}
 
     def make_denoise_fn(self):
         """Eval-mode forward (running-average BN), NHWC in and out."""

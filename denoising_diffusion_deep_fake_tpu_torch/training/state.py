@@ -97,18 +97,19 @@ def create_model_state(cfg, dtype: torch.dtype, device: torch.device,
 
 def train_one_model(state: ModelState, noisy: torch.Tensor,
                     target: torch.Tensor, lr: float | None = None
-                    ) -> torch.Tensor:
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """One update of ``state`` in place: ``mse_ssim_loss(model(noisy),
     target)`` in train mode, backward, Adam at ``lr`` (the optimizer's own
-    when None). Returns the loss as a device scalar."""
+    when None). Returns the loss as a device scalar and the prediction."""
     model, optimizer = state.model, state.optimizer
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    loss = mse_ssim_loss(model(noisy), target)
+    pred = model(noisy)
+    loss = mse_ssim_loss(pred, target)
     loss.backward()
     if lr is not None:
         for group in optimizer.param_groups:
             group["lr"] = lr
     optimizer.step()
     state.step += 1
-    return loss.detach()
+    return loss.detach(), pred.detach()

@@ -568,3 +568,125 @@ def test_noise_launcher_rejects_bad_operands(cuda):
     with pytest.raises(TypeError):
         nk.launch_blend(x, torch.empty_like(x), ratios, [0.0] * 6, seed=0,
                         offset=0)
+
+
+# ------------------------------------------------------------ serving slice
+
+
+def _swap_checkpoint(tmp_path, device, *, dtype="float32", size=64):
+    """A swap-mode resnet18 pair (with shadows apart from their models)
+    saved by the port's manager; returns the directory and the states."""
+    import dataclasses
+
+    from denoising_diffusion_deep_fake_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DeepFakeConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.training.deep_fake import (
+        DeepFakeTrainer)
+    from denoising_diffusion_deep_fake_tpu_torch.training.state import (
+        create_model_state)
+
+    cfg = config_from_dict(DeepFakeConfig, dict(
+        mode="swap", data_path_a="a", data_path_b="b", batch_size=2,
+        encoder_name="resnet18", compute_dtype=dtype, image_size=size,
+        mean_a=IMAGENET[0], std_a=IMAGENET[1]))
+    trainer = DeepFakeTrainer(cfg, steps_per_epoch=1, image_size=size,
+                              device=device)
+    states = trainer.init_states(seed=3)
+    for i, state in enumerate(states.values()):
+        apart = create_model_state(cfg, trainer.dtype, torch.device(device),
+                                   seed=30 + i)
+        state.ema_model.load_state_dict(apart.model.state_dict())
+    CheckpointManager(tmp_path).save(2, states, dataclasses.asdict(cfg))
+    return tmp_path, states
+
+
+def test_checkpoint_round_trip_on_gpu(cuda, tmp_path):
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        load_swap_model)
+
+    path, states = _swap_checkpoint(tmp_path, cuda, dtype="bfloat16")
+    for name, state in states.items():
+        for use_ema, module in ((False, state.model),
+                                (True, state.ema_model)):
+            model = load_swap_model(path, name, use_ema=use_ema)
+            assert model.device.type == "cuda" and not model.model.training
+            got, want = model.model.state_dict(), module.state_dict()
+            assert got.keys() == want.keys()
+            assert all(torch.equal(got[k], want[k]) for k in want)
+            conv = model.model.encoder.conv1.weight
+            assert conv.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_swap_pipeline_gpu_matches_cpu(cuda, tmp_path):
+    """fp32 64^2: single-pass uint8 within 1 LSB; DDIM at 3 steps with
+    injected noise within 1e-4 of the largest magnitude."""
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        load_swap_model, make_device_pipeline)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
+        normalise_batch)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.sampler import (
+        swap_refine)
+
+    path, _ = _swap_checkpoint(tmp_path, "cpu")
+    frames = torch.randint(0, 256, (3, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(4))
+    noise = torch.randn((3, 64, 64, 3),
+                        generator=torch.Generator().manual_seed(5))
+    out, refined = {}, {}
+    for name, dev in (("cpu", "cpu"), ("gpu", cuda)):
+        model = load_swap_model(path, "b", device=dev)
+        out[name] = make_device_pipeline(model)(frames.to(dev), 0).cpu()
+        x = normalise_batch(frames.to(dev), model.mean, model.std)
+        refined[name] = swap_refine(model.predict, x, steps=3, seed=0,
+                                    offset=0, noise=noise.to(dev)).cpu()
+    diff = (out["gpu"].int() - out["cpu"].int()).abs()
+    assert int(diff.max()) <= 1
+    err = (refined["gpu"] - refined["cpu"]).abs().max()
+    assert float(err) <= 1e-4 * float(refined["cpu"].abs().max())
+
+
+def test_fp32_predict_is_fp32_whatever_the_tf32_flags(cuda, tmp_path):
+    """An fp32 swap model's own forward, with no pipeline built and TF32
+    switched on by the caller, stays within 1e-4 of the CPU's; the
+    caller's flags are back afterwards."""
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        load_swap_model)
+
+    path, _ = _swap_checkpoint(tmp_path, "cpu")
+    x = torch.randn((3, 64, 64, 3), generator=torch.Generator().manual_seed(6))
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    try:
+        cudnn.allow_tf32 = matmul.allow_tf32 = True
+        want = load_swap_model(path, "a", device="cpu").predict(x)
+        got = load_swap_model(path, "a", device=cuda).predict(
+            x.to(cuda)).cpu()
+        assert cudnn.allow_tf32 and matmul.allow_tf32
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    err = (got.float() - want.float()).abs().max()
+    assert float(err) <= 1e-4 * float(want.abs().max())
+
+
+def test_ddim_pipeline_one_noise_launch_a_batch(cuda, tmp_path):
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        load_swap_model, make_device_pipeline)
+
+    path, _ = _swap_checkpoint(tmp_path, cuda, dtype="bfloat16")
+    model = load_swap_model(path, "a", use_ema=True)
+    frames = torch.randint(0, 256, (4, 64, 64, 3), dtype=torch.uint8,
+                           device=cuda)
+    ddim = make_device_pipeline(model, sampler_steps=4, seed=1)
+    before = dict(LAUNCHES)
+    first = ddim(frames, 0)
+    again = ddim(frames, 0)
+    other = ddim(frames, 1)
+    assert LAUNCHES["fused_noise_blend"] == before.get(
+        "fused_noise_blend", 0) + 3
+    assert torch.equal(first, again) and not torch.equal(first, other)
+    single = make_device_pipeline(model)
+    before = dict(LAUNCHES)
+    assert single(frames, 0).dtype == torch.uint8
+    assert dict(LAUNCHES) == before

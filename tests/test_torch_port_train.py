@@ -101,11 +101,20 @@ def test_trainer_refuses_unported_knobs(trainer, knob):
 
 
 def test_deep_fake_step_refuses_image_panels():
-    # The panels need panel_grid_u8, which the port does not have yet.
+    """Whatever the name says, ``with_images`` is not refused: the step
+    returns its metrics and the uint8 panels under the JAX denoise-mode tags (their contents:
+    tests/test_torch_port_serving.py)."""
     trainer = DeepFakeTrainer(_deep_fake_cfg(), steps_per_epoch=1,
-                              image_size=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="panel_grid_u8"):
-        trainer.train_step({}, None, None, with_images=True)
+                              image_size=32, device="cpu")
+    states = trainer.init_states(seed=0)
+    u8 = torch.zeros((2, 32, 32, 3), dtype=torch.uint8)
+    metrics, panels = trainer.train_step(states, u8, u8, with_images=True)
+    assert "loss_denoise/train_a" in metrics
+    assert sorted(panels) == [f"denoise_{i}/{n}" for i in
+                              ("1_model_input", "2_model_prediction")
+                              for n in "ab"]
+    assert all(p.dtype == torch.uint8 and p.shape == (36, 104, 3)
+               for p in panels.values())
 
 
 def test_learning_rate_follows_the_jax_schedule():
