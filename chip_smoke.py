@@ -63,7 +63,25 @@ Phases, in order; any failure exits non-zero:
    untimed and then 75 timed /v1/swap_raw requests each, every reply
    bit-equal to the output of the device batch that carried it and that
    batch within 1 LSB of the pipeline run directly on it; /healthz,
-   /v1/stats and a bad X-Shape.
+   /v1/stats and a bad X-Shape;
+10. training from disk, through the runners (training/runners.py) and
+   their loop, on .npy frames read with ``decode_fn=np.load`` (the GPU
+   machine has no cv2): (a) two identities of 48 uint8 448^2 frames and
+   their manifests; (b) fit_denoiser at phase 5's width for 2 epochs of 3
+   steps (one fused warp and one fp32 noise launch a step), its event file
+   read back with every record's CRC checked, its final checkpoint
+   restored bit for bit (weights, BN buffers, Adam's moments and steps,
+   the generator), epoch 2's rate through the loop beside phase 5's; (c)
+   fit_deep_fake in denoise mode (16 per identity) for 1 epoch, then
+   resumed to epoch 2 from its checkpoint, and at 64^2 (resnet18, fp32,
+   cudnn.deterministic) 2 epochs against 1 epoch and a resume, every
+   tensor bit-equal; (d) modify to swap mode (configs/swap.yml overlaid)
+   for 3 steps: a fresh Adam, shadows that are the models at the flip;
+   then load_swap_model from its checkpoint answers a batch; (e)
+   fit_balance at 448^2 x 12 for 1 epoch (one uint8 noise launch a step
+   and a scoring batch), the balanced manifest and the histogram image in
+   the event file; (f) the checkpoints' bytes, save and restore times and
+   the phase's peak memory.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Every launch count is the count from the
@@ -81,11 +99,13 @@ import faulthandler
 import http.client
 import json
 import math
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -719,7 +739,9 @@ def score_and_write(run: dict, dev, launches) -> None:
     from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
         read_image_manifest_with_classes)
     from denoising_diffusion_deep_fake_tpu_torch.training.balance import (
-        compute_difficulty_index, write_balanced_manifest)
+        compute_difficulty_index)
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        write_balanced_manifest)
 
     trainer, state = run["trainer"], run["state"]
     n, bs, size = 50, run["batch"], run["size"]
@@ -748,7 +770,9 @@ def score_and_write(run: dict, dev, launches) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         paths = [Path(tmp) / "images" / f"{i:05d}.png" for i in range(n)]
         manifest = Path(tmp) / "balanced.txt"
-        write_balanced_manifest(manifest, paths, indices, classes)
+        write_balanced_manifest(
+            types.SimpleNamespace(output_image_list_path=manifest),
+            types.SimpleNamespace(paths=paths), indices, classes)
         got_paths, got_classes = read_image_manifest_with_classes(manifest)
     check(got_paths == paths and got_classes == classes.tolist(),
           "the balanced manifest does not read back")
@@ -1360,6 +1384,469 @@ def serving_http(path: Path, dev, launches, card: str, *, size: int = 448,
         server.shutdown()
 
 
+# ------------------------------------------------ phase 10: training from disk
+
+
+def _crc_byte(n: int) -> int:
+    for _ in range(8):
+        n = (n >> 1) ^ (0x82F63B78 * (n & 1))
+    return n
+
+
+# CRC-32C from its polynomial: an implementation apart from the port's.
+_CRC_TABLE = [_crc_byte(n) for n in range(256)]
+
+
+def _masked_crc(data: bytes) -> int:
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc = _CRC_TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    crc ^= 0xFFFFFFFF
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _proto_fields(buf: bytes):
+    """``(field number, value)`` of a protobuf message: an int for a
+    varint, bytes otherwise."""
+    i = 0
+
+    def varint():
+        nonlocal i
+        out = shift = 0
+        while True:
+            b = buf[i]
+            i += 1
+            out |= (b & 0x7F) << shift
+            shift += 7
+            if b < 0x80:
+                return out
+
+    while i < len(buf):
+        key = varint()
+        kind = key & 7
+        if kind == 0:
+            yield key >> 3, varint()
+        elif kind == 2:
+            n = varint()
+            yield key >> 3, buf[i:i + n]
+            i += n
+        else:
+            width = 8 if kind == 1 else 4
+            yield key >> 3, buf[i:i + width]
+            i += width
+
+
+def read_event_file(log_dir: Path) -> list:
+    """``(step, tag, simple_value or None for an image)`` of every summary
+    value in the one event file under ``log_dir``; every record's length
+    and payload CRC checked."""
+    files = list(log_dir.glob("events.out.tfevents.*"))
+    check(len(files) == 1, f"{log_dir}: {len(files)} event files")
+    data, rows, i = files[0].read_bytes(), [], 0
+    while i < len(data):
+        header = data[i:i + 8]
+        n = int.from_bytes(header, "little")
+        payload = data[i + 12:i + 12 + n]
+        check(int.from_bytes(data[i + 8:i + 12], "little")
+              == _masked_crc(header)
+              and int.from_bytes(data[i + 12 + n:i + 16 + n], "little")
+              == _masked_crc(payload), f"{files[0]}: a record's CRC fails")
+        i += 16 + n
+        event = dict(_proto_fields(payload))
+        for _, value in _proto_fields(event.get(5, b"")):
+            fields = dict(_proto_fields(value))
+            simple = (struct.unpack("<f", fields[2])[0] if 2 in fields
+                      else None)
+            rows.append((event.get(2, 0), fields[1].decode(), simple))
+    return rows
+
+
+def write_frames(root: Path, n: int, size: int, seed: int) -> Path:
+    """``n`` uint8 RGB frames as ``.npy`` files and their manifest."""
+    from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
+        write_image_manifest)
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+    paths = []
+    for i in range(n):
+        paths.append(root / f"{i:05d}.npy")
+        np.save(paths[-1], rng.integers(0, 256, (size, size, 3), np.uint8))
+    write_image_manifest(root / "images.txt", paths)
+    return root / "images.txt"
+
+
+def fit_counted(fit, launches, *args, **kwargs):
+    """A runner's call with the launch counts from 0, and the counts."""
+    torch.cuda.synchronize()
+    launches.clear()
+    out = fit(*args, verbose=False, decode_fn=np.load, **kwargs)
+    torch.cuda.synchronize()
+    return out, dict(launches)
+
+
+def check_launches(counts: dict, want: dict, what: str) -> None:
+    log(f"  launches: {counts}")
+    for kernel in KERNELS:
+        check(counts.get(kernel, 0) == want.get(kernel, 0),
+              f"{what}: {kernel} launched {counts.get(kernel, 0)} times, "
+              f"not {want.get(kernel, 0)}")
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a ModelState: weights and BN buffers, the shadow's,
+    Adam's moments and steps."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    if state.has_ema:
+        out.update({f"ema.{k}": v
+                    for k, v in state.ema_model.state_dict().items()})
+    for i, per in state.optimizer.state_dict()["state"].items():
+        out.update({f"adam.{i}.{k}": v for k, v in per.items()})
+    return out
+
+
+def states_differ(got, want) -> list:
+    """Names of the tensors and counters where two states (or identity
+    dicts of them) differ by a bit; ``[]`` when they are equal."""
+    got = got if isinstance(got, dict) else {"state": got}
+    want = want if isinstance(want, dict) else {"state": want}
+    bad = []
+    for name in want:
+        g, w = got[name], want[name]
+        if (g.step, g.ema_step, g.has_ema) != (w.step, w.ema_step,
+                                               w.has_ema):
+            bad.append(f"{name}.counters")
+        gt, wt = state_tensors(g), state_tensors(w)
+        if gt.keys() != wt.keys():
+            bad.append(f"{name}: other tensors")
+            continue
+        bad += [f"{name}.{k}" for k in wt if not (
+            gt[k].device == wt[k].device and torch.equal(gt[k], wt[k]))]
+    return bad
+
+
+def tree_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def loop_denoiser(root: Path, data: Path, dev, launches, card: str,
+                  step_ms: float) -> tuple[dict, dict]:
+    """Phase 10b: fit_denoiser at configs/denoiser.yml's width, 2 epochs of
+    3 steps; the event file, the restore, epoch 2's rate. Returns the
+    launch counts and the checkpoint figures."""
+    from denoising_diffusion_deep_fake_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DenoiserConfig, config_from_dict, config_to_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_denoiser)
+
+    cfg = config_from_dict(DenoiserConfig, dict(
+        input_image_list_path=str(data), batch_size=16, learning_rate=0.02,
+        max_epochs=2, cosine_scheduler_max_epoch=100,
+        encoder_name="resnet34", noise_exponential_sampling_lambda=5,
+        compute_dtype="bfloat16", image_size=448, seed=SEED,
+        log_dir=str(root / "runs"), checkpoint_dir=str(root / "denoiser")))
+    marks, events = {}, {}
+
+    def mark(step, state, metrics):
+        events[step] = torch.cuda.Event(enable_timing=True)
+        events[step].record()
+        if step in (3, 6):   # the ends of epochs 1 and 2
+            torch.cuda.synchronize()
+            marks[step] = time.perf_counter()
+
+    (state, trainer, ctx), counts = fit_counted(
+        fit_denoiser, launches, cfg, step_callback=mark)
+    check(ctx.global_step == state.step == 6 and ctx.epoch == 1,
+          f"fit_denoiser ran {ctx.global_step} steps, not 6")
+    check_launches(counts, {"affine_warp_fused": 6, "fused_noise_blend": 6},
+                   "fit_denoiser")
+    loop_ms = (marks[6] - marks[3]) / 3 * 1e3
+    steps_ms = [events[s - 1].elapsed_time(events[s]) for s in (4, 5, 6)]
+    log(f"  fit_denoiser 448^2 x16, 2 epochs of 3 steps: epoch 2 "
+        f"{loop_ms:.3f} ms a step, {16 / loop_ms * 1e3:.1f} imgs/s through "
+        f"the loop (loader, upload, step, metric worker; host clock from "
+        f"the synchronised end of epoch 1); its steps on the device "
+        f"timeline {', '.join(f'{t:.3f}' for t in steps_ms)} ms (the first "
+        f"across the epoch boundary); phase 5's step alone {step_ms:.3f} "
+        f"ms, {16 / step_ms * 1e3:.1f} imgs/s [{card}]")
+    rows = read_event_file(root / "runs" / "denoiser")
+    losses = [(s, v) for s, t, v in rows if t == "loss"]
+    check([s for s, _ in losses] == list(range(6))
+          and all(math.isfinite(v) for _, v in losses),
+          f"the event file's loss rows are {losses}")
+    log(f"  event file: {len(rows)} values, every record's CRC checked; "
+        f"loss rows {[round(v, 5) for _, v in losses]}; tags "
+        f"{sorted({t for _, t, _ in rows})}")
+
+    manager = CheckpointManager(cfg.checkpoint_dir)
+    check(manager.all_steps() == [6], f"checkpoints {manager.all_steps()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generator = torch.Generator(device=dev)
+    restored, meta = manager.restore(lambda: trainer.init_state(SEED + 1),
+                                     generator=generator)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    bad = states_differ(restored, state)
+    check(not bad, f"the restored denoiser differs: {bad[:5]}")
+    check(torch.equal(generator.get_state(), trainer.generator.get_state())
+          and meta["extra"]["global_step"] == 6,
+          "the restored generator or counters differ")
+    fused = [v for k, v in state_tensors(restored).items()
+             if k.startswith("adam.") and k.endswith(".step")]
+    check(all(v.device.type == "cuda" for v in fused),
+          "the fused Adam's steps did not come back to the card")
+    # The save's figures: blocking, and the non-blocking call's return.
+    again = CheckpointManager(root / "resave")
+    hparams = config_to_dict(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again.save(6, state, hparams)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again.save(7, state, hparams, block=False)
+    snapshot_s = time.perf_counter() - t0
+    again.wait_until_finished()
+    n_bytes = tree_bytes(again.step_dir(6))
+    log(f"  final checkpoint restored bit-equal (weights, BN buffers, "
+        f"Adam moments and steps on the card, counters, generator) in "
+        f"{restore_s:.3f} s; a blocking save {save_s:.3f} s, "
+        f"{n_bytes / 1e6:.1f} MB; a non-blocking save returns after "
+        f"{snapshot_s:.3f} s (the host snapshot) [{card}]")
+    return counts, dict(denoiser_mb=n_bytes / 1e6, save_s=save_s,
+                        snapshot_s=snapshot_s, restore_s=restore_s)
+
+
+def deep_fake_cfg(data: dict, root: Path, name: str, **overrides):
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DeepFakeConfig, config_from_dict)
+
+    return config_from_dict(DeepFakeConfig, dict(
+        DENOISE_YML, data_path_a=str(data["a"]), data_path_b=str(data["b"]),
+        log_dir=str(root / name / "runs"),
+        checkpoint_dir=str(root / name / "ckpt"), **overrides))
+
+
+def loop_deep_fake(root: Path, data: dict, dev, launches,
+                   card: str) -> tuple[dict, Path, float]:
+    """Phase 10c: fit_deep_fake in denoise mode for 1 epoch, then resumed
+    to epoch 2. Returns the launch counts, the checkpoint directory and
+    the size of its first checkpoint in MB."""
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_deep_fake)
+
+    cfg = deep_fake_cfg(data, root, "denoise", max_epochs=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (states, _, ctx), counts = fit_counted(fit_deep_fake, launches, cfg)
+    first_s = time.perf_counter() - t0
+    check(ctx.global_step == 3 and all(s.step == 3 for s in states.values()),
+          f"fit_deep_fake ran {ctx.global_step} steps, not 3")
+    check_launches(counts, {"affine_warp_fused": 6, "fused_noise_blend": 6},
+                   "fit_deep_fake")
+    n_bytes = tree_bytes(Path(cfg.checkpoint_dir))
+    starts = []
+    cfg2 = deep_fake_cfg(data, root, "denoise", max_epochs=2)
+    (states, _, ctx), resumed = fit_counted(
+        fit_deep_fake, launches, cfg2, resume_from=cfg.checkpoint_dir,
+        step_callback=lambda step, *_: starts.append(step))
+    check(starts == [4, 5, 6] and ctx.global_step == 6
+          and ctx.epoch == 1 and all(s.step == 6 for s in states.values()),
+          f"the resume ran steps {starts}, ending at {ctx.global_step} in "
+          f"epoch {ctx.epoch}")
+    check_launches(resumed, {"affine_warp_fused": 6,
+                             "fused_noise_blend": 6}, "the resume")
+    log(f"  fit_deep_fake 448^2, 16 per identity, denoise mode: 1 epoch (3 "
+        f"steps) in {first_s:.2f} s with its final save of {n_bytes / 1e6:.1f}"
+        f" MB; resumed at global_step 3, epoch 1, ran steps 4-6 [{card}]")
+    return {"new": counts, "resume": resumed}, Path(cfg.checkpoint_dir), \
+        n_bytes / 1e6
+
+
+def resume_equivalence(root: Path, dev, launches) -> dict:
+    """Phase 10c, small: 64^2 resnet18 fp32, 2 epochs against 1 epoch and a
+    resume, under cudnn.deterministic: every tensor bit-equal."""
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_deep_fake)
+
+    data = {n: write_frames(root / f"small_{n}", 8, 64, SEED + 30 + i)
+            for i, n in enumerate("ab")}
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        small = dict(batch_size=4, encoder_name="resnet18",
+                     compute_dtype="float32", image_size=64, max_epochs=2)
+        whole_cfg = deep_fake_cfg(data, root, "small_whole", **small)
+        (whole, whole_trainer, _), counts = fit_counted(
+            fit_deep_fake, launches, whole_cfg)
+        cfg = deep_fake_cfg(data, root, "small_resumed", **small)
+        fit_counted(fit_deep_fake, launches, cfg, max_steps=2)
+        (resumed, trainer, ctx), _ = fit_counted(
+            fit_deep_fake, launches, cfg, resume_from=cfg.checkpoint_dir)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    check_launches(counts, {"warp_axis_pass": 16, "fused_noise_blend": 8},
+                   "the 64^2 run")
+    bad = states_differ(resumed, whole)
+    if bad:
+        rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                  for name in whole
+                  for k, b in state_tensors(whole[name]).items()
+                  for a in [state_tensors(resumed[name])[k]]
+                  if a.is_floating_point())
+        log(f"  {len(bad)} tensors differ, the largest by {rel:.3e} of its "
+            "tensor's magnitude")
+    check(ctx.global_step == 4 and not bad,
+          f"1 epoch + resume differs from 2 epochs: {bad[:5]}")
+    check(torch.equal(trainer.generator.get_state(),
+                      whole_trainer.generator.get_state()),
+          "the resumed generator differs")
+    log("  64^2 resnet18 fp32, cudnn.deterministic: 2 epochs of 2 steps "
+        "against 1 epoch + resume: every weight, BN buffer, Adam moment and "
+        "step, counter and the generator bit-equal")
+    return counts
+
+
+def loop_modify(root: Path, data: dict, source: Path, dev, launches,
+                card: str) -> dict:
+    """Phase 10d: modify to swap mode from 10c's checkpoint, 1 epoch;
+    load_swap_model from its final checkpoint answers one batch."""
+    from denoising_diffusion_deep_fake_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DeepFakeConfig, overlay_config)
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        load_swap_model, make_device_pipeline)
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_deep_fake)
+    from denoising_diffusion_deep_fake_tpu_torch.training.state import (
+        shadow_tensors)
+
+    meta = CheckpointManager(source).read_meta()
+    cfg = overlay_config(DeepFakeConfig, meta["hparams"], dict(
+        SWAP_YML, checkpoint_dir=str(root / "swap" / "ckpt"),
+        log_dir=str(root / "swap" / "runs")))
+    b_before = CheckpointManager(source).restore_partial(
+        "b", ["model"], device=dev)["model"]
+    at_flip = []
+
+    def first_step(step, states, metrics):
+        if step != 1:
+            return
+        a, b = states["a"], states["b"]
+        at_flip.append(
+            all(s.step == 1 and s.ema_step == 1 for s in states.values())
+            and all(float(p["step"]) == 1 for s in states.values()
+                    for p in s.optimizer.state_dict()["state"].values())
+            and all(torch.equal(e, b_before[k]) for k, e in
+                    b.ema_model.state_dict().items())
+            and all(torch.equal(e, p) for e, p in zip(
+                shadow_tensors(a.ema_model), shadow_tensors(a.model))))
+
+    (states, _, ctx), counts = fit_counted(
+        fit_deep_fake, launches, cfg, modify_from=str(source), max_steps=3,
+        step_callback=first_step)
+    check(at_flip == [True], "after the flip's first step: not a fresh Adam"
+          " at step 1, or ema_b not b's checkpoint weights, or ema_a not a's"
+          " post-step weights")
+    check(ctx.global_step == 3 and cfg.mode == "swap",
+          f"modify ran {ctx.global_step} steps in mode {cfg.mode}")
+    check_launches(counts, {"affine_warp_fused": 6, "fused_noise_blend": 6},
+                   "modify")
+    model = load_swap_model(cfg.checkpoint_dir, "a", use_ema=True)
+    frames = torch.from_numpy(np.load(Path(data["b"]).parent / "00000.npy")
+                              )[None].to(dev).expand(16, -1, -1, -1)
+    out = make_device_pipeline(model)(frames, 0)
+    torch.cuda.synchronize()
+    check(out.dtype == torch.uint8 and out.shape == frames.shape,
+          "the swap model from the modify checkpoint did not answer")
+    log(f"  modify -> swap (configs/swap.yml overlaid): fresh Adam at step "
+        f"0, shadows copies of the models at the flip (ema_b the "
+        f"checkpoint's b, ema_a a's post-step), 3 steps; load_swap_model "
+        f"(shadow of a) from its final checkpoint answered a batch of "
+        f"{tuple(out.shape)} uint8 [{card}]")
+    return counts
+
+
+def loop_balance(root: Path, data: Path, dev, launches, card: str) -> dict:
+    """Phase 10e: fit_balance at configs/balance.yml's width, 448^2, batch
+    12, 1 epoch over identity a's 48 frames."""
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        BalanceConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
+        read_image_manifest, read_image_manifest_with_classes)
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        HISTOGRAM_TAG, fit_balance)
+
+    out = root / "balanced.txt"
+    cfg = config_from_dict(BalanceConfig, dict(
+        data_path=str(data), output_image_list_path=str(out), batch_size=12,
+        learning_rate=0.01, max_epochs=1, encoder_name="resnet34",
+        ratio_of_noise=0.7, number_of_classes=10, compute_dtype="bfloat16",
+        image_size=448, seed=SEED, log_dir=str(root / "runs"),
+        checkpoint_dir=str(root / "balance")))
+    (state, _, ctx), counts = fit_counted(fit_balance, launches, cfg)
+    check(ctx.global_step == state.step == 4,
+          f"fit_balance ran {ctx.global_step} steps, not 4")
+    check_launches(counts, {"fused_normalise_noise_blend": 8},
+                   "fit_balance (4 steps, 4 scoring batches)")
+    paths, classes = read_image_manifest_with_classes(out)
+    check(paths == read_image_manifest(data) and classes is not None
+          and len(classes) == 48 and min(classes) >= 0
+          and max(classes) <= 9, "the balanced manifest does not read back")
+    rows = read_event_file(root / "runs" / "balance")
+    check((4, HISTOGRAM_TAG, None) in rows,
+          f"no {HISTOGRAM_TAG} image at step 4 in the event file")
+    log(f"  fit_balance 448^2 x12: 4 steps, 48 images scored; manifest of "
+        f"{len(classes)} lines, class counts "
+        f"{np.bincount(classes, minlength=10).tolist()}; the histogram "
+        f"image in the event file [{card}]")
+    return counts
+
+
+def training_from_disk(dev, launches, card: str, step_ms: float) -> dict:
+    """Phase 10: the runners from .npy datasets on disk. Returns the
+    launch counts by path."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        data = {n: write_frames(root / n, 48, 448, SEED + 20 + i)
+                for i, n in enumerate("ab")}
+        log(f"[10a] datasets: 2 identities x 48 uint8 448^2 frames as .npy "
+            f"({tree_bytes(root) / 1e6:.1f} MB) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        log("[10b] fit_denoiser: 448^2, batch 16, 2 epochs")
+        denoiser, figures = loop_denoiser(root, data["a"], dev, launches,
+                                          card, step_ms)
+        log("[10c] fit_deep_fake: new, then resume")
+        deep_fake, source, pair_mb = loop_deep_fake(root, data, dev,
+                                                    launches, card)
+        small = resume_equivalence(root, dev, launches)
+        log("[10d] modify to swap mode")
+        modify = loop_modify(root, data, source, dev, launches, card)
+        log("[10e] fit_balance: 448^2, batch 12, 1 epoch")
+        balance = loop_balance(root, data["a"], dev, launches, card)
+    log(f"[10f] checkpoints: denoiser {figures['denoiser_mb']:.1f} MB, saved "
+        f"in {figures['save_s']:.3f} s (non-blocking call returns after "
+        f"{figures['snapshot_s']:.3f} s), restored in "
+        f"{figures['restore_s']:.3f} s; a denoise-mode pair "
+        f"{pair_mb:.1f} MB; phase 10 peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+        f"{time.perf_counter() - start:.1f} s [{card}]")
+    return {"fit_denoiser_448": denoiser,
+            "fit_deep_fake_new_448": deep_fake["new"],
+            "fit_deep_fake_resume_448": deep_fake["resume"],
+            "fit_deep_fake_64": small,
+            "fit_deep_fake_modify_448": modify,
+            "fit_balance_448": balance}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", type=Path, default=None,
@@ -1475,12 +1962,16 @@ def main() -> int:
             "requests")
         serving_http(ckpt, dev, _build.LAUNCHES, card)
 
+    log("[10] training from disk: the runners and the loop")
+    loop_paths = training_from_disk(dev, _build.LAUNCHES, card,
+                                    main_run["step_ms"])
+
     paths = {"denoiser_448": main_run["counts"],
              "twopass_640": twopass_run["counts"],
              "balancer_448": balance_counts,
              "deep_fake_denoise_448": denoise_run["counts"],
              "deep_fake_swap_448": swap_run["counts"],
-             "serve_ddim_448": ddim_counts}
+             "serve_ddim_448": ddim_counts, **loop_paths}
     first_path = {"affine_warp_fused": "denoiser_448",
                   "warp_axis_pass": "twopass_640",
                   "fused_noise_blend": "denoiser_448",

@@ -2,12 +2,13 @@
 
 Own copy of the JAX package's schema (``denoising_diffusion_deep_fake_tpu/
 config.py``: ``BaseConfig``, ``DeepFakeConfig``, ``DenoiserConfig``,
-``BalanceConfig``, ``config_from_dict``, ``_rescale_mean_std``,
-``load_config``, ``overlay_config``), so the port reads the same YAML files
+``BalanceConfig``, ``config_from_dict``, ``config_to_dict``,
+``_rescale_mean_std``, ``read_yaml_file_into_dict``, ``load_config``,
+``overlay_config``), so the port reads the same YAML files
 (``configs/denoiser.yml``, ``configs/denoise.yml``, ``configs/swap.yml``,
 ``configs/balance.yml``) with the same key names and defaults.
-``yaml`` is imported only by ``load_config``: the GPU machine may lack
-PyYAML, and ``chip_smoke.py`` builds its config from a dict.
+``yaml`` is imported only by ``read_yaml_file_into_dict``: the GPU machine
+may lack PyYAML, and ``chip_smoke.py`` builds its config from a dict.
 
 Knobs whose feature the port does not have yet are kept in the schema (so
 configs load unchanged) and refused by the trainer that would need them.
@@ -220,14 +221,25 @@ def config_from_dict(cls, data: dict, *, validate: bool = True):
     return cfg
 
 
-def load_config(cls, yaml_path, overrides: dict | None = None):
-    """YAML -> config, with optional overrides applied on top."""
+def config_to_dict(cfg) -> dict:
+    """The config as JSON-ready hparams: tuples become lists."""
+    d = dataclasses.asdict(cfg)
+    return {k: (list(v) if isinstance(v, tuple) else v) for k, v in d.items()}
+
+
+def read_yaml_file_into_dict(path) -> dict:
     import yaml
 
-    with open(yaml_path) as f:
+    with open(path) as f:
         data = yaml.safe_load(f)
     if not isinstance(data, dict):
-        raise ValueError(f"config {yaml_path} did not parse to a mapping")
+        raise ValueError(f"config {path} did not parse to a mapping")
+    return data
+
+
+def load_config(cls, yaml_path, overrides: dict | None = None):
+    """YAML -> config, with optional overrides applied on top."""
+    data = read_yaml_file_into_dict(yaml_path)
     if overrides:
         data.update({k: v for k, v in overrides.items() if v is not None})
     return config_from_dict(cls, data)

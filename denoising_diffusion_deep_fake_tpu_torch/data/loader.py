@@ -1,0 +1,282 @@
+"""Host-side image loading with background prefetch, and the upload ahead.
+
+Own copy of ``denoising_diffusion_deep_fake_tpu/data/loader.py:32-237``:
+
+* the host decodes (``cv2``, or the caller's ``decode_fn``), resizes a
+  mismatched image to the static size (cubic) and assembles **uint8** NHWC
+  batches; normalisation and augmentation run on the device inside the
+  train step;
+* a worker thread keeps a small queue of ready batches, so decoding
+  overlaps the device's work, and hands a decode error to the consumer;
+* the epoch order is seeded by ``seed * 100_003 + epoch`` (shuffled, or
+  uniform over difficulty classes with ``class_balanced``);
+* a RAM cache (``cache="auto"`` when the decoded dataset fits
+  ``cache_limit_bytes``) decodes each image at most once.
+
+The JAX package's native C++ batch loader (``use_native``) and the
+per-process manifest shard (``shard``, ROADMAP A9) are not ported; the
+constructor refuses ``shard``. ``cv2`` is imported only where an image is
+decoded or resized: a machine without it passes ``decode_fn`` (``np.load``
+of uint8 ``.npy`` frames, say).
+
+``device_prefetch`` is the counterpart of JAX ``parallel/mesh.py:115``
+without sharding or i420: a worker thread uploads each batch's uint8
+arrays ahead of the step that consumes them.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from pathlib import Path
+from typing import Callable
+
+import numpy as np
+import torch
+
+from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
+    read_image_manifest_with_classes,
+)
+
+
+def _cv2():
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            "decoding and resizing images needs OpenCV (cv2), which is not "
+            "installed; pass decode_fn= (np.load of uint8 HWC .npy frames, "
+            "say) and frames of the configured image_size") from e
+    return cv2
+
+
+def default_decode(path: str) -> np.ndarray:
+    """JPEG/PNG -> RGB uint8 HWC (cv2 reads BGR, like the reference)."""
+    cv2 = _cv2()
+    image = cv2.imread(path)
+    if image is None:
+        raise IOError(f"failed to decode image: {path}")
+    return cv2.cvtColor(image, cv2.COLOR_BGR2RGB)
+
+
+def _resize_if_needed(image: np.ndarray, size: int) -> np.ndarray:
+    if image.shape[0] == size and image.shape[1] == size:
+        return image
+    cv2 = _cv2()
+    # Cubic, like the dataset-prep tool's resize.
+    return cv2.resize(image, (size, size), interpolation=cv2.INTER_CUBIC)
+
+
+def _threaded(produce, depth: int):
+    """Yield what ``produce(put)`` puts, from a worker thread, ``depth``
+    items ahead; an exception in the worker is raised here. Leaving the
+    generator early stops the worker at its next put."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            produce(put)
+            put(None)
+        except Exception as e:  # surfaced to the consumer
+            put(e)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        thread.join(timeout=10.0)
+
+
+class ImageLoader:
+    """Iterates epochs of (uint8 NHWC batch, index vector) with prefetch."""
+
+    def __init__(self, manifest_path, batch_size: int, *,
+                 image_size: int | None = None, shuffle: bool = True,
+                 seed: int = 0, drop_remainder: bool = True,
+                 prefetch_batches: int = 2,
+                 decode_fn: Callable[[str], np.ndarray] | None = None,
+                 class_balanced: bool = False,
+                 shard: tuple[int, int] | None = None,
+                 cache: bool | str = "auto",
+                 cache_limit_bytes: int = 2 << 30):
+        if shard is not None:
+            raise NotImplementedError(
+                "manifest shards across processes are not ported to the "
+                "PyTorch loader yet (ROADMAP A9)")
+        self.manifest_path = Path(manifest_path)
+        paths, classes = read_image_manifest_with_classes(manifest_path)
+        self.paths = [str(p) for p in paths]
+        self.classes = classes
+        self.class_balanced = class_balanced
+        if class_balanced and classes is None:
+            raise ValueError(
+                "class_balanced=True needs a difficulty-classed manifest "
+                "(run `balance` to produce one)")
+        if not self.paths:
+            raise ValueError(f"empty image manifest: {manifest_path}")
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_remainder = drop_remainder
+        self.prefetch_batches = prefetch_batches
+        self.decode_fn = decode_fn or default_decode
+        if image_size is None:
+            probe = self.decode_fn(self.paths[0])
+            if probe.shape[0] != probe.shape[1]:
+                raise ValueError(
+                    "image_size not set and first image is not square "
+                    f"({probe.shape}); set image_size in the config")
+            image_size = probe.shape[0]
+        self.image_size = image_size
+
+        # Each image is decoded at most once; later epochs are a
+        # fancy-index copy.
+        n_bytes = len(self.paths) * self.image_size * self.image_size * 3
+        self._cache_enabled = (cache is True or
+                               (cache == "auto"
+                                and n_bytes <= cache_limit_bytes))
+        if self._cache_enabled:
+            self._cache_store = np.empty(
+                (len(self.paths), self.image_size, self.image_size, 3),
+                dtype=np.uint8)
+            self._cache_valid = np.zeros(len(self.paths), dtype=bool)
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    @property
+    def batches_per_epoch(self) -> int:
+        n = len(self.paths) // self.batch_size
+        if not self.drop_remainder and len(self.paths) % self.batch_size:
+            n += 1
+        return n
+
+    def _epoch_order(self, epoch: int) -> np.ndarray:
+        rng = np.random.default_rng(self.seed * 100_003 + epoch)
+        if self.class_balanced and self.classes is not None:
+            # Uniform over classes, with replacement inside small ones.
+            classes = np.asarray(self.classes)
+            unique = np.unique(classes)
+            members = {c: np.flatnonzero(classes == c) for c in unique}
+            draws_c = rng.choice(unique, size=len(self.paths))
+            return np.asarray([rng.choice(members[c]) for c in draws_c])
+        order = np.arange(len(self.paths))
+        if self.shuffle:
+            rng.shuffle(order)
+        return order
+
+    def _decode_batch(self, indices: np.ndarray) -> np.ndarray:
+        size = self.image_size
+        batch = np.empty((len(indices), size, size, 3), dtype=np.uint8)
+        for row, idx in enumerate(indices):
+            batch[row] = _resize_if_needed(self.decode_fn(self.paths[idx]),
+                                           size)
+        return batch
+
+    def _load_batch(self, indices: np.ndarray
+                    ) -> tuple[np.ndarray, np.ndarray]:
+        if not self._cache_enabled:
+            return self._decode_batch(indices), indices.astype(np.int32)
+        missing = indices[~self._cache_valid[indices]]
+        if missing.size:
+            missing = np.unique(missing)
+            self._cache_store[missing] = self._decode_batch(missing)
+            self._cache_valid[missing] = True
+        return self._cache_store[indices], indices.astype(np.int32)
+
+    def epoch(self, epoch: int):
+        """Yield this epoch's batches, decoding ahead on a worker thread."""
+        order = self._epoch_order(epoch)
+        if self.drop_remainder:
+            order = order[:len(order) - len(order) % self.batch_size]
+        chunks = [order[i:i + self.batch_size]
+                  for i in range(0, len(order), self.batch_size)]
+
+        def produce(put):
+            for chunk in chunks:
+                if not put(self._load_batch(chunk)):
+                    return
+
+        return _threaded(produce, self.prefetch_batches)
+
+
+class PairedLoader:
+    """Zips two identity loaders (the deep-fake trainer's ``{"a", "b"}``
+    streams). An epoch is as long as the shorter loader's, as Lightning's
+    dict of dataloaders."""
+
+    def __init__(self, loader_a: ImageLoader, loader_b: ImageLoader):
+        if loader_a.image_size != loader_b.image_size:
+            raise ValueError("identity datasets must share image_size")
+        self.a = loader_a
+        self.b = loader_b
+        self.image_size = loader_a.image_size
+
+    @property
+    def batches_per_epoch(self) -> int:
+        return min(self.a.batches_per_epoch, self.b.batches_per_epoch)
+
+    def epoch(self, epoch: int):
+        yield from zip(self.a.epoch(epoch), self.b.epoch(epoch))
+
+
+def device_prefetch(batches, device, depth: int = 2):
+    """Upload ``batches`` (tuples whose uint8 arrays of ndim >= 3 go to
+    ``device``; other items stay on the host) ``depth`` items ahead, on a
+    worker thread.
+
+    On the GPU each array is copied into pinned memory and sent with
+    ``non_blocking=True`` on a side stream; the consumer's stream waits on
+    the upload's event before the batch is handed over, and the tensor is
+    recorded on that stream so its memory is not reused while the step
+    reads it."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    if cuda:
+        consumer = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device=device)
+
+    def upload(x):
+        if not (isinstance(x, np.ndarray) and x.ndim >= 3):
+            return x
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if not cuda:
+            return t.to(device)
+        with torch.cuda.stream(side):
+            return t.pin_memory().to(device, non_blocking=True)
+
+    def produce(put):
+        for item in batches:
+            item = tuple(upload(x) for x in item)
+            event = None
+            if cuda:
+                event = torch.cuda.Event()
+                event.record(side)
+            if not put((item, event)):
+                return
+
+    for item, event in _threaded(produce, depth):
+        if event is not None:
+            consumer.wait_event(event)
+            for x in item:
+                if isinstance(x, torch.Tensor):
+                    x.record_stream(consumer)
+        yield item

@@ -4,9 +4,8 @@ Port of ``denoising_diffusion_deep_fake_tpu/training/balance.py`` (reference:
 ``d3f/balance_training_images/lit_module.py``): train a denoiser at one
 fixed noise ratio, then score every image by its reconstruction difficulty
 (per-image L1), min-max normalise the scores over the dataset, bin them into
-``number_of_classes`` classes and write them as a ``<path>\\t<class>``
-manifest (``write_balanced_manifest``, from the JAX package's
-``training/runners.py:495-502``, kept here until the runners are ported).
+``number_of_classes`` classes; ``training/runners.py`` writes them as a
+``<path>\\t<class>`` manifest.
 
 One train step: uint8 NHWC batch -> the CUDA kernel ``fused_noise_for_balance``
 (normalise and blend at the fixed ratio in one pass) -> U-Net forward and
@@ -23,7 +22,8 @@ offsets are counted on the host; nothing is read back from the device.
 ``train_step`` and the validation step accept the noise itself instead, so
 a test can feed both frameworks the same numbers; given noise is blended
 with ``blend_fixed_amount_of_noise`` after ``normalise_batch``, as the JAX
-step composes it.
+step composes it. ``with_images`` returns the denoiser's panels (JAX
+``:113-121``).
 """
 
 from __future__ import annotations
@@ -34,9 +34,6 @@ import torch
 from denoising_diffusion_deep_fake_tpu_torch.config import (
     BalanceConfig,
     refuse_unported,
-)
-from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
-    write_image_manifest,
 )
 from denoising_diffusion_deep_fake_tpu_torch.device import resolve_device
 from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
@@ -51,6 +48,7 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.losses import (
 from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
     blend_fixed_amount_of_noise,
 )
+from denoising_diffusion_deep_fake_tpu_torch.training.denoiser import panels
 from denoising_diffusion_deep_fake_tpu_torch.training.state import (
     ModelState,
     create_model_state,
@@ -78,16 +76,12 @@ def score_offset(epoch: int, batch_index: int) -> int:
     return SCORE_STREAM * (epoch + 1) + batch_index
 
 
-def write_balanced_manifest(path, image_paths, indices: np.ndarray,
-                            classes: np.ndarray) -> None:
-    """``<path>\\t<difficulty_class>`` lines in dataset order."""
-    order = np.argsort(indices)
-    paths = [image_paths[i] for i in indices[order]]
-    write_image_manifest(path, paths, classes[order])
-
-
 class BalanceTrainer:
     """The balancer's train step and scoring pass on one device."""
+
+    # Its only randomness is the noise kernel's stream, keyed by offsets:
+    # no generator state to checkpoint.
+    generator = None
 
     def __init__(self, cfg: BalanceConfig, *, steps_per_epoch: int,
                  image_size: int, device=None):
@@ -125,14 +119,14 @@ class BalanceTrainer:
 
     def train_step(self, state: ModelState, batch_u8: torch.Tensor, *,
                    noise: torch.Tensor | None = None,
-                   with_images: bool = False) -> dict:
+                   with_images: bool = False):
         """One update of ``state`` in place; returns ``{"loss"}`` (a device
-        scalar: reading it waits for the step)."""
-        if with_images:
-            raise NotImplementedError(
-                "image panels are not ported to the PyTorch balancer yet")
+        scalar: reading it waits for the step); ``with_images``,
+        ``(metrics, panels)``."""
         image, noisy = self._images(batch_u8, state.step, noise)
-        loss, _ = train_one_model(state, noisy, image)
+        loss, pred = train_one_model(state, noisy, image)
+        if with_images:
+            return {"loss": loss}, panels(image, noisy, pred)
         return {"loss": loss}
 
     def make_validation_step(self):

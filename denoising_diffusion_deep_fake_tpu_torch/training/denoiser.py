@@ -15,7 +15,10 @@ by ``cfg.seed`` at offset ``state.step`` (the JAX trainer folds the step
 into a key instead; the two streams differ by design). ``train_step``
 accepts the affine params, the noise ratios and the noise itself, so a test
 can feed both frameworks the same numbers; given noise is blended with
-``blend_noise``.
+``blend_noise``. ``with_images`` also returns the TensorBoard panels under
+the JAX tags (``image``, ``image_noisy``, ``image_prediction``; JAX
+``:139-148``), each a uint8 3x3 grid made on the device by
+``panel_grid_u8``.
 
 On the GPU the U-Net weights and activations are ``channels_last``: the
 warp writes NHWC and the model takes its NCHW view as it is. cuDNN's TF32
@@ -41,6 +44,7 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.noise_kernel import (
     fused_noise_blend,
 )
+from denoising_diffusion_deep_fake_tpu_torch.ops.image import panel_grid_u8
 from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
     blend_noise,
     sample_truncated_exponential,
@@ -88,9 +92,11 @@ class DenoiserTrainer:
     def train_step(self, state: ModelState, batch_u8: torch.Tensor, *,
                    affine_params: dict | None = None,
                    ratios: torch.Tensor | None = None,
-                   noise: torch.Tensor | None = None) -> dict:
+                   noise: torch.Tensor | None = None,
+                   with_images: bool = False):
         """One update of ``state`` in place; returns ``{"loss", "lr"}``
-        (the loss as a device scalar: reading it waits for the step)."""
+        (the loss as a device scalar: reading it waits for the step);
+        ``with_images``, ``(metrics, panels)``."""
         cfg = self.cfg
         batch_u8 = batch_u8.to(self.device, non_blocking=True)
         b = batch_u8.shape[0]
@@ -109,8 +115,11 @@ class DenoiserTrainer:
         lr = learning_rate_at(state.step, cfg.learning_rate,
                               cosine_t_max=cfg.cosine_t_max,
                               steps_per_epoch=self.steps_per_epoch)
-        loss, _ = train_one_model(state, noisy, image, lr)
-        return {"loss": loss, "lr": lr}
+        loss, pred = train_one_model(state, noisy, image, lr)
+        metrics = {"loss": loss, "lr": lr}
+        if with_images:
+            return metrics, panels(image, noisy, pred)
+        return metrics
 
     def make_denoise_fn(self):
         """Eval-mode forward (running-average BN), NHWC in and out."""
@@ -120,3 +129,11 @@ class DenoiserTrainer:
                 return state.model(x.to(self.device))
 
         return denoise
+
+
+def panels(image: torch.Tensor, noisy: torch.Tensor,
+           pred: torch.Tensor) -> dict:
+    """The single-model trainers' panels under the JAX tags."""
+    return {tag: panel_grid_u8(x) for tag, x in
+            (("image", image), ("image_noisy", noisy),
+             ("image_prediction", pred))}

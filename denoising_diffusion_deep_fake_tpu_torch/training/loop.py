@@ -1,0 +1,263 @@
+"""The services every workload loop needs: logging, checkpoints, guards.
+
+Port of ``denoising_diffusion_deep_fake_tpu/training/loop.py:29-422``, the
+parts of ``pl.Trainer`` the reference leaned on, on one process:
+
+* metrics are queued as device scalars; a worker thread fetches the whole
+  backlog with one ``torch.stack(...).cpu()`` (which waits only for the
+  steps that made them: the stack runs on the default stream behind
+  them), NaN-guards every value and writes TensorBoard rows on the
+  ``log_every_n_steps`` cadence; image panels ride the same queue;
+* ``maybe_checkpoint`` saves on the ``checkpoint_every_hours`` cadence
+  without blocking, at an epoch's end (``force``) at most once every
+  ``last_checkpoint_min_interval_s``, and at the end (``final``), blocking;
+* a non-finite metric raises ``TrainingDivergedError`` on the next
+  ``log_step``, after an emergency checkpoint, or at ``close``;
+* ``PreemptionGuard`` turns SIGTERM into a flag the runners check after
+  every step: they save and stop.
+
+The JAX package's multi-process branches (the lockstep metric check, the
+allgather in ``preempted`` and the broadcast in ``want_images``) wait for
+ROADMAP A9.
+"""
+
+from __future__ import annotations
+
+import math
+import queue
+import signal
+import threading
+import time
+from typing import Any, Callable
+
+import torch
+
+from denoising_diffusion_deep_fake_tpu_torch.checkpoint import (
+    CheckpointManager,
+    save_rng_state,
+)
+from denoising_diffusion_deep_fake_tpu_torch.utils.logging_scheduler import (
+    LoggingScheduler,
+)
+from denoising_diffusion_deep_fake_tpu_torch.utils.tb import (
+    TensorBoardLogger,
+)
+
+
+class TrainingDivergedError(RuntimeError):
+    """A train metric went NaN/Inf; an emergency checkpoint was saved."""
+
+
+class PreemptionGuard:
+    """SIGTERM -> a flag the loop checks after every step (save and exit).
+
+    Installing is best-effort: signal handlers can only be set on the main
+    thread; elsewhere the default behaviour stays."""
+
+    def __init__(self, signals=(signal.SIGTERM,)):
+        self._flag = False
+        self._previous = {}
+        for sig in signals:
+            try:
+                self._previous[sig] = signal.signal(sig, self._on_signal)
+            except ValueError:  # not on the main thread
+                pass
+
+    def _on_signal(self, signum, frame):
+        self._flag = True
+
+    @property
+    def triggered(self) -> bool:
+        return self._flag
+
+    def restore(self) -> None:
+        for sig, previous in self._previous.items():
+            try:
+                signal.signal(sig, previous)
+            except ValueError:
+                pass
+        self._previous = {}
+
+
+class LoopContext:
+    """Holds the cross-step services every workload loop needs."""
+
+    def __init__(self, cfg, hparams: dict, *, workload: str,
+                 clock: Callable[[], float] = time.time):
+        self.cfg = cfg
+        self.hparams = hparams
+        self.workload = workload
+        self.clock = clock
+        self.tb = TensorBoardLogger(f"{cfg.log_dir}/{workload}")
+        self.ckpt = CheckpointManager(cfg.checkpoint_dir,
+                                      keep=cfg.keep_checkpoints)
+        self.image_scheduler = LoggingScheduler(clock)
+        self._last_ckpt_time = clock()
+        self.global_step = 0
+        self.epoch = 0
+        self.preemption = (PreemptionGuard() if cfg.handle_preemption
+                           else None)
+        # The worker fetches, NaN-guards and writes; divergence surfaces on
+        # the next log_step (which has the states for the emergency save)
+        # or at close(). A bounded queue holds the loop back if the worker
+        # falls behind.
+        self._metric_q: queue.Queue = queue.Queue(maxsize=64)
+        self._diverged: list | None = None
+        self._worker_error: BaseException | None = None
+        self._stop_event = threading.Event()
+        self._metric_thread = threading.Thread(
+            target=self._metric_worker, name="metric-logger", daemon=True)
+        self._metric_thread.start()
+
+    def preempted(self) -> bool:
+        """True once SIGTERM arrived: runners save and exit."""
+        return self.preemption is not None and self.preemption.triggered
+
+    # ------------------------------------------------------------- cadence
+
+    def want_images(self) -> bool:
+        """Is an image-panel step due (the wall-clock scheduler)?"""
+        if not self.cfg.log_images:
+            return False
+        self.image_scheduler.update_with_step_number(self.global_step)
+        return self.image_scheduler.should_we_log_this_step()
+
+    def log_step(self, metrics: dict[str, Any],
+                 images: dict[str, Any] | None = None,
+                 states=None, generator=None) -> None:
+        """Queue one step's metrics (device scalars or numbers) and panels;
+        first raise a divergence the worker found in an earlier step."""
+        self._raise_if_diverged(states, generator)
+        step = self.global_step
+        due = step % self.cfg.log_every_n_steps == 0
+        if due or images:
+            self._metric_q.put((step, float(self.epoch),
+                                metrics if due else None, images))
+
+    # -------------------------------------------------- async scalar worker
+
+    def _metric_worker(self) -> None:
+        while True:
+            try:
+                first = self._metric_q.get(timeout=0.25)
+            except queue.Empty:
+                if self._stop_event.is_set():  # abort(): exit without drain
+                    return
+                continue
+            items = [first]
+            while len(items) < 64:
+                try:
+                    items.append(self._metric_q.get_nowait())
+                except queue.Empty:
+                    break
+            stop = None in items
+            items = [it for it in items if it is not None]
+            try:
+                if (items and self._diverged is None
+                        and not self._stop_event.is_set()):
+                    self._log_metric_items(items)
+            except Exception as e:  # surfaced on the main thread
+                self._worker_error = e
+            finally:
+                for _ in items:
+                    self._metric_q.task_done()
+            if stop:
+                self._metric_q.task_done()  # the None sentinel
+                return
+
+    def _log_metric_items(self, items: list) -> None:
+        scalar_items = [(s, e, m) for s, e, m, _ in items if m is not None]
+        fetched_all = fetch_scalars([m for _, _, m in scalar_items])
+        for (step, epoch, _), row in zip(scalar_items, fetched_all):
+            bad = [k for k, v in row.items() if not math.isfinite(v)]
+            if bad:
+                self._diverged = [step, bad]
+                return  # skip logging this and later queued steps
+            self.tb.log_scalars(dict(row, epoch=epoch), step)
+        for step, _, _, images in items:
+            for tag, grid in (images or {}).items():
+                self.tb.log_batch_as_image_grid(tag, grid, step)
+
+    def drain_metrics(self, states=None, generator=None) -> None:
+        """Block until queued fetches finish; raise on divergence."""
+        self._metric_q.join()
+        self._raise_if_diverged(states, generator)
+
+    def _raise_if_diverged(self, states=None, generator=None) -> None:
+        if self._worker_error is not None:
+            err, self._worker_error = self._worker_error, None
+            raise err
+        if self._diverged is None:
+            return
+        (step, bad), self._diverged = self._diverged, None  # report once
+        if states is not None:
+            self.maybe_checkpoint(states, generator, final=True)
+        raise TrainingDivergedError(
+            f"non-finite metric(s) {bad} at step {step}"
+            + ("; emergency checkpoint saved" if states is not None else ""))
+
+    def maybe_checkpoint(self, states, generator: torch.Generator | None,
+                         *, force: bool = False, final: bool = False) -> None:
+        """Save when the wall-clock cadence is due (without blocking); an
+        epoch-end save (``force``) at most once every
+        ``last_checkpoint_min_interval_s``; ``final`` always, blocking.
+        ``generator``, the trainer's (None for the balancer, which has
+        none), is saved with the states."""
+        elapsed_s = self.clock() - self._last_ckpt_time
+        due = elapsed_s / 3600.0 >= self.cfg.checkpoint_every_hours
+        forced_ok = (force and elapsed_s
+                     >= self.cfg.last_checkpoint_min_interval_s)
+        if final or due or forced_ok:
+            self._last_ckpt_time = self.clock()
+            extra = {"epoch": self.epoch, "global_step": self.global_step,
+                     "workload": self.workload}
+            if generator is not None:
+                extra = save_rng_state(extra, generator)
+            self.ckpt.save(self.global_step, states, self.hparams, extra,
+                           block=final)
+
+    def abort(self) -> None:
+        """Teardown on an error path: stop the worker and the checkpoint
+        thread without draining or raising (the caller's exception is the
+        one to see)."""
+        try:
+            if self.preemption is not None:
+                self.preemption.restore()
+            self._stop_event.set()
+            self._metric_thread.join(timeout=10.0)
+            self.ckpt.wait_until_finished()
+            self.tb.flush()
+            self.tb.close()
+        except Exception:
+            pass
+
+    def close(self) -> None:
+        if self.preemption is not None:
+            self.preemption.restore()
+        self._metric_q.join()
+        self._metric_q.put(None)  # stop the worker
+        self._metric_thread.join()
+        self.ckpt.wait_until_finished()
+        self.tb.flush()
+        self.tb.close()
+        # A divergence found only in the final drain: the runner's final
+        # checkpoint holds the state; raise so the run is not mistaken
+        # for a clean finish.
+        self._raise_if_diverged()
+
+
+def fetch_scalars(metric_dicts: list[dict[str, Any]]
+                  ) -> list[dict[str, float]]:
+    """Many dicts of device scalars (or numbers) as floats, the tensors of
+    each device fetched with one ``torch.stack(...).cpu()``."""
+    by_device: dict[torch.device, list[torch.Tensor]] = {}
+    for m in metric_dicts:
+        for v in m.values():
+            if isinstance(v, torch.Tensor):
+                by_device.setdefault(v.device, []).append(
+                    v.detach().reshape(()).to(torch.float32))
+    fetched = {dev: iter(torch.stack(ts).cpu().tolist())
+               for dev, ts in by_device.items()}
+    return [{k: (next(fetched[v.device]) if isinstance(v, torch.Tensor)
+                 else float(v)) for k, v in m.items()}
+            for m in metric_dicts]

@@ -1,0 +1,309 @@
+"""Workload runners: config -> data -> trainer -> loop -> checkpoints.
+
+Port of ``denoising_diffusion_deep_fake_tpu/training/runners.py:276-502``.
+Each ``fit_*`` is one reference CLI entry point, end to end:
+
+* ``fit_deep_fake``: ``d3f train new``, and with ``resume_from`` or
+  ``modify_from`` ``train resume`` / ``train modify``;
+* ``fit_denoiser``: ``d3f denoise``;
+* ``fit_balance``: ``d3f balance``, which also writes the difficulty-classed
+  manifest the reference never wrote.
+
+All three read uint8 batches from an ``images.txt`` manifest
+(``data/loader.py``), upload them ahead of the step (``device_prefetch``),
+take one trainer step a batch (with image panels when the loop's
+wall-clock scheduler asks for them), and hand metrics, panels and
+checkpoints to ``training/loop.py``. Each runs on ``device`` (``cuda``
+when None; it raises without one) and decodes with ``decode_fn``
+(``cv2`` when None).
+
+Resume, as JAX's: the checkpoint's own ``mode`` decides whether shadows are
+built before the restore; training starts at the epoch after the saved one,
+at the saved ``global_step``, with the trainer's generator restored.
+``modify`` keeps the weights, BN buffers and shadows, gives fresh
+optimizers and steps, and attaches shadows in swap mode (``ensure_ema``).
+
+Left out: the K-step superstep (ROADMAP A4) and the device-resident
+dataset (A7); the trainers refuse their knobs.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+
+import numpy as np
+
+from denoising_diffusion_deep_fake_tpu_torch.checkpoint import (
+    CheckpointManager,
+    reset_for_modify,
+)
+from denoising_diffusion_deep_fake_tpu_torch.config import (
+    BalanceConfig,
+    DeepFakeConfig,
+    DenoiserConfig,
+    config_to_dict,
+)
+from denoising_diffusion_deep_fake_tpu_torch.data.loader import (
+    ImageLoader,
+    PairedLoader,
+    device_prefetch,
+)
+from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
+    write_image_manifest,
+)
+from denoising_diffusion_deep_fake_tpu_torch.training.balance import (
+    BalanceTrainer,
+    compute_difficulty_index,
+)
+from denoising_diffusion_deep_fake_tpu_torch.training.deep_fake import (
+    DeepFakeTrainer,
+)
+from denoising_diffusion_deep_fake_tpu_torch.training.denoiser import (
+    DenoiserTrainer,
+)
+from denoising_diffusion_deep_fake_tpu_torch.training.loop import LoopContext
+from denoising_diffusion_deep_fake_tpu_torch.training.optim import make_adam
+
+HISTOGRAM_TAG = "difficulty_class_histogram"
+
+
+def print_hparams(hparams: dict) -> None:
+    print("\nHyper Parameters:")
+    for k, v in hparams.items():
+        print(f"\t{k}: {v}")
+    print()
+
+
+def _steps_per_epoch(cfg, loader) -> int:
+    return (cfg.steps_per_epoch if cfg.steps_per_epoch is not None
+            else loader.batches_per_epoch)
+
+
+def _drive_epoch(ctx: LoopContext, trainer, states, batches, *,
+                 step_callback, max_steps, verbose) -> bool:
+    """One epoch's batches through ``trainer.train_step``, in place on
+    ``states``; True when training is to stop (``max_steps`` reached, or
+    SIGTERM)."""
+    generator = trainer.generator
+    for step_args in batches:
+        if ctx.want_images():
+            metrics, images = trainer.train_step(states, *step_args,
+                                                 with_images=True)
+            ctx.log_step(metrics, images, states=states, generator=generator)
+        else:
+            metrics = trainer.train_step(states, *step_args)
+            ctx.log_step(metrics, states=states, generator=generator)
+        ctx.global_step += 1
+        if step_callback is not None:
+            step_callback(ctx.global_step, states, metrics)
+        if _post_step(ctx, states, generator, max_steps, verbose):
+            return True
+    return False
+
+
+def _post_step(ctx: LoopContext, states, generator, max_steps,
+               verbose) -> bool:
+    """Per-step bookkeeping shared by the three loops."""
+    ctx.maybe_checkpoint(states, generator)
+    if ctx.preempted():
+        if verbose:
+            print("preemption signal received — saving and exiting")
+        return True
+    return max_steps is not None and ctx.global_step >= max_steps
+
+
+@contextlib.contextmanager
+def _abort_on_error(ctx: LoopContext):
+    """Stop the loop's threads on any exception leaving the train loop
+    (divergence, a raising step_callback, KeyboardInterrupt), then let it
+    go on."""
+    try:
+        yield
+    except BaseException:
+        ctx.abort()
+        raise
+
+
+def _run_epochs(ctx: LoopContext, trainer, states, start_epoch: int,
+                epoch_batches, *, step_callback, max_steps, verbose,
+                after_epoch=None) -> None:
+    """The epoch loop every runner shares, its final save and ``close``.
+    ``epoch_batches(epoch)`` gives an epoch's host batches (tuples of
+    uint8 arrays); ``after_epoch(epoch)`` runs before the epoch's save."""
+    cfg, generator = ctx.cfg, trainer.generator
+    with _abort_on_error(ctx):
+        for epoch in range(start_epoch, cfg.max_epochs):
+            ctx.epoch = epoch
+            with contextlib.closing(device_prefetch(
+                    epoch_batches(epoch), trainer.device)) as batches:
+                done = _drive_epoch(ctx, trainer, states, batches,
+                                    step_callback=step_callback,
+                                    max_steps=max_steps, verbose=verbose)
+            if after_epoch is not None:
+                after_epoch(epoch)
+            ctx.maybe_checkpoint(states, generator, force=True)  # 'last'
+            if done:
+                break
+        ctx.maybe_checkpoint(states, generator, final=True)
+        ctx.close()
+
+
+def _start(cfg, verbose: bool) -> dict:
+    hparams = config_to_dict(cfg)
+    if verbose:
+        print_hparams(hparams)
+    return hparams
+
+
+# ------------------------------------------------------------------ deep fake
+
+
+def fit_deep_fake(cfg: DeepFakeConfig, *, resume_from: str | None = None,
+                  modify_from: str | None = None, max_steps: int | None = None,
+                  verbose: bool = True, step_callback=None, device=None,
+                  decode_fn=None):
+    """Train the two-identity workload; returns (states, trainer, context)."""
+    hparams = _start(cfg, verbose)
+    loaders = [ImageLoader(path, cfg.batch_size, image_size=cfg.image_size,
+                           seed=cfg.seed + i,
+                           class_balanced=cfg.class_balanced_sampling,
+                           decode_fn=decode_fn)
+               for i, path in enumerate((cfg.data_path_a, cfg.data_path_b))]
+    paired = PairedLoader(*loaders)
+    trainer = DeepFakeTrainer(cfg,
+                              steps_per_epoch=_steps_per_epoch(cfg, paired),
+                              image_size=paired.image_size, device=device)
+    ctx = LoopContext(cfg, hparams, workload="deep_fake")
+    with _abort_on_error(ctx):
+        states, start_epoch = _deep_fake_states(cfg, trainer, ctx,
+                                                resume_from, modify_from)
+    _run_epochs(ctx, trainer, states, start_epoch,
+                lambda epoch: ((ba, bb) for (ba, _), (bb, _)
+                               in paired.epoch(epoch)),
+                step_callback=step_callback, max_steps=max_steps,
+                verbose=verbose)
+    return states, trainer, ctx
+
+
+def _deep_fake_states(cfg, trainer, ctx, resume_from, modify_from):
+    """The states to train and the first epoch: fresh, resumed (the
+    counters and generator too) or modified (fresh optimizers)."""
+    if not (resume_from or modify_from):
+        return trainer.init_states(cfg.seed), 0
+    source = CheckpointManager(resume_from or modify_from)
+    # The checkpoint's own mode decides whether it has shadows.
+    ckpt_mode = source.read_meta()["hparams"].get("mode", cfg.mode)
+    states, meta = source.restore(
+        lambda: trainer.init_states(cfg.seed, with_ema=ckpt_mode == "swap"),
+        generator=trainer.generator if resume_from else None)
+    start_epoch = 0
+    if resume_from:
+        start_epoch = int(meta["extra"].get("epoch", 0)) + 1
+        ctx.global_step = int(meta["extra"].get("global_step", 0))
+    else:
+        states = reset_for_modify(states, functools.partial(
+            make_adam, learning_rate=cfg.learning_rate, b1=cfg.adam_b1,
+            b2=cfg.adam_b2, device=trainer.device))
+    if cfg.mode == "swap":
+        states = trainer.ensure_ema(states)
+    return states, start_epoch
+
+
+# ------------------------------------------------------------------- denoiser
+
+
+def fit_denoiser(cfg: DenoiserConfig, *, max_steps: int | None = None,
+                 verbose: bool = True, step_callback=None, device=None,
+                 decode_fn=None):
+    """Train the single-model denoiser; returns (state, trainer, context)."""
+    hparams = _start(cfg, verbose)
+    loader = ImageLoader(cfg.input_image_list_path, cfg.batch_size,
+                         image_size=cfg.image_size, seed=cfg.seed,
+                         class_balanced=cfg.class_balanced_sampling,
+                         decode_fn=decode_fn)
+    trainer = DenoiserTrainer(cfg,
+                              steps_per_epoch=_steps_per_epoch(cfg, loader),
+                              image_size=loader.image_size, device=device)
+    state = trainer.init_state(cfg.seed)
+    ctx = LoopContext(cfg, hparams, workload="denoiser")
+    _run_epochs(ctx, trainer, state, 0,
+                lambda epoch: ((b,) for b, _ in loader.epoch(epoch)),
+                step_callback=step_callback, max_steps=max_steps,
+                verbose=verbose)
+    return state, trainer, ctx
+
+
+# -------------------------------------------------------------------- balance
+
+
+def fit_balance(cfg: BalanceConfig, *, max_steps: int | None = None,
+                verbose: bool = True, step_callback=None, device=None,
+                decode_fn=None):
+    """Train at the fixed noise ratio, then after every epoch score each
+    image, log the class histogram and write the balanced manifest;
+    returns (state, trainer, context)."""
+    hparams = _start(cfg, verbose)
+    loader = ImageLoader(cfg.data_path, cfg.batch_size,
+                         image_size=cfg.image_size, seed=cfg.seed,
+                         decode_fn=decode_fn)
+    # Scoring: the whole dataset in manifest order, no remainder dropped,
+    # so every image gets a class.
+    val_loader = ImageLoader(cfg.data_path, cfg.batch_size,
+                             image_size=cfg.image_size, shuffle=False,
+                             drop_remainder=False, decode_fn=decode_fn)
+    trainer = BalanceTrainer(cfg,
+                             steps_per_epoch=_steps_per_epoch(cfg, loader),
+                             image_size=loader.image_size, device=device)
+    state = trainer.init_state(cfg.seed)
+    ctx = LoopContext(cfg, hparams, workload="balance")
+
+    def score(epoch: int) -> None:
+        indices, losses = trainer.score_dataset(
+            state, device_prefetch(val_loader.epoch(0), trainer.device),
+            epoch=epoch)
+        classes = compute_difficulty_index(losses, cfg.number_of_classes)
+        ctx.tb.log_figure(HISTOGRAM_TAG, difficulty_histogram_image(
+            classes, cfg.number_of_classes), ctx.global_step)
+        if cfg.output_image_list_path:
+            write_balanced_manifest(cfg, val_loader, indices, classes)
+
+    _run_epochs(ctx, trainer, state, 0,
+                lambda epoch: ((b,) for b, _ in loader.epoch(epoch)),
+                step_callback=step_callback, max_steps=max_steps,
+                verbose=verbose, after_epoch=score)
+    return state, trainer, ctx
+
+
+HISTOGRAM_SIZE = (480, 640)      # matplotlib's default figure, in pixels
+HISTOGRAM_MARGIN = 40
+HISTOGRAM_BAR = (31, 119, 180)   # matplotlib's first colour
+
+
+def difficulty_histogram_image(classes: np.ndarray,
+                               number_of_classes: int) -> np.ndarray:
+    """The count of each difficulty class as an RGB uint8 bar chart: one
+    bar a class on white, the tallest ``HISTOGRAM_SIZE[0] - 2 *
+    HISTOGRAM_MARGIN`` pixels and the others in proportion, on black axes.
+    JAX draws it with matplotlib; the pixels differ, the counts do not."""
+    h, w = HISTOGRAM_SIZE
+    m = HISTOGRAM_MARGIN
+    counts = np.bincount(np.asarray(classes), minlength=number_of_classes)
+    image = np.full((h, w, 3), 255, np.uint8)
+    plot_h = h - 2 * m
+    slot = (w - 2 * m) // len(counts)
+    heights = np.round(plot_h * counts / max(int(counts.max()), 1))
+    for i, height in enumerate(heights.astype(int)):
+        x0 = m + i * slot + slot // 10
+        image[h - m - height:h - m, x0:x0 + slot - slot // 5] = HISTOGRAM_BAR
+    image[h - m, m:w - m] = 0
+    image[m:h - m + 1, m] = 0
+    return image
+
+
+def write_balanced_manifest(cfg: BalanceConfig, loader: ImageLoader,
+                            indices: np.ndarray, classes: np.ndarray) -> None:
+    """``<path>\\t<difficulty_class>`` lines in dataset order."""
+    order = np.argsort(indices)
+    paths = [loader.paths[i] for i in indices[order]]
+    write_image_manifest(cfg.output_image_list_path, paths, classes[order])

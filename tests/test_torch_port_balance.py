@@ -77,7 +77,7 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.losses import (
     l1_difficulty_loss,
     mse_ssim_loss as port_mse_ssim_loss,
 )
-from denoising_diffusion_deep_fake_tpu_torch.training import balance
+from denoising_diffusion_deep_fake_tpu_torch.training import balance, runners
 from denoising_diffusion_deep_fake_tpu_torch.utils.jax_weights import (
     state_dict_from_jax,
 )
@@ -359,7 +359,9 @@ def test_balanced_manifest_matches_jax(tmp_path):
     indices = np.array([3, 0, 5, 1, 4, 2])
     classes = np.array([9, 0, 4, 4, 7, 2])
     mine, ref = tmp_path / "port.txt", tmp_path / "jax.txt"
-    balance.write_balanced_manifest(mine, paths, indices, classes)
+    runners.write_balanced_manifest(
+        types.SimpleNamespace(output_image_list_path=mine),
+        types.SimpleNamespace(paths=paths), indices, classes)
     jax_write_balanced(types.SimpleNamespace(output_image_list_path=ref),
                        types.SimpleNamespace(paths=paths), indices, classes)
     assert mine.read_bytes() == ref.read_bytes()

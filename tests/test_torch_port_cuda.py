@@ -690,3 +690,47 @@ def test_ddim_pipeline_one_noise_launch_a_batch(cuda, tmp_path):
     before = dict(LAUNCHES)
     assert single(frames, 0).dtype == torch.uint8
     assert dict(LAUNCHES) == before
+
+
+def test_fit_denoiser_on_gpu_and_restore(cuda, tmp_path):
+    """The runner on the card from .npy frames (no cv2 there): two epochs
+    of 2 steps through the two-pass warp and the fp32 noise kernel, then
+    the final checkpoint restored bit for bit, fused Adam's steps on the
+    card, and the generator's state."""
+    from denoising_diffusion_deep_fake_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DenoiserConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
+        write_image_manifest)
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_denoiser)
+
+    rng = np.random.default_rng(0)
+    paths = [tmp_path / f"{i}.npy" for i in range(8)]
+    for p in paths:
+        np.save(p, rng.integers(0, 256, (64, 64, 3), np.uint8))
+    write_image_manifest(tmp_path / "images.txt", paths)
+    cfg = config_from_dict(DenoiserConfig, dict(
+        input_image_list_path=str(tmp_path / "images.txt"), batch_size=4,
+        encoder_name="resnet18", compute_dtype="float32", image_size=64,
+        max_epochs=2, log_dir=str(tmp_path / "runs"),
+        checkpoint_dir=str(tmp_path / "ckpt")))
+    LAUNCHES.clear()
+    state, trainer, ctx = fit_denoiser(cfg, verbose=False, decode_fn=np.load)
+    torch.cuda.synchronize()
+    assert trainer.device.type == "cuda" and ctx.global_step == 4
+    assert LAUNCHES["warp_axis_pass"] == 8
+    assert LAUNCHES["fused_noise_blend"] == 4
+    generator = torch.Generator(device="cuda")
+    restored, meta = CheckpointManager(cfg.checkpoint_dir).restore(
+        lambda: trainer.init_state(1), generator=generator)
+    assert meta["step"] == restored.step == 4
+    assert torch.equal(generator.get_state(), trainer.generator.get_state())
+    for got, want in ((restored.model.state_dict(), state.model.state_dict()),
+                      *zip(restored.optimizer.state_dict()["state"].values(),
+                           state.optimizer.state_dict()["state"].values())):
+        assert got.keys() == want.keys()
+        for k in want:
+            assert got[k].device == want[k].device, k
+            assert torch.equal(got[k], want[k]), k

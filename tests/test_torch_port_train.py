@@ -100,9 +100,9 @@ def test_trainer_refuses_unported_knobs(trainer, knob):
         cls(make_cfg(**knob), steps_per_epoch=1, image_size=64, device="cpu")
 
 
-def test_deep_fake_step_refuses_image_panels():
-    """Whatever the name says, ``with_images`` is not refused: the step
-    returns its metrics and the uint8 panels under the JAX denoise-mode tags (their contents:
+def test_deep_fake_step_returns_image_panels():
+    """``with_images``: the step returns its metrics and the uint8 panels
+    under the JAX denoise-mode tags (their contents:
     tests/test_torch_port_serving.py)."""
     trainer = DeepFakeTrainer(_deep_fake_cfg(), steps_per_epoch=1,
                               image_size=32, device="cpu")
