@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero:
    gives it, with the kernel's and the plain version's times and the least
    time the card could take: the warp kernels bit-equal (the fused warp,
    one launch, with both stat sets and at the corners of the augment's
-   ranges, timed alone into a preallocated output; the axis pass's row and
+   ranges, timed alone into a preallocated output, uint8 in and, as an
+   i420 upload reaches it, fp32 in with the normalise folded in,
+   graph-timed; the axis pass's row and
    column kernels each on the x-pass and the y-pass layout at 448^2 x 16
    and 640^2 x 4, each pass timed alone, and the whole two-pass warp at
    640^2 x 4, at the range corners too; both routes also on the deep-fake
@@ -81,7 +83,30 @@ Phases, in order; any failure exits non-zero:
    fit_balance at 448^2 x 12 for 1 epoch (one uint8 noise launch a step
    and a scoring batch), the balanced manifest and the histogram image in
    the event file; (f) the checkpoints' bytes, save and restore times and
-   the phase's peak memory.
+   the phase's peak memory;
+11. the i420 wire format and video render, from 9a's checkpoint and 10a's
+   frames: (a) rgb_to_i420 and i420_to_rgb at 448^2 x 16 on the card
+   against the CPU (pack within 1 LSB, unpack within 1e-3), the host pack
+   against the device pack, and the times of a batch's host pack and
+   device pack and unpack; (b) ``upload_format: i420`` at full width: the
+   denoiser at 448^2 x 16 (3 + 20 steps, one fused warp on fp32 input and
+   one fp32 noise launch a step, a profile of 3 more), the deep-fake
+   trainer in denoise mode (2 + 5 steps, 2 and 2 a step), the balancer at
+   448^2 x 12 (3 + 10 steps, one fp32 noise launch a step and no uint8
+   one), each rate beside its rgb phase's; a 64^2 fp32 denoiser step and
+   balancer step on the GPU against the CPU; fit_denoiser from 10a's
+   frames for 1 epoch of 3 steps, packed on its prefetch thread; (c) the
+   i420 pipeline, single-pass at 448^2 x 16 and DDIM at 448^2 x 8 with 10
+   steps (one fp32 noise launch a batch), timed as 9c and 9d; a batch's
+   upload and fetch, RGB and i420, by CUDA events; a 64^2 fp32 pair's i420
+   pipeline on the GPU against the CPU (1 LSB); (d) SwapEngine with the
+   i420 wire behind SwapServer: 4 clients x 25 timed ``X-Format: i420``
+   requests held as in 9e, an i420 client on an rgb engine and an rgb
+   client on an i420 engine; (e) render_fake_video from 60 random 448^2
+   BGR frames into ``write_frame`` (the tail of 4 padded to 8): rgb and
+   i420 single-pass and DDIM at 10 steps, 60 side-by-side frames each,
+   every fake half bit-equal to its batch's output, one fp32 noise launch
+   a DDIM batch.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Every launch count is the count from the
@@ -443,9 +468,38 @@ def kernel_checks(dev) -> dict:
     log(f"  fused 448^2 x16: kernel {ms:.4f} ms (wrapper incl. scalar prep "
         f"{wrapper_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
         f"{bound_ms * 1e3:.2f} us ({bound_by})")
-    results["affine_warp_fused"] = dict(max_abs_err=max(errs), ms=ms,
-                                        plain_ms=plain_ms, bound_ms=bound_ms,
-                                        bound_by=bound_by)
+
+    # The i420 upload's route: fp32 RGB in [0, 255] from the unpack of the
+    # same batch, normalised in the kernel (__fdiv_rn), bit-equal to the
+    # plain version's true division; timed by graph replay (4 bytes in and
+    # 4 out an element).
+    from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+        i420_to_rgb, rgb_to_i420)
+
+    rgb = i420_to_rgb(rgb_to_i420(u8))
+    for what, cf, (mean, std) in (("random params", coeffs, HALF),
+                                  ("random params", coeffs, IMAGENET),
+                                  ("range corners", corner_coeffs, IMAGENET)):
+        got = wf.affine_warp_fused_coeffs(rgb, cf, mean=mean, std=std)
+        want = wf.affine_warp_fused_plain(
+            rgb, cf, wf.norm_constants(mean, std, c))
+        errs.append(compare(got, want, f"fused 448^2 x16 fp32 input (i420 "
+                            f"unpacked) + norm, {what}, mean={mean}"))
+    f32_ms = graph_ms(lambda: wf.launch_fused(rgb, out, ax, bx, rx, ay, by,
+                                              ry, norm))
+    f32_plain_ms = time_ms(lambda: wf.affine_warp_fused_plain(
+        rgb, coeffs, norm), 3, warmup=1)
+    f32_bound_ms, f32_bound_by = bound(n * (4 + 4),
+                                       2 * n * OPS_PER_PASS_ELEMENT)
+    log(f"  fused 448^2 x16, fp32 input + norm (graph-timed): kernel "
+        f"{f32_ms:.4f} ms, plain {f32_plain_ms:.3f} ms, bound "
+        f"{f32_bound_ms * 1e3:.2f} us ({f32_bound_by}), "
+        f"{f32_bound_ms / f32_ms:.0%} of it")
+    results["affine_warp_fused"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, f32_norm=dict(ms=f32_ms, plain_ms=f32_plain_ms,
+                                         bound_ms=f32_bound_ms,
+                                         bound_by=f32_bound_by))
 
     # Axis pass: both kernels on both layouts of the two-pass route (the
     # x-pass, NHWC source -> planar; the y-pass, planar -> NHWC) at 448^2 x
@@ -544,7 +598,7 @@ def kernel_checks(dev) -> dict:
 
 
 def make_trainer(device, *, encoder: str, batch: int, size: int,
-                 dtype: str, warp_method: str = "auto"):
+                 dtype: str, warp_method: str = "auto", **overrides):
     from denoising_diffusion_deep_fake_tpu_torch.config import (
         DenoiserConfig, config_from_dict)
     from denoising_diffusion_deep_fake_tpu_torch.training.denoiser import (
@@ -557,19 +611,29 @@ def make_trainer(device, *, encoder: str, batch: int, size: int,
         learning_rate=0.02, max_epochs=100, cosine_scheduler_max_epoch=100,
         encoder_name=encoder, noise_exponential_sampling_lambda=5,
         mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5), compute_dtype=dtype,
-        image_size=size, warp_method=warp_method, seed=SEED))
+        image_size=size, warp_method=warp_method, seed=SEED, **overrides))
     return DenoiserTrainer(cfg, steps_per_epoch=1000, image_size=size,
                            device=device)
 
 
-def small_reference(dev) -> None:
-    """Phase 4: a 64^2 fp32 step on the GPU against the CPU plain path."""
+def small_reference(dev, upload_format: str = "rgb") -> None:
+    """Phase 4 (and 11b with ``upload_format="i420"``): a 64^2 fp32 step
+    on the GPU against the CPU plain path."""
     from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
         AffineAugmentConfig, sample_affine_params)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+        unpack_upload)
 
     rng = np.random.default_rng(SEED + 1)
     b, s = 2, 64
     u8 = torch.from_numpy(rng.integers(0, 256, (b, s, s, 3), np.uint8))
+    if upload_format == "i420":
+        from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+            rgb_to_i420)
+
+        u8 = rgb_to_i420(u8)
+    check(unpack_upload(u8, upload_format).shape == (b, s, s, 3),
+          f"the {upload_format} batch does not unpack to {s}^2")
     params = sample_affine_params(b, AffineAugmentConfig.random_affine(),
                                   generator=torch.Generator().manual_seed(5))
     ratios = torch.from_numpy(rng.uniform(0, 0.5, b).astype(np.float32))
@@ -578,7 +642,8 @@ def small_reference(dev) -> None:
     losses = {}
     for name, device in (("cpu", "cpu"), ("cuda", dev)):
         trainer = make_trainer(device, encoder="resnet18", batch=b, size=s,
-                               dtype="float32", warp_method="pallas_fused")
+                               dtype="float32", warp_method="pallas_fused",
+                               upload_format=upload_format)
         state = trainer.init_state(seed=7)
         on = torch.device(device)
         m = trainer.train_step(
@@ -586,8 +651,9 @@ def small_reference(dev) -> None:
             ratios=ratios.to(on), noise=noise.to(on))
         losses[name] = float(m["loss"])
     rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-    log(f"  64^2 fp32 step loss: cuda {losses['cuda']:.7f}, cpu "
-        f"{losses['cpu']:.7f}, relative difference {rel:.2e} (limit 1e-4: "
+    log(f"  64^2 fp32 {upload_format} step loss: cuda "
+        f"{losses['cuda']:.7f}, cpu {losses['cpu']:.7f}, relative "
+        f"difference {rel:.2e} (limit 1e-4: "
         "cuDNN and the CPU sum convolutions in other orders)")
     check(math.isfinite(losses["cuda"]) and rel < 1e-4,
           "the GPU step disagrees with the CPU reference")
@@ -609,12 +675,15 @@ def drive(dev, launches, card: str, run: dict, *, warmup: int, steps: int,
     ``run`` is a path (``single_path``, ``deep_fake_path``): ``step`` takes
     one uint8 batch of ``batch`` rows and returns the step's losses,
     ``images`` is the number of images a step trains on, and ``probes``
-    gives tensors that the steps must change. ``per_step`` holds the
-    launches each kernel wrapper must make a step."""
+    gives tensors that the steps must change; ``wire``, when given, turns
+    each RGB batch into the upload format before the steps (i420 packing).
+    ``per_step`` holds the launches each kernel wrapper must make a
+    step."""
     size, batch = run["size"], run["batch"]
     rng = np.random.default_rng(SEED)
-    batches = [torch.from_numpy(rng.integers(
-        0, 256, (batch, size, size, 3), np.uint8)).to(dev)
+    wire = run.get("wire", lambda u8: u8)
+    batches = [wire(torch.from_numpy(rng.integers(
+        0, 256, (batch, size, size, 3), np.uint8)).to(dev))
         for _ in range(min(warmup + steps, 8))]
     before = [p.detach().clone() for p in run["probes"]()]
     torch.cuda.synchronize()
@@ -675,8 +744,9 @@ def profile_steps(run: dict, dev, path: Path | None) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     size = run["size"]
-    u8 = torch.randint(0, 256, (run["batch"], size, size, 3),
-                       dtype=torch.uint8, device=dev)
+    u8 = run.get("wire", lambda x: x)(torch.randint(
+        0, 256, (run["batch"], size, size, 3), dtype=torch.uint8,
+        device=dev))
     run["step"](u8)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -715,7 +785,7 @@ def profile_steps(run: dict, dev, path: Path | None) -> dict:
     return port_ms
 
 
-def make_balancer(device):
+def make_balancer(device, **overrides):
     from denoising_diffusion_deep_fake_tpu_torch.config import (
         BalanceConfig, config_from_dict)
     from denoising_diffusion_deep_fake_tpu_torch.training.balance import (
@@ -727,7 +797,7 @@ def make_balancer(device):
         data_path="synthetic", batch_size=12, learning_rate=0.01,
         max_epochs=200, encoder_name="resnet34", ratio_of_noise=0.7,
         number_of_classes=10, mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5),
-        compute_dtype="bfloat16", image_size=448, seed=SEED))
+        compute_dtype="bfloat16", image_size=448, seed=SEED, **overrides))
     return BalanceTrainer(cfg, steps_per_epoch=1000, image_size=448,
                           device=device)
 
@@ -1112,7 +1182,7 @@ def time_pipeline(pipe, frames, launches, *, warmup: int, batches: int,
 
 
 def report_pipeline(what: str, run: dict, b: int, size: int,
-                    card: str) -> None:
+                    card: str, transfer: str = "rgb") -> None:
     t = run["times"]
     log(f"  {what}: {run['host_ms']:.3f} ms a batch of {b} (host clock, "
         f"mean of {len(t)}), {b / run['host_ms'] * 1e3:.1f} frames/s; "
@@ -1120,8 +1190,10 @@ def report_pipeline(what: str, run: dict, b: int, size: int,
         f"{t[0]:.3f}, max {t[-1]:.3f}; peak memory {run['peak_gb']:.2f} GB "
         f"[{card}]")
     log(f"  launches: {run['counts']}")
+    shape = ((b, size * 3 // 2, size) if transfer == "i420"
+             else (b, size, size, 3))
     for out in run["outs"]:
-        check(out.dtype == torch.uint8 and out.shape == (b, size, size, 3)
+        check(out.dtype == torch.uint8 and out.shape == shape
               and float(out.float().std()) > 0,
               f"{what}: the output is not varied uint8 frames")
 
@@ -1199,12 +1271,22 @@ def serving_ddim(path: Path, dev, launches, card: str, *, size: int = 448,
                         batch=batch, step_ms=run["host_ms"])
 
 
-def post_raw(port: int, frames: np.ndarray, shape_hdr: str | None = None):
+def wire_shape(frames: np.ndarray, fmt: str) -> str:
+    """The ``X-Shape`` header of a frame stack: ``N,H,W,3``, or ``N,H,W``
+    for packed i420 frames."""
+    if fmt == "i420":
+        n, h15, w = frames.shape
+        return f"{n},{h15 * 2 // 3},{w}"
+    return ",".join(str(d) for d in frames.shape)
+
+
+def post_raw(port: int, frames: np.ndarray, shape_hdr: str | None = None,
+             fmt: str = "rgb"):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
     try:
         conn.request("POST", "/v1/swap_raw", body=frames.tobytes(),
-                     headers={"X-Shape": shape_hdr or ",".join(
-                         str(d) for d in frames.shape)})
+                     headers={"X-Shape": shape_hdr or wire_shape(frames, fmt),
+                              "X-Format": fmt})
         resp = conn.getresponse()
         return resp.status, resp.read(), resp.getheader("X-Shape")
     finally:
@@ -1223,27 +1305,32 @@ def get_json(port: int, route: str) -> dict:
 
 
 def serving_http(path: Path, dev, launches, card: str, *, size: int = 448,
-                 batch: int = 8, clients: int = 4, requests: int = 75) -> None:
-    """Phase 9e: SwapEngine + SwapServer answering ``clients`` closed-loop
-    clients, each posting ``requests`` timed ``/v1/swap_raw`` requests of
-    1-3 frames after 2 untimed ones.
+                 batch: int = 8, clients: int = 4, requests: int = 75,
+                 transfer: str = "rgb") -> float:
+    """Phase 9e (and 11d with ``transfer="i420"``): SwapEngine +
+    SwapServer answering ``clients`` closed-loop clients, each posting
+    ``requests`` timed ``/v1/swap_raw`` requests of 1-3 frames in the
+    engine's wire format after 2 untimed ones. Returns the served
+    frames/s.
 
     cuDNN's bf16 convolutions do not promise a frame the same low bits in
     every slot of a batch, so each reply is held against the device batch
     that carried it: the batch's frames bit-equal to the request's, the
     reply bit-equal to the batch's output there, and that output within 1
     LSB of the pipeline run directly on the same batch. Each request's
-    frames carry its number in their first pixel, which finds them there.
-    How far a reply lies from the pipeline on its frames alone (padded from
-    slot 0) is printed."""
+    frames carry its number in their first three bytes, which finds them
+    there. How far a reply lies from the pipeline on its frames alone
+    (padded from slot 0) is printed."""
     from denoising_diffusion_deep_fake_tpu_torch.inference import (
         make_device_pipeline)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+        pack_rgb_batch_to_i420_np)
     from denoising_diffusion_deep_fake_tpu_torch.serving import SwapEngine
     from denoising_diffusion_deep_fake_tpu_torch.serving.server import (
         SwapServer)
 
     engine = SwapEngine(path, "a", height=size, width=size,
-                        batch_size=batch)
+                        batch_size=batch, transfer=transfer)
     warm_s = engine.warmup()
     ran = []                       # (frames, output, batch index), on card
     pipeline = engine._dispatcher.pipeline
@@ -1257,13 +1344,19 @@ def serving_http(path: Path, dev, launches, card: str, *, size: int = 448,
     rng = np.random.default_rng(SEED + 12)
     stacks = [rng.integers(0, 256, (int(rng.integers(1, 4)), size, size, 3),
                            np.uint8) for _ in range(24)]
+    if transfer == "i420":
+        stacks = [pack_rgb_batch_to_i420_np(f) for f in stacks]
     sent = []                      # request number -> its frames
+
+    def stamp(frames):
+        """The first three bytes of each frame: request number, slot."""
+        return frames.reshape(len(frames), -1)[:, :3]
 
     def stamped(k):
         frames = stacks[k].copy()
         r = len(sent)
-        frames[:, 0, 0] = [[r & 255, r >> 8, j + 1]
-                           for j in range(len(frames))]
+        stamp(frames)[:] = [[r & 255, r >> 8, j + 1]
+                            for j in range(len(frames))]
         sent.append(frames)
         return frames
 
@@ -1279,10 +1372,11 @@ def serving_http(path: Path, dev, launches, card: str, *, size: int = 448,
 
         def client(c):
             for frames in plan[c]:
-                r = int(frames[0, 0, 0, 0]) | int(frames[0, 0, 0, 1]) << 8
+                lo, hi, _ = stamp(frames)[0]
                 t0 = time.perf_counter()
-                reply = post_raw(server.port, frames)
-                done[c].append((r, (time.perf_counter() - t0) * 1e3, reply))
+                reply = post_raw(server.port, frames, fmt=transfer)
+                done[c].append((int(lo) | int(hi) << 8,
+                                (time.perf_counter() - t0) * 1e3, reply))
 
         threads = [threading.Thread(target=client, args=(c,))
                    for c in range(clients)]
@@ -1313,21 +1407,23 @@ def serving_http(path: Path, dev, launches, card: str, *, size: int = 448,
         def pct(xs, q):
             return float(np.percentile(xs, q))
 
-        log(f"  engine warm-up {warm_s:.2f} s, then {clients} x 2 untimed "
-            f"requests; timed: {clients} clients x {requests} requests, "
-            f"{n_frames} frames in {wall_s * 1e3:.1f} ms: "
-            f"{n_frames / wall_s:.1f} frames/s served over HTTP, "
-            f"{n_batches} device batches, occupancy "
+        log(f"  engine ({transfer} wire) warm-up {warm_s:.2f} s, then "
+            f"{clients} x 2 untimed requests; timed: {clients} clients x "
+            f"{requests} requests, {n_frames} frames in "
+            f"{wall_s * 1e3:.1f} ms: {n_frames / wall_s:.1f} frames/s "
+            f"served over HTTP, {n_batches} device batches, occupancy "
             f"{n_frames / (n_batches * batch):.4f}; device batch "
             f"(dispatch to fetch) p50 {pct(batch_ms, 50):.3f} ms, p99 "
             f"{pct(batch_ms, 99):.3f} ms, max {batch_ms[-1]:.3f} ms; request "
             f"latency p50 {pct(lat, 50):.1f} ms, p90 {pct(lat, 90):.1f} ms, "
-            f"p99 {pct(lat, 99):.1f} ms, max {lat[-1]:.1f} ms [{card}]")
+            f"p99 {pct(lat, 99):.1f} ms, max {lat[-1]:.1f} ms; "
+            f"{stacks[0][0].nbytes} bytes a frame each way [{card}]")
         log(f"  launches: {counts}")
         check(not any(counts.values()), "the engine launched a noise kernel")
         check(stats["errors"] == 0 and stats["shed_requests"] == 0
               and stats["frames"] - before["frames"] == n_frames
-              and len(batch_ms) == n_batches,
+              and len(batch_ms) == n_batches
+              and stats["transfer"] == transfer,
               f"engine stats off: {stats}")
         check(all(k in stats for k in ("batch_occupancy",
                                        "p50_device_batch_ms",
@@ -1335,7 +1431,7 @@ def serving_http(path: Path, dev, launches, card: str, *, size: int = 448,
               "/v1/stats lacks occupancy or latency percentiles")
 
         # Each device batch against the pipeline run directly on it.
-        direct = make_device_pipeline(engine.model)
+        direct = make_device_pipeline(engine.model, transfer=transfer)
         shares = [u8_compare(out, direct(frames, idx), "an engine batch "
                              "against the pipeline on the same batch",
                              quiet=True) for frames, out, idx in ran]
@@ -1346,22 +1442,22 @@ def serving_http(path: Path, dev, launches, card: str, *, size: int = 448,
         host = [(f.cpu().numpy(), o.cpu().numpy()) for f, o, _ in ran]
         slot = {}
         for b, (frames, _) in enumerate(host):
-            for s, (lo, hi, j) in enumerate(frames[:, 0, 0]):
+            for s, (lo, hi, j) in enumerate(stamp(frames)):
                 if j:
                     slot[(int(lo) | int(hi) << 8, int(j) - 1)] = (b, s)
         alone_max, alone_n, alone_of = 0, 0, 0
         for r, _, (status, body, shape) in warm + timed:
             check(status == 200, f"/v1/swap_raw answered {status}")
-            got = np.frombuffer(body, np.uint8).reshape(
-                tuple(int(d) for d in shape.split(",")))
-            check(got.shape == sent[r].shape, "a reply has the wrong shape")
+            check(shape == wire_shape(sent[r], transfer),
+                  f"a reply's X-Shape is {shape}")
+            got = np.frombuffer(body, np.uint8).reshape(sent[r].shape)
             for j in range(len(got)):
                 b, s = slot[(r, j)]
                 check(np.array_equal(host[b][0][s], sent[r][j])
                       and np.array_equal(host[b][1][s], got[j]),
                       "an HTTP reply is not the output of its device batch")
-            padded = torch.zeros((batch, size, size, 3), dtype=torch.uint8,
-                                 device=dev)
+            padded = torch.zeros((batch,) + engine.wire_frame_shape,
+                                 dtype=torch.uint8, device=dev)
             padded[:len(got)] = torch.from_numpy(sent[r]).to(dev)
             diff = (torch.from_numpy(got.copy()).to(dev).to(torch.int16)
                     - direct(padded, 0)[:len(got)].to(torch.int16)).abs()
@@ -1375,11 +1471,16 @@ def serving_http(path: Path, dev, launches, card: str, *, size: int = 448,
             f"convolutions by batch slot; reported, not checked)")
         health = get_json(server.port, "/healthz")
         check(health["status"] == "ok" and health["frame_shape"] == [
-            size, size, 3], f"/healthz answered {health}")
-        status, body, _ = post_raw(server.port, stacks[0],
-                                   f"1,{size},{size + 1},3")
+            size, size, 3] and health["transfer"] == transfer
+            and health["formats"] == ["rgb", "i420"],
+            f"/healthz answered {health}")
+        bad = (f"1,{size},{size + 1}" if transfer == "i420"
+               else f"1,{size},{size + 1},3")
+        status, body, _ = post_raw(server.port, stacks[0], bad, transfer)
         check(status == 400, f"a bad X-Shape answered {status}")
-        log(f"  /healthz ok, /v1/stats ok, bad X-Shape -> {status}")
+        log(f"  /healthz ok (formats {health['formats']}), /v1/stats ok, "
+            f"bad X-Shape -> {status}")
+        return n_frames / wall_s
     finally:
         server.shutdown()
 
@@ -1616,7 +1717,8 @@ def loop_denoiser(root: Path, data: Path, dev, launches, card: str,
         f"{n_bytes / 1e6:.1f} MB; a non-blocking save returns after "
         f"{snapshot_s:.3f} s (the host snapshot) [{card}]")
     return counts, dict(denoiser_mb=n_bytes / 1e6, save_s=save_s,
-                        snapshot_s=snapshot_s, restore_s=restore_s)
+                        snapshot_s=snapshot_s, restore_s=restore_s,
+                        loop_imgs_s=16 / loop_ms * 1e3)
 
 
 def deep_fake_cfg(data: dict, root: Path, name: str, **overrides):
@@ -1807,31 +1909,31 @@ def loop_balance(root: Path, data: Path, dev, launches, card: str) -> dict:
     return counts
 
 
-def training_from_disk(dev, launches, card: str, step_ms: float) -> dict:
-    """Phase 10: the runners from .npy datasets on disk. Returns the
-    launch counts by path."""
+def training_from_disk(dev, launches, card: str, step_ms: float,
+                       root: Path) -> tuple[dict, dict, float]:
+    """Phase 10: the runners from .npy datasets written under ``root``.
+    Returns the launch counts by path, the datasets' manifests (phase 11
+    trains from them too) and 10b's loop rate."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        data = {n: write_frames(root / n, 48, 448, SEED + 20 + i)
-                for i, n in enumerate("ab")}
-        log(f"[10a] datasets: 2 identities x 48 uint8 448^2 frames as .npy "
-            f"({tree_bytes(root) / 1e6:.1f} MB) in "
-            f"{time.perf_counter() - t0:.2f} s")
-        log("[10b] fit_denoiser: 448^2, batch 16, 2 epochs")
-        denoiser, figures = loop_denoiser(root, data["a"], dev, launches,
-                                          card, step_ms)
-        log("[10c] fit_deep_fake: new, then resume")
-        deep_fake, source, pair_mb = loop_deep_fake(root, data, dev,
-                                                    launches, card)
-        small = resume_equivalence(root, dev, launches)
-        log("[10d] modify to swap mode")
-        modify = loop_modify(root, data, source, dev, launches, card)
-        log("[10e] fit_balance: 448^2, batch 12, 1 epoch")
-        balance = loop_balance(root, data["a"], dev, launches, card)
+    t0 = time.perf_counter()
+    data = {n: write_frames(root / n, 48, 448, SEED + 20 + i)
+            for i, n in enumerate("ab")}
+    log(f"[10a] datasets: 2 identities x 48 uint8 448^2 frames as .npy "
+        f"({tree_bytes(root) / 1e6:.1f} MB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    log("[10b] fit_denoiser: 448^2, batch 16, 2 epochs")
+    denoiser, figures = loop_denoiser(root, data["a"], dev, launches,
+                                      card, step_ms)
+    log("[10c] fit_deep_fake: new, then resume")
+    deep_fake, source, pair_mb = loop_deep_fake(root, data, dev,
+                                                launches, card)
+    small = resume_equivalence(root, dev, launches)
+    log("[10d] modify to swap mode")
+    modify = loop_modify(root, data, source, dev, launches, card)
+    log("[10e] fit_balance: 448^2, batch 12, 1 epoch")
+    balance = loop_balance(root, data["a"], dev, launches, card)
     log(f"[10f] checkpoints: denoiser {figures['denoiser_mb']:.1f} MB, saved "
         f"in {figures['save_s']:.3f} s (non-blocking call returns after "
         f"{figures['snapshot_s']:.3f} s), restored in "
@@ -1839,12 +1941,389 @@ def training_from_disk(dev, launches, card: str, step_ms: float) -> dict:
         f"{pair_mb:.1f} MB; phase 10 peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
         f"{time.perf_counter() - start:.1f} s [{card}]")
-    return {"fit_denoiser_448": denoiser,
-            "fit_deep_fake_new_448": deep_fake["new"],
-            "fit_deep_fake_resume_448": deep_fake["resume"],
-            "fit_deep_fake_64": small,
-            "fit_deep_fake_modify_448": modify,
-            "fit_balance_448": balance}
+    return ({"fit_denoiser_448": denoiser,
+             "fit_deep_fake_new_448": deep_fake["new"],
+             "fit_deep_fake_resume_448": deep_fake["resume"],
+             "fit_deep_fake_64": small,
+             "fit_deep_fake_modify_448": modify,
+             "fit_balance_448": balance}, data, figures["loop_imgs_s"])
+
+
+# ------------------------------------- phase 11: the i420 wire and video
+
+
+def i420_ops(dev, card: str) -> None:
+    """Phase 11a: the i420 ops at 448^2 x 16 on the card against the CPU,
+    the host pack against the device pack, and their times."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+        i420_to_rgb, pack_rgb_batch_to_i420_np, rgb_to_i420)
+
+    host = np.random.default_rng(SEED + 30).integers(
+        0, 256, (16, 448, 448, 3), np.uint8)
+    u8 = torch.from_numpy(host).to(dev)
+    packed = rgb_to_i420(u8)
+    cpu_packed = rgb_to_i420(torch.from_numpy(host))
+    u8_compare(packed.cpu(), cpu_packed, "448^2 x16 rgb_to_i420, card vs CPU")
+    err = float((i420_to_rgb(packed).cpu() - i420_to_rgb(cpu_packed)).abs()
+                .max())
+    log(f"  448^2 x16 i420_to_rgb, card vs CPU: max |difference| {err:.3e} "
+        "(limit 1e-3)")
+    check(err <= 1e-3, "i420_to_rgb on the card disagrees with the CPU")
+    host_packed = pack_rgb_batch_to_i420_np(host)
+    u8_compare(torch.from_numpy(host_packed), packed.cpu(),
+               "host pack (CPU tensors) vs device pack")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        pack_rgb_batch_to_i420_np(host)
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    pack_ms = time_ms(lambda: rgb_to_i420(u8), 20)
+    unpack_ms = time_ms(lambda: i420_to_rgb(packed), 20)
+    log(f"  a batch of 16 448^2 frames: {host.nbytes} bytes RGB, "
+        f"{host_packed.nbytes} i420; host pack {host_ms:.3f} ms (mean of "
+        f"5, torch.get_num_threads() {torch.get_num_threads()}), device "
+        f"pack {pack_ms:.3f} ms, device unpack {unpack_ms:.3f} ms (device "
+        f"time, mean of 20) [{card}]")
+
+
+def balancer_reference(dev) -> None:
+    """Phase 11b: a 64^2 fp32 i420 balancer step on the GPU against the
+    CPU plain path, with the noise injected."""
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        BalanceConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+        rgb_to_i420)
+    from denoising_diffusion_deep_fake_tpu_torch.training.balance import (
+        BalanceTrainer)
+
+    rng = np.random.default_rng(SEED + 31)
+    b, s = 2, 64
+    packed = rgb_to_i420(torch.from_numpy(rng.integers(
+        0, 256, (b, s, s, 3), np.uint8)))
+    noise = torch.from_numpy(rng.standard_normal((b, s, s, 3)).astype(
+        np.float32))
+    losses = {}
+    for name, device in (("cpu", "cpu"), ("cuda", dev)):
+        cfg = config_from_dict(BalanceConfig, dict(
+            data_path="synthetic", batch_size=b, encoder_name="resnet18",
+            compute_dtype="float32", image_size=s, upload_format="i420",
+            seed=SEED))
+        trainer = BalanceTrainer(cfg, steps_per_epoch=1000, image_size=s,
+                                 device=device)
+        m = trainer.train_step(trainer.init_state(seed=7), packed,
+                               noise=noise.to(device))
+        losses[name] = float(m["loss"])
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    log(f"  64^2 fp32 i420 balancer step loss: cuda {losses['cuda']:.7f}, "
+        f"cpu {losses['cpu']:.7f}, relative difference {rel:.2e} (limit "
+        "1e-4)")
+    check(math.isfinite(losses["cuda"]) and rel < 1e-4,
+          "the GPU i420 balancer step disagrees with the CPU reference")
+
+
+def rate_line(what: str, run: dict, rgb_run: dict) -> None:
+    images = run["images"]
+    log(f"  {what}: i420 {images / run['step_ms'] * 1e3:.1f} imgs/s beside "
+        f"the rgb upload's {images / rgb_run['step_ms'] * 1e3:.1f} in this "
+        "run")
+
+
+def loop_denoiser_i420(root: Path, data: Path, dev, launches, card: str,
+                       loop_rate: float) -> dict:
+    """Phase 11b: fit_denoiser with i420 uploads from phase 10a's frames,
+    1 epoch of 3 steps (the prefetch thread packs each batch)."""
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DenoiserConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_denoiser)
+
+    cfg = config_from_dict(DenoiserConfig, dict(
+        input_image_list_path=str(data), batch_size=16, learning_rate=0.02,
+        max_epochs=1, cosine_scheduler_max_epoch=100,
+        encoder_name="resnet34", noise_exponential_sampling_lambda=5,
+        compute_dtype="bfloat16", image_size=448, seed=SEED,
+        upload_format="i420", log_dir=str(root / "runs_i420"),
+        checkpoint_dir=str(root / "denoiser_i420")))
+    marks, events = {}, {}
+
+    def mark(step, state, metrics):
+        events[step] = torch.cuda.Event(enable_timing=True)
+        events[step].record()
+        if step in (1, 3):
+            torch.cuda.synchronize()
+            marks[step] = time.perf_counter()
+
+    (state, _, ctx), counts = fit_counted(fit_denoiser, launches, cfg,
+                                          step_callback=mark)
+    check(ctx.global_step == state.step == 3,
+          f"fit_denoiser (i420) ran {ctx.global_step} steps, not 3")
+    check_launches(counts, {"affine_warp_fused": 3, "fused_noise_blend": 3},
+                   "fit_denoiser (i420)")
+    loop_ms = (marks[3] - marks[1]) / 2 * 1e3
+    log(f"  fit_denoiser 448^2 x16, i420 uploads, 1 epoch of 3 steps: steps "
+        f"2-3 {loop_ms:.3f} ms a step, {16 / loop_ms * 1e3:.1f} imgs/s "
+        f"through the loop (host clock between synchronised step ends); "
+        f"steps 2-3 on the device timeline "
+        f"{events[1].elapsed_time(events[2]):.3f}, "
+        f"{events[2].elapsed_time(events[3]):.3f} ms; 10b's rgb epoch 2 "
+        f"{loop_rate:.1f} imgs/s [{card}]")
+    return counts
+
+
+def i420_training(dev, launches, card: str, rgb_runs: dict, root: Path,
+                  data: Path, loop_rate: float) -> dict:
+    """Phase 11b: the three trainers with i420 uploads at full width, the
+    small GPU-vs-CPU references, and fit_denoiser. Returns the launch
+    counts by path."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+        rgb_to_i420)
+
+    run = single_path(make_trainer(dev, encoder="resnet34", batch=16,
+                                   size=448, dtype="bfloat16",
+                                   upload_format="i420"),
+                      size=448, batch=16)
+    run = drive(dev, launches, card, dict(run, wire=rgb_to_i420),
+                warmup=3, steps=20,
+                per_step={"affine_warp_fused": 1, "fused_noise_blend": 1})
+    rate_line("denoiser 448^2 x16", run, rgb_runs["denoiser"])
+    profile_steps(run, dev, None)
+    paths = {"denoiser_i420_448": run["counts"]}
+
+    trainer = make_deep_fake(dev, upload_format="i420")
+    states = trainer.init_states(seed=SEED)
+    df = drive(dev, launches, card,
+               dict(deep_fake_path(trainer, states,
+                                   probes=online_probes(states)),
+                    wire=rgb_to_i420), warmup=2, steps=5,
+               per_step={"affine_warp_fused": 2, "fused_noise_blend": 2})
+    rate_line("deep-fake denoise mode 448^2, 16 per identity", df,
+              rgb_runs["deep_fake"])
+    paths["deep_fake_denoise_i420_448"] = df["counts"]
+    del trainer, states, df
+
+    bal = drive(dev, launches, card,
+                dict(single_path(make_balancer(dev, upload_format="i420"),
+                                 size=448, batch=12), wire=rgb_to_i420),
+                warmup=3, steps=10, per_step={"fused_noise_blend": 1})
+    rate_line("balancer 448^2 x12", bal, rgb_runs["balancer"])
+    paths["balancer_i420_448"] = bal["counts"]
+    del bal
+
+    small_reference(dev, upload_format="i420")
+    balancer_reference(dev)
+    paths["fit_denoiser_i420_448"] = loop_denoiser_i420(
+        root, data, dev, launches, card, loop_rate)
+    return paths
+
+
+def transfer_times(dev, card: str, size: int = 448) -> None:
+    """Phase 11c: one batch of 16 448^2 frames up (from pinned memory, as
+    the engine uploads) and back (``.cpu()``, as it fetches), RGB and
+    i420, by CUDA events."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+        pack_rgb_batch_to_i420_np)
+
+    rgb = np.random.default_rng(SEED + 32).integers(
+        0, 256, (16, size, size, 3), np.uint8)
+    for fmt, host in (("rgb", rgb), ("i420", pack_rgb_batch_to_i420_np(rgb))):
+        pinned = torch.from_numpy(host).pin_memory()
+        on_card = pinned.to(dev)
+        up_ms = time_ms(lambda: pinned.to(dev, non_blocking=True), 10)
+        down_ms = time_ms(lambda: on_card.cpu(), 10)
+        log(f"  {fmt}: {host.nbytes} bytes a batch; upload {up_ms:.3f} ms "
+            f"({host.nbytes / up_ms / 1e6:.2f} GB/s), fetch {down_ms:.3f} "
+            f"ms ({host.nbytes / down_ms / 1e6:.2f} GB/s) (device time, "
+            f"mean of 10) [{card}]")
+
+
+def i420_pipeline(path: Path, small: Path, dev, launches, card: str,
+                  rgb_rates: dict, size: int = 448) -> dict:
+    """Phase 11c: the i420 pipeline, single-pass at 448^2 x 16 and DDIM at
+    448^2 x 8 with 10 steps, timed as 9c and 9d; the transfers; a 64^2
+    fp32 pair on the card against the CPU. Returns DDIM's launch counts."""
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        load_swap_model, make_device_pipeline)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+        rgb_to_i420)
+
+    pipe = make_device_pipeline(load_swap_model(path, "a"), transfer="i420")
+    frames = rgb_to_i420(torch.from_numpy(np.random.default_rng(
+        SEED + 10).integers(0, 256, (16, size, size, 3), np.uint8)).to(dev))
+    run = time_pipeline(pipe, frames, launches, warmup=3, batches=20)
+    report_pipeline(f"{size}^2 x16 single-pass swap, i420 on the card both "
+                    "ways", run, 16, size, card, transfer="i420")
+    check(not any(run["counts"].values()),
+          "the i420 single-pass pipeline launched a noise kernel")
+    check(torch.equal(run["outs"][0], run["outs"][-1]),
+          "the i420 single-pass pipeline is not deterministic")
+    log(f"  single-pass: i420 {16 / run['host_ms'] * 1e3:.1f} frames/s "
+        f"beside 9c's rgb {rgb_rates['single']:.1f}")
+
+    ddim = make_device_pipeline(load_swap_model(path, "a", use_ema=True),
+                                sampler_steps=10, transfer="i420", seed=SEED)
+    frames8 = rgb_to_i420(torch.from_numpy(np.random.default_rng(
+        SEED + 11).integers(0, 256, (8, size, size, 3), np.uint8)).to(dev))
+    run = time_pipeline(ddim, frames8, launches, warmup=2, batches=24)
+    report_pipeline(f"{size}^2 x8 DDIM, 10 steps, i420", run, 8, size, card,
+                    transfer="i420")
+    counts = run["counts"]
+    check(counts == {"fused_noise_blend": run["n"]},
+          f"the i420 DDIM pipeline launched {counts} in {run['n']} batches, "
+          "not one fp32 noise blend a batch")
+    log(f"  DDIM: i420 {8 / run['host_ms'] * 1e3:.1f} frames/s beside 9d's "
+        f"rgb {rgb_rates['ddim']:.1f}")
+    transfer_times(dev, card, size)
+
+    packed = rgb_to_i420(torch.from_numpy(np.random.default_rng(
+        SEED + 9).integers(0, 256, (4, 64, 64, 3), np.uint8)))
+    outs = {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        model = load_swap_model(small, "a", device=device)
+        outs[name] = make_device_pipeline(model, transfer="i420")(
+            packed.to(device), 0).cpu()
+    u8_compare(outs["gpu"], outs["cpu"],
+               "64^2 fp32 single-pass i420, GPU vs CPU")
+    return counts
+
+
+def mixed_formats(path: Path, dev, card: str, size: int = 448,
+                  batch: int = 8) -> None:
+    """Phase 11d: an i420 client on an rgb engine and an rgb client on an
+    i420 engine. Each reply is the server's host conversion of the output
+    of the device batch that carried it, bit for bit, and that batch within
+    1 LSB of the pipeline run directly on it."""
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        make_device_pipeline)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+        pack_rgb_batch_to_i420_np, unpack_i420_batch_to_rgb_np)
+    from denoising_diffusion_deep_fake_tpu_torch.serving import SwapEngine
+    from denoising_diffusion_deep_fake_tpu_torch.serving.server import (
+        SwapServer)
+
+    rgb = np.random.default_rng(SEED + 13).integers(
+        0, 256, (2, size, size, 3), np.uint8)
+    for engine_fmt, client_fmt in (("rgb", "i420"), ("i420", "rgb")):
+        engine = SwapEngine(path, "a", height=size, width=size,
+                            batch_size=batch, transfer=engine_fmt)
+        engine.warmup()
+        ran = []
+        pipeline = engine._dispatcher.pipeline
+
+        def recorded(frames, batch_idx, pipeline=pipeline, ran=ran):
+            out = pipeline(frames, batch_idx)
+            ran.append((frames.clone(), out))
+            return out
+
+        engine._dispatcher.pipeline = recorded
+        server = SwapServer(engine, host="127.0.0.1", port=0)
+        server.start()
+        try:
+            frames = (pack_rgb_batch_to_i420_np(rgb) if client_fmt == "i420"
+                      else rgb)
+            status, body, shape = post_raw(server.port, frames,
+                                           fmt=client_fmt)
+            check(status == 200 and shape == wire_shape(frames, client_fmt)
+                  and len(ran) == 1,
+                  f"a {client_fmt} client on a {engine_fmt} engine got "
+                  f"{status} in {len(ran)} batches")
+            got = np.frombuffer(body, np.uint8).reshape(frames.shape)
+            batch_in, out = ran[0]
+            wire = (unpack_i420_batch_to_rgb_np(frames) if engine_fmt == "rgb"
+                    else pack_rgb_batch_to_i420_np(frames))
+            check(np.array_equal(batch_in[:2].cpu().numpy(), wire),
+                  "the engine batch does not hold the converted frames")
+            host = out[:2].cpu().numpy()
+            want = (pack_rgb_batch_to_i420_np(host) if engine_fmt == "rgb"
+                    else unpack_i420_batch_to_rgb_np(host))
+            check(np.array_equal(got, want), f"a {client_fmt} reply from a "
+                  f"{engine_fmt} engine is not its batch's output, converted")
+            share = u8_compare(out, make_device_pipeline(
+                engine.model, transfer=engine_fmt)(batch_in, 0), "",
+                quiet=True)
+            log(f"  {client_fmt} client, {engine_fmt} engine: 200, X-Shape "
+                f"{shape}; the reply is the host conversion of its batch's "
+                f"output, bit for bit; the batch against the pipeline on it: "
+                f"differing share {share:.3e} (1 LSB at most)")
+        finally:
+            server.shutdown()
+
+
+def render_check(path: Path, dev, launches, card: str,
+                 size: int = 448) -> dict:
+    """Phase 11e: render_fake_video from 60 uint8 448^2 BGR frames into
+    ``write_frame``, rgb single-pass, i420 single-pass and rgb DDIM at 10
+    steps, batch 8 (the tail of 4 padded to 8). Returns DDIM's launch
+    counts."""
+    from denoising_diffusion_deep_fake_tpu_torch.data import video
+    from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+        unpack_i420_batch_to_rgb_np)
+
+    frames = list(np.random.default_rng(SEED + 40).integers(
+        0, 256, (60, size, size, 3), np.uint8))
+    build = video.make_device_pipeline
+    counts = {}
+    for transfer, steps in (("rgb", 0), ("i420", 0), ("rgb", 10)):
+        ran, direct = [], []
+
+        def recording(model, **kw):
+            pipe = build(model, **kw)
+            direct.append(pipe)
+
+            def recorded(batch, batch_idx):
+                out = pipe(batch, batch_idx)
+                ran.append((batch.clone(), out, batch_idx))
+                return out
+
+            return recorded
+
+        written, stats = [], {}
+        video.make_device_pipeline = recording
+        try:
+            torch.cuda.synchronize()
+            launches.clear()
+            video.render_fake_video(
+                None, path, "a", width=size, height=size, batch_size=8,
+                sampler_steps=steps, transfer=transfer, progress=False,
+                stats_out=stats, device=dev, frames=iter(frames),
+                write_frame=written.append)
+            torch.cuda.synchronize()
+            run_counts = counts[steps] = dict(launches)
+        finally:
+            video.make_device_pipeline = build
+        what = f"render {transfer}" + (f" DDIM {steps} steps" if steps
+                                       else " single-pass")
+        check(len(written) == 60 and stats["frames"] == 60
+              and stats["batches"] == len(ran) == 8,
+              f"{what}: {len(written)} frames in {len(ran)} batches")
+        want_counts = {"fused_noise_blend": 8} if steps else {}
+        check(run_counts == want_counts,
+              f"{what} launched {run_counts}, not {want_counts}")
+        fakes = [o.cpu().numpy() for _, o, _ in ran]
+        if transfer == "i420":
+            fakes = [unpack_i420_batch_to_rgb_np(f) for f in fakes]
+        for k, frame in enumerate(written):
+            b, slot = divmod(k, 8)
+            check(frame.shape == (size, 2 * size, 3)
+                  and frame.dtype == np.uint8
+                  and np.array_equal(frame[:, :size], frames[k])
+                  and np.array_equal(frame[:, size:],
+                                     fakes[b][slot][..., ::-1]),
+                  f"{what}: frame {k} is not its real frame beside its "
+                  "batch's fake")
+        tail = ran[-1][0]
+        check(all(torch.equal(tail[j], tail[3]) for j in range(4, 8)),
+              f"{what}: the tail is not padded with its last frame")
+        shares = [u8_compare(out, direct[0](batch, idx), "", quiet=True)
+                  for batch, out, idx in ran]
+        log(f"  {what}: 60 frames of {size}x{2 * size} in 8 batches, each "
+            f"fake half "
+            f"bit-equal to its batch's output (each batch within 1 LSB of "
+            f"the pipeline on it, differing share "
+            f"{min(shares):.3e}-{max(shares):.3e}); launches {run_counts}; "
+            f"first batch {stats['first_batch_s'] * 1e3:.1f} ms, steady "
+            f"{stats['steady_batch_s'] * 1e3:.3f} ms a batch, steady_fps "
+            f"{stats['steady_fps']:.1f}, delivered_fps "
+            f"{stats['delivered_fps']:.1f} [{card}]")
+    return counts[10]
 
 
 def main() -> int:
@@ -1946,32 +2425,62 @@ def main() -> int:
     profile_steps(swap_run, dev, None)
 
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = Path(tmp) / "swap"
+        ckpt, small = Path(tmp) / "swap", Path(tmp) / "small"
         log("[9a] serving: checkpoint of 8d's states, loaded back")
         serving_checkpoint(swap_trainer, states, ckpt)
         log("[9b] serving small reference: 64^2 fp32 pipeline, GPU vs CPU")
-        serving_reference(dev, Path(tmp) / "small")
+        serving_reference(dev, small)
         log("[9c] single-pass pipeline: 448^2, batch 16")
-        profile_steps(serving_single(ckpt, dev, _build.LAUNCHES, card), dev,
-                      None)
+        single_run = serving_single(ckpt, dev, _build.LAUNCHES, card)
+        profile_steps(single_run, dev, None)
         log("[9d] DDIM pipeline: 448^2, batch 8, 10 steps")
         ddim_counts, ddim_run = serving_ddim(ckpt, dev, _build.LAUNCHES,
                                              card)
         profile_steps(ddim_run, dev, None)
         log("[9e] SwapEngine + SwapServer: 448^2, batch 8, 4 clients x 75 "
             "requests")
-        serving_http(ckpt, dev, _build.LAUNCHES, card)
+        served = serving_http(ckpt, dev, _build.LAUNCHES, card)
 
-    log("[10] training from disk: the runners and the loop")
-    loop_paths = training_from_disk(dev, _build.LAUNCHES, card,
-                                    main_run["step_ms"])
+        log("[10] training from disk: the runners and the loop")
+        loop_paths, data, loop_rate = training_from_disk(
+            dev, _build.LAUNCHES, card, main_run["step_ms"],
+            Path(tmp) / "disk")
+
+        t11 = time.perf_counter()
+        log("[11a] the i420 ops: 448^2 x 16, card vs CPU, host vs device")
+        i420_ops(dev, card)
+        log("[11b] i420 uploads: the three trainers at full width, the "
+            "small references, fit_denoiser")
+        i420_paths = i420_training(
+            dev, _build.LAUNCHES, card,
+            {"denoiser": main_run, "deep_fake": denoise_run,
+             "balancer": balance_run}, Path(tmp) / "disk", data["a"],
+            loop_rate)
+        log("[11c] i420 pipeline: single-pass 448^2 x16, DDIM 448^2 x8 "
+            "10 steps, transfers, 64^2 GPU vs CPU")
+        i420_paths["serve_ddim_i420_448"] = i420_pipeline(
+            ckpt, small, dev, _build.LAUNCHES, card,
+            {"single": 16 / single_run["step_ms"] * 1e3,
+             "ddim": 8 / ddim_run["step_ms"] * 1e3})
+        log("[11d] SwapEngine(transfer='i420') + SwapServer: 4 clients x 25 "
+            "requests with X-Format: i420; mixed formats")
+        served_i420 = serving_http(ckpt, dev, _build.LAUNCHES, card,
+                                   requests=25, transfer="i420")
+        log(f"  served: i420 {served_i420:.1f} frames/s beside 9e's rgb "
+            f"{served:.1f}")
+        mixed_formats(ckpt, dev, card)
+        log("[11e] render_fake_video: 60 frames of 448^2, batch 8, rgb, "
+            "i420, DDIM 10 steps")
+        i420_paths["render_ddim_448"] = render_check(ckpt, dev,
+                                                     _build.LAUNCHES, card)
+        log(f"  phase 11 took {time.perf_counter() - t11:.1f} s [{card}]")
 
     paths = {"denoiser_448": main_run["counts"],
              "twopass_640": twopass_run["counts"],
              "balancer_448": balance_counts,
              "deep_fake_denoise_448": denoise_run["counts"],
              "deep_fake_swap_448": swap_run["counts"],
-             "serve_ddim_448": ddim_counts, **loop_paths}
+             "serve_ddim_448": ddim_counts, **loop_paths, **i420_paths}
     first_path = {"affine_warp_fused": "denoiser_448",
                   "warp_axis_pass": "twopass_640",
                   "fused_noise_blend": "denoiser_448",

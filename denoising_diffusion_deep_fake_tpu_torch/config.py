@@ -84,9 +84,24 @@ class BaseConfig:
         if self.upload_format not in ("rgb", "i420"):
             raise ValueError(f"upload_format must be 'rgb' or 'i420', got "
                              f"{self.upload_format!r}")
+        if self.upload_format == "i420":
+            if self.spatial_parallel > 1:
+                # The packed (B, H*3/2, W) layout interleaves the planes
+                # along dim 1: H-sharding it would split them.
+                raise ValueError(
+                    "upload_format='i420' is incompatible with "
+                    "spatial_parallel > 1 — use upload_format='rgb'")
+            if self.image_size is not None and self.image_size % 4 != 0:
+                raise ValueError(
+                    "upload_format='i420' needs image_size % 4 == 0, got "
+                    f"{self.image_size}")
         if self.data_cache not in ("host", "device"):
             raise ValueError(f"data_cache must be 'host' or 'device', got "
                              f"{self.data_cache!r}")
+        if self.data_cache == "device" and self.upload_format != "rgb":
+            raise ValueError(
+                "data_cache='device' already eliminates per-step uploads — "
+                "use upload_format='rgb' with it")
         if self.warp_method not in WARP_METHODS:
             raise ValueError(f"unknown warp_method {self.warp_method!r}")
         if self.remat not in ("none", "dots", "full"):

@@ -37,6 +37,9 @@ import torch
 from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
     read_image_manifest_with_classes,
 )
+from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+    pack_rgb_batch_to_i420_np,
+)
 
 
 def _cv2():
@@ -238,10 +241,16 @@ class PairedLoader:
         yield from zip(self.a.epoch(epoch), self.b.epoch(epoch))
 
 
-def device_prefetch(batches, device, depth: int = 2):
+def device_prefetch(batches, device, depth: int = 2,
+                    upload_format: str = "rgb"):
     """Upload ``batches`` (tuples whose uint8 arrays of ndim >= 3 go to
     ``device``; other items stay on the host) ``depth`` items ahead, on a
     worker thread.
+
+    ``upload_format="i420"`` packs each uint8 NHWC array 4:2:0 on the
+    worker thread before its upload (``pack_rgb_batch_to_i420_np``): half
+    the bytes cross the host link, and the train step unpacks them
+    (``ops.image.unpack_upload``).
 
     On the GPU each array is copied into pinned memory and sent with
     ``non_blocking=True`` on a side stream; the consumer's stream waits on
@@ -257,6 +266,9 @@ def device_prefetch(batches, device, depth: int = 2):
     def upload(x):
         if not (isinstance(x, np.ndarray) and x.ndim >= 3):
             return x
+        if (upload_format == "i420" and x.ndim == 4
+                and x.dtype == np.uint8):
+            x = pack_rgb_batch_to_i420_np(x)
         t = torch.from_numpy(np.ascontiguousarray(x))
         if not cuda:
             return t.to(device)

@@ -5,15 +5,17 @@ equivalent of the reference's ``predict_fake`` (``lit_module.py:251-300``):
 load one identity's U-Net, normalise frames with the *other* identity's
 statistics, swap with one eval-mode forward (or a DDIM refinement),
 denormalise, truncate, clamp. Shared by the serving engine
-(``serving/engine.py``); video render is not ported yet (ROADMAP A6).
+(``serving/engine.py``) and video render (``data/video.py``).
 
 * ``load_swap_model`` reads only the chosen identity's model or shadow
   from the checkpoint (``checkpoint.CheckpointManager.restore_partial``)
   and builds the U-Net alone, in eval mode: no optimizer, no trainer.
 * ``make_device_pipeline`` returns ``f(frames_u8, batch_idx) -> fake_u8``
-  on the model's device; uint8 crosses the host link both ways. Where JAX
-  folds ``batch_idx`` into a key for the DDIM noise, the port passes it as
-  the noise kernel's ``offset`` under the pipeline's ``seed``.
+  on the model's device; uint8 crosses the host link both ways, NHWC RGB
+  or, with ``transfer="i420"``, 4:2:0-packed ``(B, H*3/2, W)`` (half the
+  bytes). Where JAX folds ``batch_idx`` into a key for the DDIM noise, the
+  port passes it as the noise kernel's ``offset`` under the pipeline's
+  ``seed``.
 * an fp32 checkpoint promises fp32 math: on the GPU its ``SwapModel.predict``
   runs with TF32 off for cuDNN and matmuls (PyTorch turns cuDNN's on by
   default), as the JAX package traces such a pipeline at ``highest``
@@ -46,6 +48,8 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
 from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
     center_crop,
     denormalise_to_uint8_rgb,
+    i420_to_rgb,
+    rgb_to_i420,
 )
 from denoising_diffusion_deep_fake_tpu_torch.ops.sampler import swap_refine
 
@@ -131,15 +135,17 @@ def make_device_pipeline(model: SwapModel, *, sampler_steps: int = 0,
                          transfer: str = "rgb", seed: int = 0
                          ) -> Callable[[torch.Tensor, int], torch.Tensor]:
     """The uint8 -> uint8 swap of one ``SwapModel``:
-    ``f(frames_u8, batch_idx) -> fake_u8`` for NHWC RGB batches on the
-    model's device. Normalise, swap (one forward, or ``sampler_steps`` DDIM
-    steps from ``r_start`` 0.7 whose noise is keyed by ``(seed,
-    batch_idx)``), then ``trunc(fake * std*255 + mean*255)`` clamped to
-    [0, 255]: truncation, as the reference casts."""
-    if transfer != "rgb":
-        raise ValueError(
-            f"transfer={transfer!r} is not ported: the port carries 'rgb' "
-            "only (the i420 wire format is ROADMAP A6)")
+    ``f(frames_u8, batch_idx) -> fake_u8`` for batches on the model's
+    device in the ``transfer`` wire format, NHWC RGB or (B, H*3/2, W) i420.
+    Normalise, swap (one forward, or ``sampler_steps`` DDIM steps from
+    ``r_start`` 0.7 whose noise is keyed by ``(seed, batch_idx)``), then
+    ``trunc(fake * std*255 + mean*255)`` clamped to [0, 255]: truncation,
+    as the reference casts. An i420 batch is unpacked to fp32 RGB and
+    normalised as ``(rgb - mean*255) / (std*255)``, and the fake packed
+    back (JAX ``inference.py:160-171``)."""
+    if transfer not in ("rgb", "i420"):
+        raise ValueError(f"transfer must be 'rgb' or 'i420', got "
+                         f"{transfer!r}")
     mean, std = model.mean, model.std
     # DDIM clips each x0 prediction to the image of [0, 1] pixels under
     # the model's own statistics.
@@ -148,25 +154,37 @@ def make_device_pipeline(model: SwapModel, *, sampler_steps: int = 0,
 
     def pipeline(frames_u8: torch.Tensor, batch_idx: int) -> torch.Tensor:
         with torch.inference_mode():
+            if transfer == "i420":
+                frames_u8 = i420_to_rgb(frames_u8)
             x = normalise_batch(frames_u8, mean, std)
             if sampler_steps > 0:
                 fake = swap_refine(model.predict, x, steps=sampler_steps,
                                    clip=clip, seed=seed, offset=batch_idx)
             else:
                 fake = model.predict(x)
-            return denormalise_to_uint8_rgb(fake, mean, std)
+            fake_u8 = denormalise_to_uint8_rgb(fake, mean, std)
+            return rgb_to_i420(fake_u8) if transfer == "i420" else fake_u8
 
     return pipeline
+
+
+def crop_resize(frame: np.ndarray, width: int, height: int) -> np.ndarray:
+    """An HWC frame of any size -> centre-cropped to ``width:height`` and
+    cubic-resized to ``(height, width)``, channels as given: the video
+    prep tool's geometry. cv2 is needed only where a frame needs the
+    resize (cv2's resize to the same size is a copy)."""
+    frame = center_crop(frame, width, height)
+    if frame.shape[:2] != (height, width):
+        import cv2
+
+        frame = cv2.resize(frame, (width, height),
+                           interpolation=cv2.INTER_CUBIC)
+    return frame
 
 
 def prepare_frame(frame_bgr: np.ndarray, width: int, height: int
                   ) -> np.ndarray:
     """BGR frame of any size -> centre-cropped, cubic-resized RGB uint8
-    ``(height, width, 3)``, the video prep tool's geometry."""
-    import cv2
-
-    frame = center_crop(frame_bgr, width, height)
-    if frame.shape[:2] != (height, width):
-        frame = cv2.resize(frame, (width, height),
-                           interpolation=cv2.INTER_CUBIC)
-    return np.ascontiguousarray(frame[..., ::-1])
+    ``(height, width, 3)`` (``crop_resize``)."""
+    return np.ascontiguousarray(crop_resize(frame_bgr, width,
+                                            height)[..., ::-1])

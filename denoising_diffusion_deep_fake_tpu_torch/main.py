@@ -1,4 +1,4 @@
-"""The port's training command line.
+"""The port's command line: training, video tools and serving.
 
     python -m denoising_diffusion_deep_fake_tpu_torch.main train new \\
         --config_path configs/denoise.yml [--max_steps N] [--device cuda]
@@ -7,13 +7,18 @@
     ... denoise --config configs/denoiser.yml --input_list images.txt
     ... balance --config configs/balance.yml --input_list images.txt \\
         --output_list balanced.txt
+    ... video prep VIDEO OUT_DIR [--width 448 --height 448]
+    ... video swap VIDEO CHECKPOINT a|b [--output OUT.mp4 --batch_size 8 \\
+        --sampler_steps 0 --transfer rgb|i420]
+    ... serve CHECKPOINT a|b|both [--port 8000 --transfer rgb|i420 --check]
 
-Port of ``denoising_diffusion_deep_fake_tpu/main.py:44-137`` (the
-reference's ``d3f`` click group), with ``argparse`` in place of ``click``
-and the same subcommand and option names. ``--device`` (default ``cuda``)
-is the port's counterpart of ``JAX_PLATFORMS=cpu``: ``--device cpu`` runs
-the plain PyTorch path. Not ported yet: ``video`` (ROADMAP A6),
-``profile`` (A10), ``serve``, ``import`` and ``export``.
+Port of ``denoising_diffusion_deep_fake_tpu/main.py:44-187`` and
+``:272-318`` (the reference's ``d3f`` click group), with ``argparse`` in
+place of ``click`` and the same subcommand and option names. ``--device``
+(default ``cuda``) is the port's counterpart of ``JAX_PLATFORMS=cpu``:
+``--device cpu`` runs the plain PyTorch path. ``serve --devices`` other
+than 1 is refused (replicas are ROADMAP A9). Not ported yet: ``profile``
+(A10), ``import`` and ``export``.
 """
 
 from __future__ import annotations
@@ -83,17 +88,67 @@ def _balance(args):
     fit_balance(cfg, max_steps=args.max_steps, device=args.device)
 
 
+def _video_prep(args):
+    from denoising_diffusion_deep_fake_tpu_torch.data.video import (
+        video_to_center_cropped_images)
+
+    video_to_center_cropped_images(args.video_path, args.output_dir,
+                                   args.width, args.height)
+
+
+def _video_swap(args):
+    from denoising_diffusion_deep_fake_tpu_torch.data.video import (
+        render_fake_video)
+
+    render_fake_video(args.video_path, args.checkpoint_path,
+                      args.model_a_or_b, width=args.width,
+                      height=args.height, output_path=args.output,
+                      batch_size=args.batch_size,
+                      sampler_steps=args.sampler_steps,
+                      transfer=args.transfer, device=args.device)
+
+
+def _serve(args):
+    from denoising_diffusion_deep_fake_tpu_torch.serving.server import (
+        run_server)
+
+    run_server(args.checkpoint_path, args.model_a_or_b, host=args.host,
+               port=args.port, height=args.height, width=args.width,
+               batch_size=args.batch_size, use_ema=args.use_ema,
+               sampler_steps=args.sampler_steps,
+               max_wait_ms=args.max_wait_ms, transfer=args.transfer,
+               devices=args.devices, max_queue_frames=args.max_queue_frames,
+               request_deadline_ms=args.request_deadline_ms,
+               check=args.check, device=args.device)
+
+
+def _frame_options(p) -> None:
+    p.add_argument("--width", type=int, default=448)
+    p.add_argument("--height", type=int, default=448)
+
+
+def _swap_options(p) -> None:
+    p.add_argument("--batch_size", type=int, default=8,
+                   help="Frames swapped per device batch.")
+    p.add_argument("--sampler_steps", type=int, default=0,
+                   help="0 = single-pass parity (default); N>0 = DDIM "
+                   "refinement.")
+    p.add_argument("--transfer", choices=("rgb", "i420"), default="rgb",
+                   help="Host<->device wire format; i420 halves the bytes.")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m denoising_diffusion_deep_fake_tpu_torch.main",
         description="Face-swap-via-denoising training on an NVIDIA GPU.")
     commands = parser.add_subparsers(dest="command", required=True)
 
-    def command(group, name, run, help_text):
+    def command(group, name, run, help_text, *, steps=True):
         p = group.add_parser(name, help=help_text, description=help_text)
         p.set_defaults(run=run)
-        p.add_argument("--max_steps", type=int, default=None,
-                       help="Stop after N optimizer steps (smoke runs).")
+        if steps:
+            p.add_argument("--max_steps", type=int, default=None,
+                           help="Stop after N optimizer steps (smoke runs).")
         p.add_argument("--device", default="cuda",
                        help="cuda (default) or cpu: the plain PyTorch path.")
         return p
@@ -128,6 +183,49 @@ def build_parser() -> argparse.ArgumentParser:
                    help="images.txt manifest to balance.")
     p.add_argument("--output_list", required=True,
                    help="Where to write the difficulty-classed manifest.")
+
+    video = commands.add_parser(
+        "video", help="Dataset prep and face-swap rendering for videos."
+    ).add_subparsers(dest="video_command", required=True)
+    p = command(video, "prep", _video_prep, "Video -> centre-cropped frame "
+                "dataset + images.txt manifest.", steps=False)
+    p.add_argument("video_path")
+    p.add_argument("output_dir")
+    _frame_options(p)
+    p = command(video, "swap", _video_swap, "Render a side-by-side "
+                "real|fake video through a trained checkpoint.", steps=False)
+    p.add_argument("video_path")
+    p.add_argument("checkpoint_path")
+    p.add_argument("model_a_or_b", choices=("a", "b"))
+    _frame_options(p)
+    p.add_argument("--output", default=None, help="Output mp4 path.")
+    _swap_options(p)
+
+    p = command(commands, "serve", _serve, "Long-running face-swap "
+                "inference server (HTTP, micro-batched).", steps=False)
+    p.add_argument("checkpoint_path")
+    p.add_argument("model_a_or_b", choices=("a", "b", "both"))
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    _frame_options(p)
+    _swap_options(p)
+    p.add_argument("--max_wait_ms", type=float, default=5.0,
+                   help="Max time a lone request waits for batch company.")
+    p.add_argument("--use_ema", action="store_true",
+                   help="Swap through the EMA shadow instead of the online "
+                   "model.")
+    p.add_argument("--devices", type=int, default=1,
+                   help="Cards to replicate the engine over; only 1 is "
+                   "ported.")
+    p.add_argument("--max_queue_frames", type=int, default=None,
+                   help="Admission watermark: queued frames beyond this "
+                   "shed with 503 + Retry-After (default 8 batches).")
+    p.add_argument("--request_deadline_ms", type=float, default=None,
+                   help="Per-request deadline (504 when it passes); "
+                   "clients can override it with X-Deadline-Ms.")
+    p.add_argument("--check", action="store_true",
+                   help="Deployment validation: restore, build, one device "
+                   "round trip per engine, print stats JSON, exit.")
     return parser
 
 

@@ -1,6 +1,7 @@
-"""Image normalisation, the TensorBoard panel grid and the centre crop.
+"""Image normalisation, the TensorBoard panel grid, the centre crop and
+the i420 wire format.
 
-Port of ``denoising_diffusion_deep_fake_tpu/ops/image.py:22-122``. Tensors
+Port of ``denoising_diffusion_deep_fake_tpu/ops/image.py:22-233``. Tensors
 are NHWC (or HWC) RGB, as in the JAX package.
 
 * ``normalise_uint8_rgb`` / ``denormalise_to_uint8_rgb``: ``(x - mean*255)
@@ -15,8 +16,16 @@ are NHWC (or HWC) RGB, as in the JAX package.
   last), ``x * 0.5 + 0.5`` clamped to [0, 1], and the uint8 quantisation
   ``(x * 255)`` truncated, as tensorboardX converts.
 * ``center_crop_box`` / ``center_crop``: host-side numpy geometry.
-
-The i420 wire format (JAX ``:135-233``) is not ported yet (ROADMAP A6).
+* the i420 wire format, 4:2:0-packed uint8 ``(B, H*3/2, W)``, half the
+  bytes of RGB: ``rgb_to_i420`` and ``i420_to_rgb`` (BT.601 studio swing,
+  the top-left chroma sample of each 2x2 block, nearest 2x2 chroma
+  upsample), in fp32 one operation at a time and rounded half to even
+  before the uint8 cast, as the JAX package computes them; ``unpack_upload``
+  at the top of a train step; ``pack_rgb_batch_to_i420_np`` and
+  ``unpack_i420_batch_to_rgb_np`` on the host. The JAX package's host
+  functions call cv2; the port's run the same functions on CPU tensors, so
+  the bits do not depend on what a machine has installed (cv2's converters
+  are within 1 LSB of the pack and 2 of the unpack).
 """
 
 from __future__ import annotations
@@ -99,3 +108,84 @@ def center_crop(image: np.ndarray, target_aspect_w: int,
     y0, y1, x0, x1 = center_crop_box(image.shape[0], image.shape[1],
                                      target_aspect_w, target_aspect_h)
     return image[y0:y1, x0:x1]
+
+
+# ------------------------------------------------------------ i420 packing
+
+
+def validate_i420_dims(height: int, width: int) -> None:
+    """Raise for frame sizes the i420 packing cannot carry: the packed
+    layout ravels each (H/2, W/2) chroma plane into quarter-height
+    full-width rows, which needs H % 4 == 0 and W % 2 == 0."""
+    if height % 4 != 0 or width % 2 != 0:
+        raise ValueError(
+            f"I420 transfer needs height % 4 == 0 and width % 2 == 0, got "
+            f"{height}x{width} — round the frame size (e.g. --height/--width) "
+            "to multiples of 4/2 or use transfer='rgb'")
+
+
+def rgb_to_i420(rgb: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) RGB in [0, 255], uint8 or float -> (B, H*3/2, W) uint8
+    i420: the Y plane, then U and V, each (H/2, W/2) raveled into H/4
+    rows of W."""
+    x = rgb.to(torch.float32)
+    b, h, w, _ = x.shape
+    validate_i420_dims(h, w)
+    r, g, bl = x[..., 0], x[..., 1], x[..., 2]
+    y = 16.0 + 0.257 * r + 0.504 * g + 0.098 * bl
+    rs, gs, bs = (c[:, ::2, ::2] for c in (r, g, bl))
+    u = 128.0 - 0.148 * rs - 0.291 * gs + 0.439 * bs
+    v = 128.0 + 0.439 * rs - 0.368 * gs - 0.071 * bs
+    packed = torch.cat([y, u.reshape(b, h // 4, w), v.reshape(b, h // 4, w)],
+                       dim=1)
+    return torch.round(packed).clamp(0, 255).to(torch.uint8)
+
+
+def i420_to_rgb(i420: torch.Tensor) -> torch.Tensor:
+    """(B, H*3/2, W) uint8 i420 -> (B, H, W, 3) fp32 RGB in [0, 255]."""
+    x = i420.to(torch.float32)
+    b, h15, w = x.shape
+    if h15 % 3 != 0:
+        raise ValueError(f"I420 packed height must be H*3/2, got {h15}")
+    h = h15 * 2 // 3
+    validate_i420_dims(h, w)
+    y = x[:, :h]
+    u = x[:, h:h + h // 4].reshape(b, h // 2, w // 2)
+    v = x[:, h + h // 4:].reshape(b, h // 2, w // 2)
+    u = u.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    v = v.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    yc = 1.164 * (y - 16.0)
+    uc, vc = u - 128.0, v - 128.0
+    r = yc + 1.596 * vc
+    g = yc - 0.813 * vc - 0.391 * uc
+    bl = yc + 2.018 * uc
+    return torch.stack([r, g, bl], dim=-1).clamp(0.0, 255.0)
+
+
+def unpack_upload(batch: torch.Tensor, upload_format: str) -> torch.Tensor:
+    """The start of a train step: ``rgb`` batches pass through as uint8,
+    ``i420`` batches become fp32 RGB in [0, 255]; the warp and the
+    normalise take either."""
+    if upload_format == "i420":
+        return i420_to_rgb(batch)
+    return batch
+
+
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor of ``a`` (copied where ``a`` is read-only, as a request
+    body's frames are)."""
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def pack_rgb_batch_to_i420_np(batch: np.ndarray) -> np.ndarray:
+    """Host (B, H, W, 3) RGB uint8 -> (B, H*3/2, W) uint8 i420:
+    ``rgb_to_i420`` on CPU tensors, so bit-equal to it."""
+    return rgb_to_i420(_host_tensor(batch)).numpy()
+
+
+def unpack_i420_batch_to_rgb_np(packed: np.ndarray) -> np.ndarray:
+    """Host (B, H*3/2, W) uint8 i420 -> (B, H, W, 3) RGB uint8: ``i420_to_rgb``
+    on CPU tensors, rounded half to even."""
+    return torch.round(i420_to_rgb(_host_tensor(packed))).to(
+        torch.uint8).numpy()

@@ -18,9 +18,10 @@ padding and the stats are the JAX engine's, unchanged:
   waits longer than that for company.
 
 The dispatcher thread sets its CUDA device and enters inference mode
-itself: both are thread-local in PyTorch. One device and the ``rgb`` wire
-format only: replicas over several devices (ROADMAP A9) and the i420 wire
-format (A6) are not ported and are refused.
+itself: both are thread-local in PyTorch. The device wire format is
+``rgb`` or ``i420`` (4:2:0-packed, half the bytes; ``swap()`` packs and
+unpacks on the request thread). One device only: replicas over several
+devices (ROADMAP A9) are not ported and are refused.
 
 The engine is transport-agnostic; ``serving/server.py`` puts HTTP in front.
 """
@@ -38,6 +39,11 @@ import torch
 from denoising_diffusion_deep_fake_tpu_torch.inference import (
     load_swap_model,
     make_device_pipeline,
+)
+from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+    pack_rgb_batch_to_i420_np,
+    unpack_i420_batch_to_rgb_np,
+    validate_i420_dims,
 )
 
 
@@ -160,10 +166,11 @@ class SwapEngine:
                  seed: int = 0, transfer: str = "rgb", devices: int = 1,
                  max_queue_frames: int | None = None,
                  request_deadline_ms: float | None = None, device=None):
-        if transfer != "rgb":
-            raise ValueError(
-                f"transfer={transfer!r} is not ported: the engine carries "
-                "'rgb' only (the i420 wire format is ROADMAP A6)")
+        if transfer not in ("rgb", "i420"):
+            raise ValueError(f"transfer must be 'rgb' or 'i420', "
+                             f"got {transfer!r}")
+        if transfer == "i420":
+            validate_i420_dims(height, width)
         if devices != 1:
             raise ValueError(
                 f"devices={devices}: the engine serves from one device "
@@ -172,6 +179,7 @@ class SwapEngine:
         self.batch_size = batch_size
         self.max_wait_s = max_wait_ms / 1000.0
         self.identity = identity
+        # Host<->device wire format: "i420" carries half the bytes a frame.
         self.transfer = transfer
         self.model = load_swap_model(checkpoint_path, identity,
                                      use_ema=use_ema, image_size=height,
@@ -220,6 +228,8 @@ class SwapEngine:
     @property
     def wire_frame_shape(self) -> tuple[int, ...]:
         """Per-frame shape in the engine's device wire format."""
+        if self.transfer == "i420":
+            return (self.height * 3 // 2, self.width)
         return (self.height, self.width, 3)
 
     def warmup(self) -> float:
@@ -238,8 +248,10 @@ class SwapEngine:
              deadline_ms: float | None = None) -> np.ndarray:
         """Swap RGB frame(s); blocks until done. Thread-safe.
 
-        ``deadline_ms`` overrides the engine's ``request_deadline_ms``
-        for this call (see ``swap_wire``).
+        With ``transfer="i420"`` the frames are packed and unpacked on THIS
+        (request) thread, so host work spreads over the clients while the
+        device wire carries half the bytes. ``deadline_ms`` overrides the
+        engine's ``request_deadline_ms`` for this call (see ``swap_wire``).
         """
         squeeze = rgb_u8.ndim == 3
         frames = rgb_u8[None] if squeeze else rgb_u8
@@ -247,7 +259,12 @@ class SwapEngine:
         if frames.ndim != 4 or frames.shape[1:] != expected:
             raise ValueError(
                 f"expected frames of shape {expected}, got {rgb_u8.shape}")
-        out = self.swap_wire(frames, deadline_ms=deadline_ms)
+        if self.transfer == "i420":
+            packed = self.swap_wire(pack_rgb_batch_to_i420_np(frames),
+                                    deadline_ms=deadline_ms)
+            out = unpack_i420_batch_to_rgb_np(packed)
+        else:
+            out = self.swap_wire(frames, deadline_ms=deadline_ms)
         return out[0] if squeeze else out
 
     def check_admission(self, n_frames: int) -> None:
@@ -279,7 +296,8 @@ class SwapEngine:
     def swap_wire(self, frames: np.ndarray, *,
                   deadline_ms: float | None = None) -> np.ndarray:
         """Swap a frame stack already in the engine's wire format (see
-        ``wire_frame_shape``).
+        ``wire_frame_shape``): the path without conversions for clients
+        that speak that format (HTTP ``X-Format`` pass-through).
 
         ``deadline_ms`` (default: the engine's ``request_deadline_ms``)
         bounds the WHOLE call: if it elapses before the result is delivered,

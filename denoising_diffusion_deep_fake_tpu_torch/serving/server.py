@@ -11,8 +11,12 @@ Port of ``denoising_diffusion_deep_fake_tpu/serving/server.py``. Endpoints:
 * ``POST /v1/swap_raw``  — body = raw uint8 frame bytes; header ``X-Shape:
                            H,W,3`` or ``N,H,W,3`` (must match the engine's
                            frame shape). Returns raw uint8 of the same
-                           shape. ``X-Format: i420`` is answered 400: the
-                           i420 wire format is not ported (ROADMAP A6).
+                           shape. ``X-Format: i420`` (with ``X-Shape: H,W``
+                           or ``N,H,W``) carries 4:2:0-packed frames, half
+                           the bytes, both ways: passed straight through
+                           when the engine's wire is i420, converted on the
+                           request thread when it is rgb (and the other way
+                           round).
 
 All routes accept ``?identity=a|b`` when the server holds both identities;
 without the parameter the first engine serves the request.
@@ -44,11 +48,25 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+    pack_rgb_batch_to_i420_np,
+    unpack_i420_batch_to_rgb_np,
+    validate_i420_dims,
+)
 from denoising_diffusion_deep_fake_tpu_torch.serving.engine import (
     EngineOverloadedError,
     RequestExpiredError,
     SwapEngine,
 )
+
+
+def _supported_formats(engine: SwapEngine) -> list[str]:
+    """The wire formats the engine's frame geometry can carry."""
+    try:
+        validate_i420_dims(engine.height, engine.width)
+    except ValueError:
+        return ["rgb"]
+    return ["rgb", "i420"]
 
 
 def _make_handler(engines: dict[str, SwapEngine]):
@@ -140,7 +158,12 @@ def _make_handler(engines: dict[str, SwapEngine]):
                 shape = tuple(int(s) for s in shape_hdr.split(","))
             except ValueError:
                 return
-            n = shape[0] if len(shape) == 4 else 1
+            fmt = self.headers.get("X-Format", "rgb").lower()
+            n = 1
+            if fmt == "rgb" and len(shape) == 4:
+                n = shape[0]
+            elif fmt == "i420" and len(shape) == 3:
+                n = shape[0]
             engine.check_admission(max(1, n))
 
         def handle_expect_100(self):
@@ -195,7 +218,7 @@ def _make_handler(engines: dict[str, SwapEngine]):
                     "frame_shape": [engine.height, engine.width, 3],
                     "batch_size": engine.batch_size,
                     "transfer": engine.transfer,
-                    "formats": ["rgb"],
+                    "formats": _supported_formats(engine),
                 })
             elif path == "/v1/stats":
                 self._reply_json(200, engine.stats())
@@ -289,35 +312,67 @@ def _make_handler(engines: dict[str, SwapEngine]):
 
         def _swap_raw(self, engine: SwapEngine):
             fmt = self.headers.get("X-Format", "rgb").lower()
-            if fmt == "i420":
-                raise ValueError("X-Format: i420 is not ported (ROADMAP A6); "
-                                 "send rgb frames")
-            if fmt != "rgb":
-                raise ValueError(f"bad X-Format {fmt!r} (rgb)")
+            if fmt not in ("rgb", "i420"):
+                raise ValueError(f"bad X-Format {fmt!r} (rgb or i420)")
             shape_hdr = self.headers.get("X-Shape")
             if not shape_hdr:
-                raise ValueError("missing X-Shape header (H,W,3 or N,H,W,3)")
+                raise ValueError("missing X-Shape header (H,W,3 or N,H,W,3; "
+                                 "H,W or N,H,W with X-Format: i420)")
             shape = tuple(int(s) for s in shape_hdr.split(","))
-            if len(shape) not in (3, 4) or shape[-1] != 3:
-                raise ValueError(f"bad X-Shape {shape_hdr}")
-            body_shape = (1,) + shape if len(shape) == 3 else shape
+            if fmt == "rgb":
+                if len(shape) not in (3, 4) or shape[-1] != 3:
+                    raise ValueError(f"bad X-Shape {shape_hdr}")
+                n, h, w = ((1,) + shape[:2] if len(shape) == 3
+                           else shape[:3])
+                body_shape = (n, h, w, 3)
+            else:
+                if len(shape) not in (2, 3):
+                    raise ValueError(
+                        f"bad X-Shape {shape_hdr} for i420 (H,W or N,H,W)")
+                n, h, w = (1,) + shape if len(shape) == 2 else shape
+                validate_i420_dims(h, w)
+                body_shape = (n, h * 3 // 2, w)
             body = self._read_body()
             expected = int(np.prod(body_shape))
             if len(body) != expected:
                 raise ValueError(
                     f"body has {len(body)} bytes, shape needs {expected}")
             frames = np.frombuffer(body, np.uint8).reshape(body_shape)
-            fake = engine.swap_wire(
-                frames, deadline_ms=self._remaining_deadline_ms())
-            if len(shape) == 3:
+            fake = self._swap_in_format(engine, frames, fmt,
+                                        self._remaining_deadline_ms())
+            squeeze = len(shape) == (3 if fmt == "rgb" else 2)
+            if squeeze:
                 fake = fake[0]
+            hdr_shape = ",".join(str(d) for d in
+                                 ((fake.shape[:-2] + (h, w)) if fmt == "i420"
+                                  else fake.shape))
             self.send_response(200)
             self.send_header("Content-Type", "application/octet-stream")
-            self.send_header("X-Shape", ",".join(str(d) for d in fake.shape))
+            self.send_header("X-Shape", hdr_shape)
             self.send_header("X-Format", fmt)
             self.send_header("Content-Length", str(fake.nbytes))
             self.end_headers()
             self.wfile.write(fake.tobytes())
+
+        @staticmethod
+        def _swap_in_format(engine: SwapEngine, frames: np.ndarray,
+                            fmt: str,
+                            deadline_ms: float | None = None) -> np.ndarray:
+            """Swap a stack given in wire format ``fmt``; reply in ``fmt``.
+
+            When the client's format is the engine's device wire format the
+            frames pass straight through (no host conversion, half the bytes
+            on both hops for i420); otherwise they are converted on this
+            request thread.
+            """
+            if fmt == engine.transfer:
+                return engine.swap_wire(frames, deadline_ms=deadline_ms)
+            if fmt == "i420":  # i420 client, rgb engine
+                fake = engine.swap(unpack_i420_batch_to_rgb_np(frames),
+                                   deadline_ms=deadline_ms)
+                return pack_rgb_batch_to_i420_np(fake)
+            return engine.swap(frames,  # rgb client, i420 engine
+                               deadline_ms=deadline_ms)
 
     return Handler
 
@@ -393,8 +448,8 @@ def run_server(checkpoint_path, identity: str, *, host: str = "0.0.0.0",
     device round-trip per engine, print each engine's stats JSON, return.
     Nothing listens, so it is safe on a host where the real server (or
     another validation) is already running. The engines run on ``cuda``
-    unless given ``device``; ``transfer`` other than "rgb" and ``devices``
-    other than 1 are refused (ROADMAP A6, A9)."""
+    unless given ``device``; ``devices`` other than 1 is refused (ROADMAP
+    A9)."""
     identities = ["a", "b"] if identity == "both" else [identity]
     engines = {}
     for name in identities:

@@ -14,6 +14,13 @@ the clean normalised batch -> Adam at a constant learning rate. Scoring runs
 the same noise stage, an eval-mode (running-average BN) forward and
 ``l1_difficulty_loss``.
 
+With ``upload_format: i420`` a train batch arrives 4:2:0-packed and is
+unpacked to fp32 RGB first (JAX ``:89-91``); the uint8 kernel cannot read
+that, so the step normalises it (``normalise_batch``'s rounding, JAX
+``:96``) and noises it with the fp32 kernel ``fused_noise_blend``, every
+sample at ``ratio_of_noise``, from the same stream (seed and offset).
+Scoring always reads RGB, as in JAX.
+
 Random streams: the kernel's stream is keyed by ``cfg.seed``; a train step
 draws at offset ``state.step`` and scoring batch ``k`` of epoch ``e`` at
 ``SCORE_STREAM * (e + 1) + k``, a range no train step reaches (the JAX
@@ -40,8 +47,10 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
     normalise_batch,
 )
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.noise_kernel import (
+    fused_noise_blend,
     fused_noise_for_balance,
 )
+from denoising_diffusion_deep_fake_tpu_torch.ops.image import unpack_upload
 from denoising_diffusion_deep_fake_tpu_torch.ops.losses import (
     l1_difficulty_loss,
 )
@@ -57,7 +66,7 @@ from denoising_diffusion_deep_fake_tpu_torch.training.state import (
 
 SCORE_STREAM = 1 << 32
 # data_cache: device is the JAX score_dataset_from_cache path.
-_UNPORTED = ("upload_format", "data_cache", "data_parallel",
+_UNPORTED = ("data_cache", "data_parallel",
              "spatial_parallel", "steps_per_call", "patchify_stem")
 
 
@@ -103,15 +112,22 @@ class BalanceTrainer:
         return create_model_state(self.cfg, self.dtype, self.device, seed)
 
     def _images(self, batch_u8: torch.Tensor, offset: int,
-                noise: torch.Tensor | None):
-        """(clean normalised batch, noisy batch) of a uint8 batch."""
+                noise: torch.Tensor | None, upload_format: str = "rgb"):
+        """(clean normalised batch, noisy batch) of a uint8 batch in
+        ``upload_format``."""
         cfg = self.cfg
-        batch_u8 = batch_u8.to(self.device, non_blocking=True)
-        image = normalise_batch(batch_u8, cfg.mean, cfg.std)
-        if noise is None:
-            noisy = fused_noise_for_balance(batch_u8, cfg.ratio_of_noise,
+        batch = unpack_upload(batch_u8.to(self.device, non_blocking=True),
+                              upload_format)
+        image = normalise_batch(batch, cfg.mean, cfg.std)
+        if noise is None and batch.dtype == torch.uint8:
+            noisy = fused_noise_for_balance(batch, cfg.ratio_of_noise,
                                             cfg.mean, cfg.std, cfg.seed,
                                             offset=offset)
+        elif noise is None:
+            ratios = torch.full((batch.shape[0],), cfg.ratio_of_noise,
+                                dtype=torch.float32, device=self.device)
+            noisy = fused_noise_blend(image, ratios, seed=cfg.seed,
+                                      offset=offset)
         else:
             noisy = blend_fixed_amount_of_noise(
                 image, cfg.ratio_of_noise, noise=noise.to(self.device))
@@ -120,10 +136,12 @@ class BalanceTrainer:
     def train_step(self, state: ModelState, batch_u8: torch.Tensor, *,
                    noise: torch.Tensor | None = None,
                    with_images: bool = False):
-        """One update of ``state`` in place; returns ``{"loss"}`` (a device
-        scalar: reading it waits for the step); ``with_images``,
-        ``(metrics, panels)``."""
-        image, noisy = self._images(batch_u8, state.step, noise)
+        """One update of ``state`` in place from a uint8 batch in the
+        config's ``upload_format``; returns ``{"loss"}`` (a device scalar:
+        reading it waits for the step); ``with_images``, ``(metrics,
+        panels)``."""
+        image, noisy = self._images(batch_u8, state.step, noise,
+                                    self.cfg.upload_format)
         loss, pred = train_one_model(state, noisy, image)
         if with_images:
             return {"loss": loss}, panels(image, noisy, pred)

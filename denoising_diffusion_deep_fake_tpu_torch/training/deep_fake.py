@@ -4,7 +4,8 @@ Port of ``denoising_diffusion_deep_fake_tpu/training/deep_fake.py:64-311``
 (reference: ``d3f/train_deep_fake/lit_module.py``). Two U-Nets, ``a`` and
 ``b``, one per identity. Each step augments both uint8 NHWC batches with
 their own mean and std (albumentations ShiftScaleRotate on the device: the
-CUDA fused warp at 448^2), then:
+CUDA fused warp at 448^2; ``upload_format: i420`` batches are unpacked to
+fp32 RGB first, JAX ``:185-187``), then:
 
 * ``denoise`` mode: each model learns to recover its own augmented image
   from a noised copy (the CUDA fp32 noise kernel);
@@ -53,7 +54,10 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.noise_kernel import (
     fused_noise_blend,
 )
-from denoising_diffusion_deep_fake_tpu_torch.ops.image import panel_grid_u8
+from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+    panel_grid_u8,
+    unpack_upload,
+)
 from denoising_diffusion_deep_fake_tpu_torch.ops.losses import mse_loss
 from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
     blend_noise,
@@ -70,7 +74,7 @@ from denoising_diffusion_deep_fake_tpu_torch.training.state import (
 )
 
 IDENTITIES = ("a", "b")
-_UNPORTED = ("upload_format", "data_cache", "data_parallel",
+_UNPORTED = ("data_cache", "data_parallel",
              "spatial_parallel", "remat", "steps_per_call", "patchify_stem",
              "color_jitter")
 
@@ -165,9 +169,10 @@ class DeepFakeTrainer:
         for name, batch, mean, std in (
                 ("a", batch_a_u8, cfg.mean_a, cfg.std_a),
                 ("b", batch_b_u8, cfg.mean_b, cfg.std_b)):
+            batch = unpack_upload(batch.to(self.device, non_blocking=True),
+                                  cfg.upload_format)
             real[name] = augment_batch(
-                batch.to(self.device, non_blocking=True), mean, std,
-                self.aug, generator=self.generator,
+                batch, mean, std, self.aug, generator=self.generator,
                 params=None if affine_params is None else affine_params[name],
                 method=cfg.warp_method)
 

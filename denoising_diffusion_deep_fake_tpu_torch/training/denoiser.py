@@ -9,6 +9,11 @@ Port of ``denoising_diffusion_deep_fake_tpu/training/denoiser.py:43-158``
     (MSE + 1 - SSIM) / 2 in fp32 -> Adam with the per-epoch cosine learning
     rate.
 
+With ``upload_format: i420`` the batch arrives 4:2:0-packed, ``(B, H*3/2,
+W)`` uint8, and ``unpack_upload`` turns it into fp32 RGB in [0, 255] first
+(JAX ``:85-87``); the warp then reads fp32 and normalises it (at 448^2 the
+fused kernel's fp32 input with the normalise folded in).
+
 The affine params and the noise ratios come from the trainer's seeded
 ``torch.Generator``; the noise itself from the noise kernel's stream keyed
 by ``cfg.seed`` at offset ``state.step`` (the JAX trainer folds the step
@@ -44,7 +49,10 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.noise_kernel import (
     fused_noise_blend,
 )
-from denoising_diffusion_deep_fake_tpu_torch.ops.image import panel_grid_u8
+from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+    panel_grid_u8,
+    unpack_upload,
+)
 from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
     blend_noise,
     sample_truncated_exponential,
@@ -58,7 +66,7 @@ from denoising_diffusion_deep_fake_tpu_torch.training.state import (
     train_one_model,
 )
 
-_UNPORTED = ("upload_format", "data_cache", "data_parallel",
+_UNPORTED = ("data_cache", "data_parallel",
              "spatial_parallel", "remat", "steps_per_call", "patchify_stem",
              "color_jitter")
 
@@ -94,13 +102,15 @@ class DenoiserTrainer:
                    ratios: torch.Tensor | None = None,
                    noise: torch.Tensor | None = None,
                    with_images: bool = False):
-        """One update of ``state`` in place; returns ``{"loss", "lr"}``
-        (the loss as a device scalar: reading it waits for the step);
-        ``with_images``, ``(metrics, panels)``."""
+        """One update of ``state`` in place from a uint8 batch in the
+        config's ``upload_format``; returns ``{"loss", "lr"}`` (the loss as
+        a device scalar: reading it waits for the step); ``with_images``,
+        ``(metrics, panels)``."""
         cfg = self.cfg
-        batch_u8 = batch_u8.to(self.device, non_blocking=True)
-        b = batch_u8.shape[0]
-        image = augment_batch(batch_u8, cfg.mean, cfg.std, self.aug,
+        batch = unpack_upload(batch_u8.to(self.device, non_blocking=True),
+                              cfg.upload_format)
+        b = batch.shape[0]
+        image = augment_batch(batch, cfg.mean, cfg.std, self.aug,
                               generator=self.generator, params=affine_params,
                               method=cfg.warp_method)
         if ratios is None:

@@ -136,7 +136,8 @@ def _run_epochs(ctx: LoopContext, trainer, states, start_epoch: int,
         for epoch in range(start_epoch, cfg.max_epochs):
             ctx.epoch = epoch
             with contextlib.closing(device_prefetch(
-                    epoch_batches(epoch), trainer.device)) as batches:
+                    epoch_batches(epoch), trainer.device,
+                    upload_format=cfg.upload_format)) as batches:
                 done = _drive_epoch(ctx, trainer, states, batches,
                                     step_callback=step_callback,
                                     max_steps=max_steps, verbose=verbose)
@@ -259,6 +260,8 @@ def fit_balance(cfg: BalanceConfig, *, max_steps: int | None = None,
     ctx = LoopContext(cfg, hparams, workload="balance")
 
     def score(epoch: int) -> None:
+        # Scoring uploads RGB whatever upload_format says (JAX
+        # balance.py:89-90).
         indices, losses = trainer.score_dataset(
             state, device_prefetch(val_loader.epoch(0), trainer.device),
             epoch=epoch)

@@ -70,6 +70,7 @@ from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
     read_image_manifest,
     read_image_manifest_with_classes,
 )
+from denoising_diffusion_deep_fake_tpu_torch.ops import image
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.noise_kernel import (
     normal_plain,
 )
@@ -192,6 +193,20 @@ def test_balance_config_validation():
                                   dict(data_cache="device"),
                                   dict(patchify_stem=2)])
 def test_balancer_refuses_unported_knobs(knob):
+    """Each knob without its feature in the port is refused. ``knob0``,
+    ``upload_format: i420``, has been ported since: that case checks that
+    the balancer takes it and trains a step on a packed batch, while its
+    scoring pass reads RGB (parity with JAX:
+    ``tests/test_torch_port_i420.py``)."""
+    if knob == dict(upload_format="i420"):
+        trainer = balance.BalanceTrainer(_cfg(**knob), steps_per_epoch=1,
+                                         image_size=32, device="cpu")
+        state = trainer.init_state(seed=0)
+        rgb = torch.zeros((B, 32, 32, 3), dtype=torch.uint8)
+        loss = trainer.train_step(state, image.rgb_to_i420(rgb))["loss"]
+        _, losses = trainer.score_dataset(state, [(rgb, np.arange(B))])
+        assert torch.isfinite(loss) and np.isfinite(losses).all()
+        return
     with pytest.raises(NotImplementedError):
         balance.BalanceTrainer(_cfg(**knob), steps_per_epoch=1,
                                image_size=S, device="cpu")

@@ -4,8 +4,9 @@
   two-identity dataset, then ``denoise`` and ``balance``, each cut short
   by ``--max_steps``: the checkpoints, counters and manifest each leaves;
 * every option of the JAX package's click commands is an option of the
-  port's subcommand of the same name; ``--device`` defaults to ``cuda``,
-  which raises on a machine without one.
+  port's subcommand of the same name (``video prep|swap`` and ``serve``
+  too: they run in ``tests/test_torch_port_video.py``); ``--device``
+  defaults to ``cuda``, which raises on a machine without one.
 
 32^2, resnet18, batch 2, fp32.
 """
@@ -33,7 +34,8 @@ from helpers import make_image_dataset
 SMALL = dict(batch_size=2, encoder_name="resnet18", compute_dtype="float32",
              image_size=32)
 COMMANDS = [("train", "new"), ("train", "resume"), ("train", "modify"),
-            ("denoise",), ("balance",)]
+            ("denoise",), ("balance",), ("video", "prep"), ("video", "swap"),
+            ("serve",)]
 
 
 @pytest.fixture(autouse=True, scope="module")

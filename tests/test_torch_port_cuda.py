@@ -111,6 +111,53 @@ def test_fused_kernel_float_input_matches_plain(cuda):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("shape", [(2, 64, 64), (16, 448, 448)])
+@pytest.mark.parametrize("norm", [((0.5,) * 3, (0.5,) * 3), IMAGENET])
+def test_fused_kernel_fp32_input_with_norm_matches_plain(cuda, shape, norm):
+    """An i420 upload's route at 448^2: fp32 RGB in [0, 255] from the
+    unpack, normalised inside the fused kernel (``__fdiv_rn``), bit-equal
+    to the plain version's true division, at random params and at the
+    range corners."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+        i420_to_rgb)
+
+    b, h, w = shape
+    packed = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (b, h * 3 // 2, w), np.uint8)).to(cuda)
+    rgb = i420_to_rgb(packed)
+    assert rgb.dtype == torch.float32 and rgb.shape == (b, h, w, 3)
+    _fused_vs_plain(rgb, _params(b, 5, cuda), *norm)
+    _fused_vs_plain(rgb[:4], _fixed_params(EXTREMES[:min(b, 4)], cuda),
+                    *norm)
+
+
+def test_i420_balancer_step_noises_with_the_fp32_kernel(cuda):
+    """Under ``upload_format: i420`` a balancer train step launches the
+    fp32 noise kernel once and the uint8 one not at all; scoring (RGB)
+    launches the uint8 kernel."""
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        BalanceConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
+        rgb_to_i420)
+    from denoising_diffusion_deep_fake_tpu_torch.training.balance import (
+        BalanceTrainer)
+
+    cfg = config_from_dict(BalanceConfig, dict(
+        data_path="x", batch_size=2, encoder_name="resnet18",
+        compute_dtype="float32", image_size=64, upload_format="i420"))
+    trainer = BalanceTrainer(cfg, steps_per_epoch=1, image_size=64,
+                             device=cuda)
+    state = trainer.init_state(seed=0)
+    rgb = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                        device=cuda)
+    LAUNCHES.clear()
+    loss = trainer.train_step(state, rgb_to_i420(rgb))["loss"]
+    assert torch.isfinite(loss).item()
+    assert dict(LAUNCHES) == {"fused_noise_blend": 1}
+    trainer.score_dataset(state, [(rgb, np.arange(2))])
+    assert LAUNCHES["fused_normalise_noise_blend"] == 1
+
+
 def test_fused_kernel_is_one_launch_without_scratch(cuda):
     from torch.profiler import ProfilerActivity, profile
 

@@ -28,6 +28,7 @@
 """
 
 import dataclasses
+import functools
 import http.client
 import json
 import socket
@@ -348,8 +349,20 @@ def swap_checkpoints(weights, tmp_path_factory):
     return tmp / "jax", tmp / "port", port_states
 
 
-@pytest.mark.parametrize("ident,use_ema", [("a", False), ("b", True)])
-def test_pipeline_matches_jax(swap_checkpoints, ident, use_ema):
+@pytest.mark.parametrize("ident,use_ema,transfer,steps", [
+    pytest.param("a", False, "rgb", 0, id="a-False"),
+    pytest.param("b", True, "rgb", 0, id="b-True"),
+    pytest.param("a", False, "i420", 0, id="a-False-i420"),
+    pytest.param("b", True, "i420", 0, id="b-True-i420"),
+    pytest.param("a", False, "i420", 3, id="a-False-i420-ddim3"),
+])
+def test_pipeline_matches_jax(swap_checkpoints, monkeypatch, ident, use_ema,
+                              transfer, steps):
+    """Each framework's pipeline from a checkpoint of the same weights,
+    within 1 LSB (share stated): the uint8 frames, or the packed i420
+    bytes. DDIM gets the noise JAX draws from its key (the port's own
+    comes from the noise kernel's stream), through its ``noise``
+    argument."""
     jax_dir, port_dir, _ = swap_checkpoints
     jax_model = jax_inference.load_swap_model(jax_dir, ident,
                                               use_ema=use_ema)
@@ -360,16 +373,26 @@ def test_pipeline_matches_jax(swap_checkpoints, ident, use_ema):
     assert (port_model.mean, port_model.std) == (jax_model.mean,
                                                  jax_model.std)
     frames = _u8((B, S, S, 3), 7)
-    want = np.asarray(jax_inference.make_device_pipeline(jax_model)(
-        jnp.asarray(frames), jax.random.PRNGKey(0), 0))
-    got = inference.make_device_pipeline(port_model)(
+    if transfer == "i420":
+        frames = image.pack_rgb_batch_to_i420_np(frames)
+    key = jax.random.PRNGKey(0)
+    want = np.asarray(jax_inference.make_device_pipeline(
+        jax_model, sampler_steps=steps, transfer=transfer)(
+        jnp.asarray(frames), key, 0))
+    if steps:
+        noise = torch.from_numpy(np.array(jax.random.normal(
+            jax.random.fold_in(key, 0), (B, S, S, 3), jnp.float32)))
+        monkeypatch.setattr(inference, "swap_refine", functools.partial(
+            sampler.swap_refine, noise=noise))
+    got = inference.make_device_pipeline(
+        port_model, sampler_steps=steps, transfer=transfer)(
         torch.from_numpy(frames), 0).numpy()
     assert got.dtype == np.uint8 and got.shape == frames.shape
     diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
     share = float((diff > 0).mean())
     clamped = float(((want == 0) | (want == 255)).mean())
-    print(f"pipeline {ident} use_ema={use_ema}: differing share "
-          f"{share:.2e}, clamped share {clamped:.2f}")
+    print(f"pipeline {ident} use_ema={use_ema} {transfer} steps={steps}: "
+          f"differing share {share:.2e}, clamped share {clamped:.2f}")
     assert diff.max() <= 1
     assert clamped < 0.1
 
@@ -484,9 +507,24 @@ def test_tf32_off_restores_the_callers_flags():
 
 
 def test_pipeline_refuses_i420(checkpoint):
+    """The i420 transfer has been ported since this refusal: the pipeline
+    takes packed frames, unpacks them to fp32 RGB, normalises, swaps,
+    denormalises and packs the fake (parity with JAX:
+    ``test_pipeline_matches_jax``); an unknown transfer is still
+    refused."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
+        normalise_batch)
+
     model = inference.load_swap_model(checkpoint, "a", device="cpu")
-    with pytest.raises(ValueError, match="A6"):
-        inference.make_device_pipeline(model, transfer="i420")
+    with pytest.raises(ValueError, match="transfer"):
+        inference.make_device_pipeline(model, transfer="yuv")
+    packed = image.rgb_to_i420(torch.from_numpy(_u8((2, SIZE, SIZE, 3),
+                                                    12)))
+    out = inference.make_device_pipeline(model, transfer="i420")(packed, 0)
+    x = normalise_batch(image.i420_to_rgb(packed), model.mean, model.std)
+    want = image.rgb_to_i420(image.denormalise_to_uint8_rgb(
+        model.predict(x), model.mean, model.std))
+    assert out.dtype == torch.uint8 and torch.equal(out, want)
 
 
 def test_ddim_pipeline_keys_noise_by_batch_index(checkpoint):
@@ -658,8 +696,12 @@ def test_engine_rejects_bad_input(engine):
 
 
 def test_engine_refuses_i420_and_replicas(checkpoint):
-    with pytest.raises(ValueError, match="A6"):
-        _engine(checkpoint, transfer="i420")
+    """Replicas are refused. The i420 wire format has been ported since
+    (``tests/test_torch_port_i420.py``); only a geometry it cannot carry is
+    refused now."""
+    with pytest.raises(ValueError, match="height % 4"):
+        SwapEngine(checkpoint, "a", height=30, width=SIZE, transfer="i420",
+                   device="cpu")
     with pytest.raises(ValueError, match="A9"):
         _engine(checkpoint, devices=2)
 
@@ -685,7 +727,7 @@ def test_healthz_and_stats(server):
     assert status == 200
     info = json.loads(data)
     assert info["status"] == "ok" and info["frame_shape"] == [SIZE, SIZE, 3]
-    assert info["formats"] == ["rgb"] and info["transfer"] == "rgb"
+    assert info["formats"] == ["rgb", "i420"] and info["transfer"] == "rgb"
     status, data, _ = _request(server.port, "GET", "/v1/stats")
     stats = json.loads(data)
     assert status == 200 and stats["batches"] >= 1
@@ -711,13 +753,24 @@ def test_swap_raw_roundtrip(server, engine):
 
 
 def test_swap_raw_refuses_i420(server):
+    """``X-Format: i420`` has been ported since this refusal: a packed
+    frame of another size than the engine's is refused (400), one of its
+    size answered with packed frames (the i420 matrix:
+    ``tests/test_torch_port_i420.py``)."""
     status, data, _ = _request(
         server.port, "POST", "/v1/swap_raw", body=b"x" * 24,
         headers={"X-Shape": "4,4", "X-Format": "i420"})
-    assert status == 400 and b"A6" in data
+    assert status == 400 and b"expected frames" in data
     # The connection pool stays usable after the drained 400.
     status, _, _ = _request(server.port, "GET", "/healthz")
     assert status == 200
+    packed = image.rgb_to_i420(torch.from_numpy(_u8((1, SIZE, SIZE, 3),
+                                                    13))).numpy()
+    status, data, headers = _request(
+        server.port, "POST", "/v1/swap_raw", body=packed.tobytes(),
+        headers={"X-Shape": f"{SIZE},{SIZE}", "X-Format": "i420"})
+    assert status == 200 and headers["X-Format"] == "i420"
+    assert len(data) == packed.nbytes
 
 
 def test_swap_encoded_jpeg(server):

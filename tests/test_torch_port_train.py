@@ -29,6 +29,7 @@ from denoising_diffusion_deep_fake_tpu.training.optim import (
 )
 from denoising_diffusion_deep_fake_tpu_torch import config as port_config
 from denoising_diffusion_deep_fake_tpu_torch.device import resolve_device
+from denoising_diffusion_deep_fake_tpu_torch.ops import image
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import warp_kernel
 from denoising_diffusion_deep_fake_tpu_torch.training.deep_fake import (
     DeepFakeTrainer,
@@ -95,7 +96,24 @@ KNOBS = [dict(remat="dots"), dict(steps_per_call=2),
                  else f"{name}-knob{i}")
     for name in TRAINERS for i, knob in enumerate(KNOBS)])
 def test_trainer_refuses_unported_knobs(trainer, knob):
+    """Each knob without its feature in the port is refused. ``knob3``,
+    ``upload_format: i420``, has been ported since: that case checks that
+    the trainer takes it and trains a step on a packed batch (its parity
+    with JAX: ``tests/test_torch_port_i420.py``)."""
     cls, make_cfg = TRAINERS[trainer]
+    if knob == dict(upload_format="i420"):
+        t = cls(make_cfg(**knob), steps_per_epoch=1, image_size=32,
+                device="cpu")
+        packed = image.rgb_to_i420(torch.zeros((2, 32, 32, 3),
+                                               dtype=torch.uint8))
+        if trainer == "denoiser":
+            m = t.train_step(t.init_state(seed=0), packed)
+            losses = [m["loss"]]
+        else:
+            m = t.train_step(t.init_states(seed=0), packed, packed)
+            losses = [m["loss_denoise/train_a"], m["loss_denoise/train_b"]]
+        assert all(torch.isfinite(v) for v in losses)
+        return
     with pytest.raises(NotImplementedError):
         cls(make_cfg(**knob), steps_per_epoch=1, image_size=64, device="cpu")
 
