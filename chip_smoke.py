@@ -106,7 +106,26 @@ Phases, in order; any failure exits non-zero:
    BGR frames into ``write_frame`` (the tail of 4 padded to 8): rgb and
    i420 single-pass and DDIM at 10 steps, 60 side-by-side frames each,
    every fake half bit-equal to its batch's output, one fp32 noise launch
-   a DDIM batch.
+   a DDIM batch;
+12. K train steps as one CUDA graph (``steps_per_call``,
+   training/multi_step.py): (a) both noise kernels' device-offset launch
+   (the form a graph replays) bit-equal to the by-value one, Philox words
+   and whole outputs, at offsets below and above 2^32, both forms
+   graph-timed; (b) at 64^2 x2, resnet18, fp32, cudnn.deterministic, 2
+   replays of a K = 3 graph against 6 eager steps from equal states for
+   the denoiser, the balancer and deep-fake denoise and swap mode (the
+   swap run crossing the EMA warm-up inside a group): every weight, BN
+   buffer, Adam moment and step, shadow, loss, counter and the generator
+   bit-equal, K launches of each kernel a step's a replay; a restored
+   optimizer (denoiser) and the flip to swap mode must each capture a new
+   graph that again matches eager steps; (c) the trainers and states of
+   phases 5, 6, 7, 8b and 8d go on with K = 16 (8 for the deep-fake
+   trainer): the first call (warm-up, capture, first replay), 2 timed
+   groups beside the eager phase's rate, kernels a step and the idle share
+   of one profiled group, peak memory, launches; (d) fit_denoiser from
+   10a's frames with K = 2 (a group and the tail single an epoch, one
+   event row a step); (e) a grouped 64^2 fit_deep_fake resumed from its
+   checkpoint, bit-equal to the uninterrupted grouped run.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Every launch count is the count from the
@@ -735,7 +754,7 @@ def drive(dev, launches, card: str, run: dict, *, warmup: int, steps: int,
     check(all(not torch.equal(b, p.detach())
               for b, p in zip(before, run["probes"]())),
           "params did not change")
-    return dict(run, counts=counts, step_ms=step_ms)
+    return dict(run, counts=counts, step_ms=step_ms, peak_gb=peak_gb)
 
 
 def profile_steps(run: dict, dev, path: Path | None) -> dict:
@@ -793,13 +812,13 @@ def make_balancer(device, **overrides):
 
     # The values of configs/balance.yml at the 448^2 image size of
     # configs/denoise.yml:23.
-    cfg = config_from_dict(BalanceConfig, dict(
+    cfg = config_from_dict(BalanceConfig, dict(dict(
         data_path="synthetic", batch_size=12, learning_rate=0.01,
         max_epochs=200, encoder_name="resnet34", ratio_of_noise=0.7,
         number_of_classes=10, mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5),
-        compute_dtype="bfloat16", image_size=448, seed=SEED, **overrides))
-    return BalanceTrainer(cfg, steps_per_epoch=1000, image_size=448,
-                          device=device)
+        compute_dtype="bfloat16", image_size=448, seed=SEED), **overrides))
+    return BalanceTrainer(cfg, steps_per_epoch=1000,
+                          image_size=cfg.image_size, device=device)
 
 
 def score_and_write(run: dict, dev, launches) -> None:
@@ -2326,6 +2345,381 @@ def render_check(path: Path, dev, launches, card: str,
     return counts[10]
 
 
+# ------------------------------------------------ phase 12: K-step graphs
+
+
+def device_offsets(dev, card: str) -> dict:
+    """Phase 12a: both noise kernels' device-offset launch (the form a
+    train step's CUDA graph replays, reading its offset from the group's
+    table) against the by-value launch at offsets below and above 2^32:
+    the same Philox words and outputs, bit for bit; both forms timed by
+    graph replay. Returns the device-offset form's times."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import (
+        noise_kernel as nk)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.bench_warp_pass \
+        import graph_ms
+
+    rng = np.random.default_rng(SEED + 40)
+    cases = {
+        "fused_normalise_noise_blend": (torch.from_numpy(rng.integers(
+            0, 256, (12, 448, 448, 3), np.uint8)).to(dev),
+            nk.noise_constants(*HALF, 3)),
+        "fused_noise_blend": (torch.from_numpy(rng.standard_normal(
+            (16, 448, 448, 3)).astype(np.float32)).to(dev), None)}
+    ratios = {name: torch.from_numpy(rng.uniform(0, 1, x.shape[0]).astype(
+        np.float32)).to(dev) for name, (x, _) in cases.items()}
+    offsets = (3, 2 ** 32 + 7, 3 * 2 ** 40 + 11)
+    for offset in offsets:
+        at = torch.tensor(offset, dtype=torch.int64, device=dev)
+        check(torch.equal(
+            nk.philox_words(1 << 16, seed=SEED, offset=offset, device=dev),
+            nk.philox_words(1 << 16, seed=SEED, offset=at, device=dev)),
+            f"the Philox words at offset {offset} differ between the forms")
+        for name, (x, norm) in cases.items():
+            by_value, on_device = (torch.empty(x.shape, dtype=torch.float32,
+                                               device=dev) for _ in "ab")
+            nk.launch_blend(x, by_value, ratios[name], norm, seed=SEED,
+                            offset=offset)
+            nk.launch_blend(x, on_device, ratios[name], norm, seed=SEED,
+                            offset=at)
+            check(torch.equal(by_value, on_device),
+                  f"{name}: the device-offset launch at {offset} differs "
+                  "from the by-value launch")
+    times = {}
+    for name, (x, norm) in cases.items():
+        out = torch.empty(x.shape, dtype=torch.float32, device=dev)
+        at = torch.tensor(offsets[1], dtype=torch.int64, device=dev)
+        value_ms = graph_ms(lambda: nk.launch_blend(
+            x, out, ratios[name], norm, seed=SEED, offset=offsets[1]))
+        times[name] = graph_ms(lambda: nk.launch_blend(
+            x, out, ratios[name], norm, seed=SEED, offset=at))
+        log(f"  {name} {tuple(x.shape)}: device-offset form "
+            f"{times[name]:.4f} ms, by-value form {value_ms:.4f} ms (graph "
+            f"replay) [{card}]")
+    log(f"  both kernels: Philox words of 65536 groups and whole outputs "
+        f"bit-equal between the forms at offsets {list(offsets)}")
+    return times
+
+
+def _k_flat(group: list) -> list:
+    """A group's batches in the K-step call's order (grouped by position)."""
+    return [x for pos in zip(*group) for x in pos]
+
+
+def _small_trainers(dev) -> dict:
+    """Phase 12b's cases: 64^2 x2 resnet18 fp32 trainers (the two-pass warp
+    route) with an epoch a step, so that the cosine learning rate changes
+    every step; each ``(make, init, batches a step, launches a step)``."""
+    small = dict(batch_size=2, encoder_name="resnet18",
+                 compute_dtype="float32", image_size=64)
+
+    def epoch_a_step(trainer):
+        trainer.steps_per_epoch = 1
+        return trainer
+
+    return {
+        "denoiser": (lambda: epoch_a_step(make_trainer(
+            dev, encoder="resnet18", batch=2, size=64, dtype="float32")),
+            lambda t: t.init_state(seed=SEED), 1,
+            {"warp_axis_pass": 2, "fused_noise_blend": 1}),
+        "balancer": (lambda: make_balancer(dev, **small),
+                     lambda t: t.init_state(seed=SEED), 1,
+                     {"fused_normalise_noise_blend": 1}),
+        "deep_fake_denoise": (lambda: epoch_a_step(make_deep_fake(
+            dev, **small)), lambda t: t.init_states(seed=SEED), 2,
+            {"warp_axis_pass": 4, "fused_noise_blend": 2}),
+        # ema_update_after_step 2: the decay is 0 for ema_step 0-3 and
+        # above 0 from 4, so the second group crosses the warm-up.
+        "deep_fake_swap": (lambda: epoch_a_step(make_deep_fake(
+            dev, dict(DENOISE_YML, **SWAP_YML), ema_update_after_step=2,
+            **small)), lambda t: t.init_states(seed=SEED), 2,
+            {"warp_axis_pass": 4, "fused_noise_blend": 2}),
+    }
+
+
+def _run_eager(trainer, states, group: list) -> list:
+    return [trainer.train_step(states, *b) for b in group]
+
+
+def _check_same(what: str, trainer, states, eager_trainer, eager_states,
+                groups: list, eager: list) -> None:
+    """Graph against eager: every tensor and counter, the losses step by
+    step, the generator."""
+    bad = states_differ(states, eager_states)
+    check(not bad, f"{what}: the graph's states differ from eager: {bad[:5]}")
+    first = 0
+    for group in groups:
+        k = len(next(iter(group.values())))
+        for key, values in group.items():
+            got = [float(v) for v in values]
+            want = [float(m[key]) for m in eager[first:first + k]]
+            check(got == want, f"{what}: {key} {got} against eager {want}")
+        first += k
+    check(first == len(eager), f"{what}: {first} steps against "
+          f"{len(eager)} eager")
+    if trainer.generator is not None:
+        check(torch.equal(trainer.generator.get_state(),
+                          eager_trainer.generator.get_state()),
+              f"{what}: the generator's state differs from eager")
+
+
+def graph_against_eager(dev, launches) -> dict:
+    """Phase 12b: at 64^2 x2, resnet18, fp32, under cudnn.deterministic, 2
+    replays of a K = 3 graph against 6 eager steps from equal states: every
+    weight, BN buffer, Adam moment and step (on the card), shadow, loss,
+    host counter and the generator bit-equal; the graph's launches 3 x a
+    step's a replay. Then a replaced optimizer (a restore through
+    ``load_state_dict``) and the denoise -> swap flip (a mode change and
+    new shadows) must each capture a new graph, which again matches eager.
+    Returns the launch counts of the two replays by path."""
+    import io
+
+    from denoising_diffusion_deep_fake_tpu_torch.training.optim import (
+        bind_device_lr)
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    rng = np.random.default_rng(SEED + 41)
+    counts = {}
+    try:
+        for what, (make, init, n_args, per_step) in _small_trainers(
+                dev).items():
+            eager_t, graph_t = make(), make()
+            eager_s, graph_s = init(eager_t), init(graph_t)
+            steps = [[torch.from_numpy(rng.integers(
+                0, 256, (2, 64, 64, 3), np.uint8)).to(dev)
+                for _ in range(n_args)] for _ in range(9)]
+            eager = _run_eager(eager_t, eager_s, steps[:6])
+            step = graph_t.make_super_step(3)
+            torch.cuda.synchronize()
+            launches.clear()
+            groups = [step(graph_s, *_k_flat(steps[i:i + 3]))
+                      for i in (0, 3)]
+            torch.cuda.synchronize()
+            counts[f"graph_{what}_64"] = dict(launches)
+            check_launches(counts[f"graph_{what}_64"],
+                           {k: 6 * v for k, v in per_step.items()},
+                           f"12b {what}")
+            check(step.captures == 1, f"{what}: {step.captures} captures")
+            _check_same(what, graph_t, graph_s, eager_t, eager_s, groups,
+                        eager)
+            if what == "denoiser":
+                # A restore replaces Adam's state and learning rates.
+                for t, st in ((eager_t, eager_s), (graph_t, graph_s)):
+                    buf = io.BytesIO()
+                    torch.save(st.optimizer.state_dict(), buf)
+                    buf.seek(0)
+                    st.optimizer.load_state_dict(torch.load(
+                        buf, weights_only=True, map_location="cpu"))
+                    bind_device_lr(st.optimizer)
+                change = "a restored optimizer"
+            elif what == "deep_fake_denoise":
+                for t, st in ((eager_t, eager_s), (graph_t, graph_s)):
+                    t.cfg.mode = "swap"
+                    t.ensure_ema(st)
+                change = "the flip to swap mode (new shadows)"
+            else:
+                log(f"  {what}: 2 replays of K = 3 bit-equal to 6 eager "
+                    "steps (weights, BN buffers, Adam moments and steps, "
+                    "shadows, losses, counters, generator); launches "
+                    f"{counts[f'graph_{what}_64']}")
+                continue
+            eager += _run_eager(eager_t, eager_s, steps[6:])
+            groups.append(step(graph_s, *_k_flat(steps[6:])))
+            check(step.captures == 2,
+                  f"{what}: {change} did not capture a new graph")
+            _check_same(what, graph_t, graph_s, eager_t, eager_s, groups,
+                        eager)
+            log(f"  {what}: 2 replays of K = 3 bit-equal to 6 eager steps "
+                "(weights, BN buffers, Adam moments and steps, shadows, "
+                "losses, counters, generator); launches "
+                f"{counts[f'graph_{what}_64']}; after {change} a new graph "
+                "was captured and a third group matched 3 more eager steps")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    return counts
+
+
+def graph_rate(dev, launches, card: str, what: str, trainer, states,
+               n_args: int, k: int, eager: dict, per_step: dict,
+               groups: int = 2) -> dict:
+    """Phase 12c, one path at full width: one K-step graph captured (the
+    first call: warm-up step, capture, first replay), ``groups`` timed
+    replays, then one group under the profiler; rates beside the eager
+    phase's. Returns the launch counts of the timed groups."""
+    from torch.profiler import ProfilerActivity, profile
+
+    size, batch = trainer.image_size, trainer.cfg.batch_size
+    rng = np.random.default_rng(SEED + 42)
+    flat = _k_flat([[torch.from_numpy(rng.integers(
+        0, 256, (batch, size, size, 3), np.uint8)).to(dev)
+        for _ in range(n_args)] for _ in range(k)])
+    step = trainer.make_super_step(k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step(states, *flat)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches.clear()
+    losses = []
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(groups + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for g in range(groups):
+        losses.append(step(states, *flat))
+        events[g + 1].record()
+    torch.cuda.synchronize()
+    group_ms = (time.perf_counter() - t0) / groups * 1e3
+    counts = dict(launches)
+    device_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(step.captures == 1, f"{what}: {step.captures} captures")
+    check_launches(counts, {key: groups * k * v
+                            for key, v in per_step.items()}, f"12c {what}")
+    values = [float(v) for m in losses for key, vs in m.items()
+              if key != "lr" for v in vs]
+    check(all(math.isfinite(v) for v in values), f"{what}: non-finite loss")
+    # The idle share within one profiled group: its kernels' time against
+    # the device timeline from the group's first launch to its last end.
+    ends = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ends[0].record()
+        step(states, *flat)
+        ends[1].record()
+        torch.cuda.synchronize()
+    span_ms = ends[0].elapsed_time(ends[1])
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    images = batch * n_args
+    step_ms = group_ms / k
+    idle = (f"device idle {1 - busy_ms / span_ms:.1%}" if busy_ms > 0
+            else "the profiler recorded no device time: idle not measured")
+    busy_ms /= k
+    log(f"  {what}, K = {k}: {step_ms:.3f} ms a step (host clock, mean of "
+        f"{groups} groups), {images / step_ms * 1e3:.1f} imgs/s, beside the "
+        f"eager phase's {eager['step_ms']:.3f} ms, "
+        f"{images / eager['step_ms'] * 1e3:.1f} imgs/s; a group on the "
+        f"device timeline {', '.join(f'{t:.3f}' for t in device_ms)} ms; "
+        f"first call (warm-up step, capture, first replay) {first_s:.3f} s; "
+        f"profile of one group ({span_ms:.3f} ms on the device timeline "
+        f"under the profiler): kernels {busy_ms:.3f} ms a step, {idle}; "
+        f"peak memory "
+        f"{peak_gb:.2f} GB (eager phase {eager['peak_gb']:.2f} GB); "
+        f"launches {counts} [{card}]")
+    return counts
+
+
+def graph_full_width(dev, launches, card: str, runs: dict) -> dict:
+    """Phase 12c: the paths of phases 5-8 at full width with their
+    configs' K (``configs/denoiser.yml``'s 16, ``configs/swap.yml``'s 8),
+    each going on from its eager phase's trainer and states (8b's states
+    carry 8c's shadows, which denoise mode leaves alone; 8d's are past the
+    EMA warm-up). Returns the launch counts by path."""
+    fused = {"affine_warp_fused": 1, "fused_noise_blend": 1}
+    paths = (
+        ("graph_denoiser_448", "denoiser 448^2 x16", "denoiser", 1, 16,
+         fused),
+        ("graph_twopass_640", "two-pass route 640^2 x4", "twopass", 1, 16,
+         {"warp_axis_pass": 2, "fused_noise_blend": 1}),
+        ("graph_balancer_448", "balancer 448^2 x12", "balancer", 1, 16,
+         {"fused_normalise_noise_blend": 1}),
+        ("graph_deep_fake_denoise_448", "deep-fake denoise 448^2, 16 per "
+         "identity", "denoise", 2, 8, {k: 2 * v for k, v in fused.items()}),
+        ("graph_deep_fake_swap_448", "deep-fake swap 448^2, 16 per identity",
+         "swap", 2, 8, {k: 2 * v for k, v in fused.items()}))
+    counts = {}
+    for path, what, run, n_args, k, per_step in paths:
+        t0 = time.perf_counter()
+        counts[path] = graph_rate(dev, launches, card, what,
+                                  runs[run]["trainer"], runs[run]["state"],
+                                  n_args, k, runs[run], per_step)
+        log(f"    ({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
+def graph_from_disk(root: Path, data: dict, dev, launches,
+                    card: str) -> dict:
+    """Phase 12d and 12e: the runners with ``steps_per_call``. (d)
+    fit_denoiser at 448^2 x16 from 10a's frames with K = 2: 3 steps an
+    epoch, so a group and a tail single, for 2 epochs; one event row a
+    step. (e) At 64^2 (as 10c), a grouped fit_deep_fake resumed from its
+    checkpoint against the uninterrupted grouped run, bit for bit: the
+    resumed run captures its graph on the restored optimizer state.
+    Returns the launch counts by path."""
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DenoiserConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_deep_fake, fit_denoiser)
+
+    cfg = config_from_dict(DenoiserConfig, dict(
+        input_image_list_path=str(data["a"]), batch_size=16,
+        learning_rate=0.02, max_epochs=2, cosine_scheduler_max_epoch=100,
+        encoder_name="resnet34", noise_exponential_sampling_lambda=5,
+        compute_dtype="bfloat16", image_size=448, seed=SEED,
+        steps_per_call=2, log_images=False,
+        log_dir=str(root / "graph_runs"),
+        checkpoint_dir=str(root / "graph_denoiser")))
+    calls = []
+    t0 = time.perf_counter()
+    (state, _, ctx), counts = fit_counted(
+        fit_denoiser, launches, cfg,
+        step_callback=lambda step, _, m: calls.append(
+            (step, tuple(torch.atleast_1d(m["loss"]).shape))))
+    run_s = time.perf_counter() - t0
+    check(calls == [(2, (2,)), (3, (1,)), (5, (2,)), (6, (1,))]
+          and state.step == 6, f"fit_denoiser K = 2 dispatched {calls}")
+    check_launches(counts, {"affine_warp_fused": 6, "fused_noise_blend": 6},
+                   "12d fit_denoiser")
+    rows = read_event_file(root / "graph_runs" / "denoiser")
+    for tag in ("loss", "lr"):
+        steps = [s for s, t, v in rows if t == tag]
+        check(steps == list(range(6)), f"12d: the {tag} rows are at {steps}")
+    losses = [v for s, t, v in rows if t == "loss"]
+    check(all(math.isfinite(v) for v in losses), f"12d: losses {losses}")
+    log(f"  12d fit_denoiser 448^2 x16, steps_per_call 2, 2 epochs of 3 "
+        f"steps in {run_s:.2f} s: callbacks at {[c[0] for c in calls]} (a "
+        f"group, then the tail single), one event row a step, losses "
+        f"{[round(v, 5) for v in losses]} [{card}]")
+
+    small = {n: write_frames(root / f"graph_small_{n}", 8, 64,
+                             SEED + 30 + i) for i, n in enumerate("ab")}
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        args = dict(batch_size=2, encoder_name="resnet18",
+                    compute_dtype="float32", image_size=64, max_epochs=2,
+                    steps_per_call=2, log_images=False)
+        whole_cfg = deep_fake_cfg(small, root, "graph_whole", **args)
+        (whole, whole_t, _), small_counts = fit_counted(
+            fit_deep_fake, launches, whole_cfg)
+        cfg = deep_fake_cfg(small, root, "graph_resumed", **args)
+        fit_counted(fit_deep_fake, launches, cfg, max_steps=4)
+        (resumed, resumed_t, ctx), _ = fit_counted(
+            fit_deep_fake, launches, cfg, resume_from=cfg.checkpoint_dir)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    check_launches(small_counts, {"warp_axis_pass": 32,
+                                  "fused_noise_blend": 16},
+                   "12e the 64^2 grouped run")
+    bad = states_differ(resumed, whole)
+    check(ctx.global_step == 8 and not bad,
+          f"12e: 1 epoch + resume differs from 2 epochs: {bad[:5]}")
+    check(torch.equal(resumed_t.generator.get_state(),
+                      whole_t.generator.get_state()),
+          "12e: the resumed generator differs")
+    log("  12e 64^2 resnet18 fp32, steps_per_call 2, cudnn.deterministic: "
+        "2 epochs of 4 steps (2 groups each) against 1 epoch + resume: "
+        "every weight, BN buffer, Adam moment and step, counter and the "
+        "generator bit-equal")
+    return {"graph_fit_denoiser_448": counts,
+            "graph_fit_deep_fake_64": small_counts}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", type=Path, default=None,
@@ -2475,12 +2869,33 @@ def main() -> int:
                                                      _build.LAUNCHES, card)
         log(f"  phase 11 took {time.perf_counter() - t11:.1f} s [{card}]")
 
+        t12 = time.perf_counter()
+        log("[12a] K-step graphs: the noise kernels' device-offset launch")
+        offset_ms = device_offsets(dev, card)
+        log("[12b] K-step graphs against eager steps: 64^2 x2, resnet18, "
+            "fp32, K = 3")
+        graph_paths = graph_against_eager(dev, _build.LAUNCHES)
+        log(f"  12a and 12b took {time.perf_counter() - t12:.1f} s")
+        log("[12c] K-step graphs at full width: the denoiser, the 640^2 "
+            "route, the balancer (K = 16), the deep-fake trainer (K = 8)")
+        graph_paths.update(graph_full_width(
+            dev, _build.LAUNCHES, card,
+            {"denoiser": main_run, "twopass": twopass_run,
+             "balancer": balance_run, "denoise": denoise_run,
+             "swap": swap_run}))
+        log("[12d, 12e] the runners with steps_per_call: fit_denoiser "
+            "from 10a's frames, a 64^2 grouped resume")
+        graph_paths.update(graph_from_disk(Path(tmp) / "disk", data, dev,
+                                           _build.LAUNCHES, card))
+        log(f"  phase 12 took {time.perf_counter() - t12:.1f} s [{card}]")
+
     paths = {"denoiser_448": main_run["counts"],
              "twopass_640": twopass_run["counts"],
              "balancer_448": balance_counts,
              "deep_fake_denoise_448": denoise_run["counts"],
              "deep_fake_swap_448": swap_run["counts"],
-             "serve_ddim_448": ddim_counts, **loop_paths, **i420_paths}
+             "serve_ddim_448": ddim_counts, **loop_paths, **i420_paths,
+             **graph_paths}
     first_path = {"affine_warp_fused": "denoiser_448",
                   "warp_axis_pass": "twopass_640",
                   "fused_noise_blend": "denoiser_448",
@@ -2488,10 +2903,13 @@ def main() -> int:
     kernels = []
     for k, (src, tpu, *_) in KERNELS.items():
         by_path = {p: c[k] for p, c in paths.items() if c.get(k)}
+        extra = ({"device_offset_ms": offset_ms[k]} if k in offset_ms
+                 else {})
         kernels.append(dict(
             name=k, route="cuda", source=f"{CSRC}/{src}",
             replaces=f"{REPO}/{tpu}", launches=by_path[first_path[k]],
-            launches_by_path=by_path, library_ms=None, **results[k]))
+            launches_by_path=by_path, library_ms=None, **results[k],
+            **extra))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

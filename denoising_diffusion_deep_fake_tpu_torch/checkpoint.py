@@ -45,6 +45,10 @@ from typing import Callable
 
 import torch
 
+from denoising_diffusion_deep_fake_tpu_torch.training.optim import (
+    bind_device_lr,
+)
+
 PARTS = ("model", "ema_model", "optimizer", "counters")
 SINGLE = "state"
 
@@ -201,8 +205,11 @@ class CheckpointManager:
             if state.has_ema:
                 state.ema_model.load_state_dict(load("ema_model", device))
             # Adam's load_state_dict moves its tensors to the params'
-            # device; the fused kernel's steps stay beside the params.
+            # device; the fused kernel's steps stay beside the params. It
+            # also puts back the saved groups' learning rates, which a CUDA
+            # optimizer holds as device tensors (training/optim.py).
             state.optimizer.load_state_dict(load("optimizer", "cpu"))
+            bind_device_lr(state.optimizer)
             counters = load("counters", "cpu")
             state.step = counters["step"]
             state.ema_step = counters["ema_step"]

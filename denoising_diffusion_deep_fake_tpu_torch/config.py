@@ -61,6 +61,10 @@ class BaseConfig:
     remat: str = "none"
     color_jitter: tuple = (0.0, 0.0, 0.0, 0.0)
     color_jitter_p: float = 1.0
+    # K train steps a call (training/multi_step.py: one CUDA graph replay
+    # on the card). Checkpoint and SIGTERM checks run once a group, so
+    # their response grows by up to K - 1 steps; validate() warns above 64.
+    # Image-panel steps and epoch tails run as single steps.
     steps_per_call: int = 1
     patchify_stem: int = 1
     matmul_precision: str = "auto"
@@ -108,6 +112,13 @@ class BaseConfig:
             raise ValueError(f"unknown remat policy {self.remat!r}")
         if self.steps_per_call < 1:
             raise ValueError("steps_per_call must be >= 1")
+        if self.steps_per_call > 64:
+            warnings.warn(
+                f"steps_per_call={self.steps_per_call}: checkpoint/"
+                "preemption checks run once per dispatched group, so the "
+                "SIGTERM response latency grows by (k-1) steps — make sure "
+                "the group's wall time stays well inside the preemption "
+                "grace window (see config field note)", stacklevel=2)
         if self.patchify_stem < 1:
             raise ValueError("patchify_stem must be >= 1")
         if len(tuple(self.color_jitter)) != 4:

@@ -13,6 +13,7 @@ cv2.getRotationMatrix2D; rotation centre (W/2, H/2) in pixel coordinates.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -139,12 +140,26 @@ def affine_warp(images: torch.Tensor, params: dict[str, torch.Tensor]
 def normalise_batch(batch_uint8: torch.Tensor, mean, std,
                     dtype=torch.float32) -> torch.Tensor:
     """uint8 NHWC -> normalised float: ``(x - mean*255) / (std*255)``."""
-    dev = batch_uint8.device
-    mean = torch.tensor(mean, dtype=torch.float32, device=dev).reshape(
-        1, 1, 1, -1) * 255.0
-    std = torch.tensor(std, dtype=torch.float32, device=dev).reshape(
-        1, 1, 1, -1) * 255.0
+    mean, std = _scaled_stats(_hashable(mean), _hashable(std),
+                              batch_uint8.device)
     return ((batch_uint8.to(torch.float32) - mean) / std).to(dtype)
+
+
+def _hashable(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else v
+
+
+@functools.lru_cache(maxsize=None)
+def _scaled_stats(mean, std, device: torch.device
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``mean*255`` and ``std*255`` in fp32 on ``device``, shaped to
+    broadcast over NHWC, made once per device: a step captured in a CUDA
+    graph may copy nothing from the host."""
+    def scaled(v):
+        return torch.tensor(v, dtype=torch.float32, device=device).reshape(
+            1, 1, 1, -1) * 255.0
+
+    return scaled(mean), scaled(std)
 
 
 def select_warp_method(h: int, w: int) -> str:

@@ -13,12 +13,20 @@ the noise kernels where their plain PyTorch versions do (csrc/noise.cu).
 There is no ``--use_fast_math``: the uint8 normalise is a true division,
 and ``logf`` and ``sincosf`` are the accurate ones.
 
-``LAUNCHES`` counts, per kernel wrapper, the launches made on the GPU.
+``LAUNCHES`` counts, per kernel wrapper, the launches made on the GPU. A
+wrapper adds to it in Python when it launches, which under CUDA-graph
+capture (``training/multi_step.py``) is once at capture and never at the
+replays that run the kernels: ``moved_launches`` takes what a capture
+counts out of ``LAUNCHES`` into the graph's own count, which every replay
+adds back. A capture's warm-up on a throwaway copy of the
+state is set-up, as a comparison with a plain version is: its launches are
+dropped the same way.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -37,6 +45,21 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+@contextlib.contextmanager
+def moved_launches(into: collections.Counter | None = None):
+    """Counts made inside go to ``into`` (dropped when None), not to
+    ``LAUNCHES``."""
+    before = LAUNCHES.copy()
+    try:
+        yield
+    finally:
+        made = LAUNCHES - before
+        LAUNCHES.clear()
+        LAUNCHES.update(before)
+        if into is not None:
+            into.update(made)
 
 
 def _nvcc() -> str:

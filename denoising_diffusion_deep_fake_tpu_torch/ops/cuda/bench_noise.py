@@ -226,12 +226,15 @@ def sass_counts(lib: Path, groups_a_thread: int, elements: dict) -> dict:
             continue
         u8 = "u8" in name
         chans = re.search(r"ILi(\d)E", func)
+        # The train steps' form reads its offset on the device (AT true).
+        at = "Lb1E" in func
         per_group = main_path_count(instrs) / (groups_a_thread if u8 else 1)
         usage = " ".join(" ".join(res[i:i + 2]) for i, ln in enumerate(res)
                          if func in ln)
         issue_ms = (per_group * elements["u8" if u8 else "f32"] / 4 / 32
                     / (SMS * SCHEDULERS * clock_hz) * 1e3)
-        out[name + (f"<{chans.group(1)}>" if chans else "")] = dict(
+        out[name + (f"<{chans.group(1)}>" if chans else "")
+            + (" offset_at" if at else "")] = dict(
             static=len(instrs), main_path_per_group=per_group,
             issue_ms=issue_ms, resources=" ".join(re.findall(
                 r"(?:REG|STACK|SHARED|LOCAL):\d+", usage)))

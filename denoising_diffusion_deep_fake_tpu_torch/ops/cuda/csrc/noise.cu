@@ -56,6 +56,12 @@
 //     channel count C is a template parameter, so i % C is a multiply-high.
 //     The Philox counter stays 64-bit: offsets above 2^32 (the balancer's
 //     scoring stream) keep their high word.
+//
+// The offset comes by value (d3f_noise_blend: scoring, DDIM) or is read by
+// every thread from a device int64 (d3f_noise_blend_at: the train steps, whose
+// offsets sit in a per-step table a CUDA graph replays from). The two forms
+// are one template apart (AT) and draw the same Philox words from the same
+// offset; the by-value form's code is unchanged by the other.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,6 +89,7 @@ struct BlendParams {
   long long per_sample;   // H * W * C
   int vec;                // pointers aligned for one vector access a group
   unsigned long long offset;
+  const long long* offset_at;  // the offset on the device (AT kernels)
   uint32_t k0, k1;        // seed words
   const float* ratios;    // (B,)
   float mean255[MAX_C];
@@ -114,10 +121,18 @@ __device__ __forceinline__ float uniform(uint32_t w) {
   return __fadd_rn(__fmul_rn((float)(w >> 8), TWO_POW_M24), TWO_POW_M25);
 }
 
+// The stream offset of a launch: by value, or read from the device.
+template <bool AT>
+__device__ __forceinline__ unsigned long long stream_offset(
+    const BlendParams& p) {
+  return AT ? (unsigned long long)*p.offset_at : p.offset;
+}
+
 // Four standard normals of group `group`: elements 4 group .. 4 group + 3.
 __device__ __forceinline__ float4 normals4(unsigned long long group,
+                                          unsigned long long offset,
                                           const BlendParams& p) {
-  const uint4 w = philox4x32_10(group, p.offset, p.k0, p.k1);
+  const uint4 w = philox4x32_10(group, offset, p.k0, p.k1);
   const float r01 = __fsqrt_rn(__fmul_rn(-2.0f, logf(uniform(w.x))));
   const float t1 = __fmul_rn(TWO_PI, uniform(w.y));
   const float r23 = __fsqrt_rn(__fmul_rn(-2.0f, logf(uniform(w.z))));
@@ -134,13 +149,14 @@ __device__ __forceinline__ float blend(float x, float eps, float r) {
                    __fmul_rn(__fsqrt_rn(r), eps));
 }
 
+template <bool AT>
 __global__ void __launch_bounds__(THREADS)
 noise_blend_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
                        BlendParams p) {
   const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
   const long long i0 = 4 * g;
   if (i0 >= p.n) return;
-  const float4 e4 = normals4((unsigned long long)g, p);
+  const float4 e4 = normals4((unsigned long long)g, stream_offset<AT>(p), p);
   const float eps[4] = {e4.x, e4.y, e4.z, e4.w};
   const bool full = i0 + 4 <= p.n;
 
@@ -189,7 +205,7 @@ __device__ __noinline__ float2 sample_factors(const float* ratios, uint32_t i,
 
 // out = sqrt(1 - r[b]) * table[c][x] + sqrt(r[b]) * eps over a uint8 batch
 // of C channels; n < 2^31 (the host checks it).
-template <int C>
+template <int C, bool AT>
 __global__ void __launch_bounds__(U8_THREADS, 65536 / (64 * U8_THREADS))
 normalise_noise_blend_u8_kernel(const uint8_t* __restrict__ x,
                                 float* __restrict__ out, BlendParams p) {
@@ -227,12 +243,13 @@ normalise_noise_blend_u8_kernel(const uint8_t* __restrict__ x,
   __syncthreads();
 
   const float keep = __fsqrt_rn(__fsub_rn(1.0f, r)), mix = __fsqrt_rn(r);
+  const unsigned long long offset = stream_offset<AT>(p);
 #pragma unroll
   for (int j = 0; j < U8_GROUPS; ++j) {
     const uint32_t g = g0 + j * U8_THREADS;
     const uint32_t i0 = 4 * g;
     if (i0 >= n) break;
-    const float4 e4 = normals4(g, p);
+    const float4 e4 = normals4(g, offset, p);
     const float eps[4] = {e4.x, e4.y, e4.z, e4.w};
     const int c0 = (int)(i0 % C);
     float o[4];
@@ -254,25 +271,106 @@ normalise_noise_blend_u8_kernel(const uint8_t* __restrict__ x,
   }
 }
 
-template <int C>
+template <int C, bool AT>
 void launch_u8(long long groups, const uint8_t* x, float* out,
                const BlendParams& p, cudaStream_t s) {
   const long long span = (long long)U8_GROUPS * U8_THREADS;
-  normalise_noise_blend_u8_kernel<C>
+  normalise_noise_blend_u8_kernel<C, AT>
       <<<(unsigned)((groups + span - 1) / span), U8_THREADS, 0, s>>>(x, out,
                                                                      p);
 }
 
-// Debug entry: the raw Philox words of groups 0 .. groups - 1.
+// Debug entry: the raw Philox words of groups 0 .. groups - 1, the offset
+// by value or (AT) from the device.
+template <bool AT>
 __global__ void __launch_bounds__(THREADS)
 philox_words_kernel(uint4* __restrict__ out, long long groups,
-                    unsigned long long offset, uint32_t k0, uint32_t k1) {
+                    unsigned long long offset, const long long* offset_at,
+                    uint32_t k0, uint32_t k1) {
   const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (g < groups) out[g] = philox4x32_10((unsigned long long)g, offset, k0, k1);
+  const unsigned long long o =
+      AT ? (unsigned long long)*offset_at : offset;
+  if (g < groups) out[g] = philox4x32_10((unsigned long long)g, o, k0, k1);
 }
 
 unsigned grid_for(long long groups) {
   return (unsigned)((groups + THREADS - 1) / THREADS);
+}
+
+template <bool AT>
+void launch_blend(int in_kind, int chans, long long groups, const void* x,
+                  float* out, const BlendParams& p, cudaStream_t s) {
+  const uint8_t* x8 = static_cast<const uint8_t*>(x);
+  if (in_kind == KIND_U8) {
+    switch (chans) {
+      case 1: launch_u8<1, AT>(groups, x8, out, p, s); break;
+      case 2: launch_u8<2, AT>(groups, x8, out, p, s); break;
+      case 3: launch_u8<3, AT>(groups, x8, out, p, s); break;
+      default: launch_u8<4, AT>(groups, x8, out, p, s); break;
+    }
+  } else {
+    noise_blend_f32_kernel<AT><<<grid_for(groups), THREADS, 0, s>>>(
+        static_cast<const float*>(x), out, p);
+  }
+}
+
+// The checks and launch both entries share; offset_at NULL: by value.
+int noise_blend(int in_kind, const void* x, float* out, long long n,
+                long long per_sample, int chans, const float* ratios,
+                const float* norm, unsigned long long seed,
+                unsigned long long offset, const long long* offset_at,
+                void* stream) {
+  if (n <= 0 || per_sample <= 0 || n % per_sample || chans <= 0 ||
+      per_sample % chans || chans > MAX_C)
+    return (int)cudaErrorInvalidValue;
+  if ((in_kind == KIND_U8) != (norm != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (in_kind != KIND_U8 && in_kind != KIND_F32)
+    return (int)cudaErrorInvalidValue;
+  const long long groups = (n + 3) / 4;
+  if (groups > (long long)THREADS * 0x7FFFFFFFLL ||
+      (in_kind == KIND_U8 && n > U8_MAX_N))
+    return (int)cudaErrorInvalidValue;
+  if (offset_at && (uintptr_t)offset_at % 8)
+    return (int)cudaErrorInvalidValue;
+  BlendParams p;
+  p.n = n;
+  p.per_sample = per_sample;
+  const size_t in_align = in_kind == KIND_U8 ? 4 : 16;
+  p.vec = (uintptr_t)x % in_align == 0 && (uintptr_t)out % 16 == 0;
+  p.offset = offset;
+  p.offset_at = offset_at;
+  p.k0 = (uint32_t)seed;
+  p.k1 = (uint32_t)(seed >> 32);
+  p.ratios = ratios;
+  for (int c = 0; c < MAX_C; ++c) {
+    p.mean255[c] = (norm && c < chans) ? norm[c] : 0.0f;
+    p.std255[c] = (norm && c < chans) ? norm[chans + c] : 1.0f;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (offset_at)
+    launch_blend<true>(in_kind, chans, groups, x, out, p, s);
+  else
+    launch_blend<false>(in_kind, chans, groups, x, out, p, s);
+  return (int)cudaGetLastError();
+}
+
+int philox_words(uint32_t* out, long long groups, unsigned long long seed,
+                 unsigned long long offset, const long long* offset_at,
+                 void* stream) {
+  if (groups <= 0 || groups > (long long)THREADS * 0x7FFFFFFFLL ||
+      (uintptr_t)out % 16 || (offset_at && (uintptr_t)offset_at % 8))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint4* o = reinterpret_cast<uint4*>(out);
+  const uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
+  if (offset_at)
+    philox_words_kernel<true><<<grid_for(groups), THREADS, 0, s>>>(
+        o, groups, 0, offset_at, k0, k1);
+  else
+    philox_words_kernel<false><<<grid_for(groups), THREADS, 0, s>>>(
+        o, groups, offset, nullptr, k0, k1);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -287,56 +385,34 @@ extern "C" int d3f_noise_blend(int in_kind, const void* x, float* out,
                                const float* ratios, const float* norm,
                                unsigned long long seed,
                                unsigned long long offset, void* stream) {
-  if (n <= 0 || per_sample <= 0 || n % per_sample || chans <= 0 ||
-      per_sample % chans || chans > MAX_C)
-    return (int)cudaErrorInvalidValue;
-  if ((in_kind == KIND_U8) != (norm != nullptr))
-    return (int)cudaErrorInvalidValue;
-  const long long groups = (n + 3) / 4;
-  if (groups > (long long)THREADS * 0x7FFFFFFFLL ||
-      (in_kind == KIND_U8 && n > U8_MAX_N))
-    return (int)cudaErrorInvalidValue;
-  BlendParams p;
-  p.n = n;
-  p.per_sample = per_sample;
-  const size_t in_align = in_kind == KIND_U8 ? 4 : 16;
-  p.vec = (uintptr_t)x % in_align == 0 && (uintptr_t)out % 16 == 0;
-  p.offset = offset;
-  p.k0 = (uint32_t)seed;
-  p.k1 = (uint32_t)(seed >> 32);
-  p.ratios = ratios;
-  for (int c = 0; c < MAX_C; ++c) {
-    p.mean255[c] = (norm && c < chans) ? norm[c] : 0.0f;
-    p.std255[c] = (norm && c < chans) ? norm[chans + c] : 1.0f;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* x8 = static_cast<const uint8_t*>(x);
-  if (in_kind == KIND_U8) {
-    switch (chans) {
-      case 1: launch_u8<1>(groups, x8, out, p, s); break;
-      case 2: launch_u8<2>(groups, x8, out, p, s); break;
-      case 3: launch_u8<3>(groups, x8, out, p, s); break;
-      default: launch_u8<4>(groups, x8, out, p, s); break;
-    }
-  } else if (in_kind == KIND_F32) {
-    noise_blend_f32_kernel<<<grid_for(groups), THREADS, 0, s>>>(
-        static_cast<const float*>(x), out, p);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return noise_blend(in_kind, x, out, n, per_sample, chans, ratios, norm,
+                     seed, offset, nullptr, stream);
+}
+
+// The same blend with the offset read by the kernel from `offset_at`, an
+// 8-byte-aligned device int64 (its bits taken as unsigned): a CUDA graph
+// replays the launch with whatever the table holds then.
+extern "C" int d3f_noise_blend_at(int in_kind, const void* x, float* out,
+                                  long long n, long long per_sample,
+                                  int chans, const float* ratios,
+                                  const float* norm, unsigned long long seed,
+                                  const long long* offset_at, void* stream) {
+  if (!offset_at) return (int)cudaErrorInvalidValue;
+  return noise_blend(in_kind, x, out, n, per_sample, chans, ratios, norm,
+                     seed, 0, offset_at, stream);
 }
 
 // The Philox words of groups 0 .. groups - 1 into `out` (4 * groups uint32).
 extern "C" int d3f_philox_words(uint32_t* out, long long groups,
                                 unsigned long long seed,
                                 unsigned long long offset, void* stream) {
-  if (groups <= 0 || groups > (long long)THREADS * 0x7FFFFFFFLL ||
-      (uintptr_t)out % 16)
-    return (int)cudaErrorInvalidValue;
-  philox_words_kernel<<<grid_for(groups), THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<uint4*>(out), groups, offset, (uint32_t)seed,
-      (uint32_t)(seed >> 32));
-  return (int)cudaGetLastError();
+  return philox_words(out, groups, seed, offset, nullptr, stream);
+}
+
+// The same with the offset read from the device int64 `offset_at`.
+extern "C" int d3f_philox_words_at(uint32_t* out, long long groups,
+                                   unsigned long long seed,
+                                   const long long* offset_at, void* stream) {
+  if (!offset_at) return (int)cudaErrorInvalidValue;
+  return philox_words(out, groups, seed, 0, offset_at, stream);
 }

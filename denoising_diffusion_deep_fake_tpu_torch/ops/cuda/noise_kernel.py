@@ -17,6 +17,13 @@ as an argument, so a test can hand both frameworks the same numbers.
 
 The TPU kernel's shape limits (batch a multiple of 8, H*W*C of 256) do not
 carry over: any NHWC shape works, the balancer's batch of 12 included.
+
+The stream ``offset`` is an int, or a one-element int64 tensor on the
+batch's device. A CUDA tensor goes to the kernels' device-offset form, which
+reads it when the kernel runs: a train step inside a CUDA graph
+(``training/multi_step.py``) takes its offset from a table the graph is
+replayed from, where a value passed by launch would be frozen at capture. A
+CPU tensor is read as an int. Both forms draw the same words.
 """
 
 from __future__ import annotations
@@ -84,30 +91,57 @@ def _key(seed: int) -> tuple[int, int]:
     return seed & _MASK32, seed >> 32
 
 
-def philox_words_plain(n_groups: int, *, seed: int, offset: int,
+def _device_offset(offset, device: torch.device) -> torch.Tensor | None:
+    """A tensor offset as the kernels read it (one int64 on ``device``),
+    or None for an int."""
+    if not isinstance(offset, torch.Tensor):
+        return None
+    if (offset.dtype != torch.int64 or offset.numel() != 1
+            or offset.device != device):
+        raise ValueError(f"a tensor offset must be one int64 on {device}, "
+                         f"got {offset.dtype} {tuple(offset.shape)} on "
+                         f"{offset.device}")
+    return offset
+
+
+def _host_offset(offset) -> int:
+    """An int offset, or a CPU tensor's value, modulo 2^64."""
+    return int(offset) & _MASK64
+
+
+def philox_words_plain(n_groups: int, *, seed: int, offset,
                        device) -> torch.Tensor:
     """``(n_groups, 4)`` int64: the words of groups ``0 .. n_groups - 1``."""
     g = torch.arange(n_groups, dtype=torch.int64, device=device)
-    offset = int(offset) & _MASK64
+    offset = _host_offset(offset)
     zeros = torch.zeros_like(g)
     counter = (g & _MASK32, g >> 32, zeros + (offset & _MASK32),
                zeros + (offset >> 32))
     return torch.stack(philox4x32_10(counter, _key(seed)), dim=1)
 
 
-def philox_words(n_groups: int, *, seed: int, offset: int,
+def philox_words(n_groups: int, *, seed: int, offset,
                  device) -> torch.Tensor:
     """The same words from the kernel's generator (a debug entry of
-    ``csrc/noise.cu``) for a CUDA ``device``; the plain version otherwise."""
+    ``csrc/noise.cu``, in the form the offset asks for) for a CUDA
+    ``device``; the plain version otherwise."""
     device = torch.device(device)
     if device.type == "cpu":
         return philox_words_plain(n_groups, seed=seed, offset=offset,
                                   device=device)
     _require_cuda(device)
     out = torch.empty((n_groups, 4), dtype=torch.int32, device=device)
-    err = _noise_lib().d3f_philox_words(
-        out.data_ptr(), n_groups, int(seed) & _MASK64,
-        int(offset) & _MASK64, torch.cuda.current_stream(device).cuda_stream)
+    lib = _noise_lib()
+    at = _device_offset(offset, out.device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if at is None:
+        err = lib.d3f_philox_words(out.data_ptr(), n_groups,
+                                   int(seed) & _MASK64, _host_offset(offset),
+                                   stream)
+    else:
+        err = lib.d3f_philox_words_at(out.data_ptr(), n_groups,
+                                      int(seed) & _MASK64, at.data_ptr(),
+                                      stream)
     if err != 0:
         raise RuntimeError(f"philox words kernel launch failed: CUDA error "
                            f"{err}")
@@ -119,7 +153,7 @@ def uniforms_from_words(words: torch.Tensor) -> torch.Tensor:
     return (words >> 8).to(torch.float32) * 2.0 ** -24 + 2.0 ** -25
 
 
-def normal_plain(n: int, *, seed: int, offset: int, device) -> torch.Tensor:
+def normal_plain(n: int, *, seed: int, offset, device) -> torch.Tensor:
     """``(n,)`` fp32 standard normals of elements ``0 .. n - 1``: Box-Muller
     pairs ``sqrt(-2 ln u0) (cos 2 pi u1, sin 2 pi u1)`` and the same of
     ``(u2, u3)`` for each group of four."""
@@ -139,7 +173,7 @@ def _blend(x: torch.Tensor, eps: torch.Tensor, ratios: torch.Tensor
     return torch.sqrt(1.0 - r) * x + torch.sqrt(r) * eps
 
 
-def _noise_like(x: torch.Tensor, seed: int, offset: int,
+def _noise_like(x: torch.Tensor, seed: int, offset,
                 noise: torch.Tensor | None) -> torch.Tensor:
     if noise is not None:
         return noise.to(torch.float32)
@@ -150,7 +184,7 @@ def _noise_like(x: torch.Tensor, seed: int, offset: int,
 def fused_normalise_noise_blend_plain(batch_u8: torch.Tensor,
                                       ratios: torch.Tensor,
                                       norm: list[float], *, seed: int,
-                                      offset: int = 0,
+                                      offset=0,
                                       noise: torch.Tensor | None = None
                                       ) -> torch.Tensor:
     """Plain version: normalise (a true division), then blend with
@@ -163,7 +197,7 @@ def fused_normalise_noise_blend_plain(batch_u8: torch.Tensor,
 
 
 def fused_noise_blend_plain(x: torch.Tensor, ratios: torch.Tensor, *,
-                            seed: int, offset: int = 0,
+                            seed: int, offset=0,
                             noise: torch.Tensor | None = None
                             ) -> torch.Tensor:
     """Plain version of the fp32 blend."""
@@ -183,6 +217,15 @@ def _noise_lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong,
             ctypes.c_ulonglong, ctypes.c_void_p]
         lib.d3f_philox_words.restype = ctypes.c_int
+        # The device-offset forms: the offset argument is a device pointer.
+        at_args = list(lib.d3f_noise_blend.argtypes)
+        at_args[9] = ctypes.c_void_p
+        lib.d3f_noise_blend_at.argtypes = at_args
+        lib.d3f_noise_blend_at.restype = ctypes.c_int
+        lib.d3f_philox_words_at.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong,
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.d3f_philox_words_at.restype = ctypes.c_int
     return lib
 
 
@@ -193,11 +236,12 @@ def _require_cuda(*devices) -> None:
 
 
 def launch_blend(x: torch.Tensor, out: torch.Tensor, ratios: torch.Tensor,
-                 norm: list[float] | None, *, seed: int,
-                 offset: int) -> None:
+                 norm: list[float] | None, *, seed: int, offset) -> None:
     """Launch one blend of ``csrc/noise.cu`` on the current stream from
     ``x`` (uint8 with ``norm``, at most ``U8_MAX_ELEMENTS`` elements, or
-    fp32 without) into the contiguous fp32 ``out`` of the same shape."""
+    fp32 without) into the contiguous fp32 ``out`` of the same shape; an
+    int ``offset`` by value, a device int64 through the kernels'
+    device-offset form."""
     if x.dim() != 4:
         raise ValueError(f"expected an NHWC batch, got {tuple(x.shape)}")
     b, h, w, c = x.shape
@@ -220,13 +264,16 @@ def launch_blend(x: torch.Tensor, out: torch.Tensor, ratios: torch.Tensor,
                          f"{tuple(ratios.shape)}")
     if norm is not None and len(norm) != 2 * c:
         raise ValueError("norm needs a mean and a std per channel")
+    at = _device_offset(offset, x.device)
     x = x.contiguous()
     r = ratios.to(torch.float32).contiguous()
     c_norm = None if norm is None else (ctypes.c_float * len(norm))(*norm)
-    err = _noise_lib().d3f_noise_blend(
-        kind, x.data_ptr(), out.data_ptr(), x.numel(), h * w * c, c,
-        r.data_ptr(), c_norm, int(seed) & _MASK64, int(offset) & _MASK64,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _noise_lib()
+    fn, off = ((lib.d3f_noise_blend, _host_offset(offset)) if at is None
+               else (lib.d3f_noise_blend_at, at.data_ptr()))
+    err = fn(kind, x.data_ptr(), out.data_ptr(), x.numel(), h * w * c, c,
+             r.data_ptr(), c_norm, int(seed) & _MASK64, off,
+             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"noise blend kernel launch failed: CUDA error "
                            f"{err}")
@@ -234,7 +281,7 @@ def launch_blend(x: torch.Tensor, out: torch.Tensor, ratios: torch.Tensor,
 
 def fused_normalise_noise_blend(batch_u8: torch.Tensor, ratios: torch.Tensor,
                                 mean, std, *, seed: int,
-                                offset: int = 0) -> torch.Tensor:
+                                offset=0) -> torch.Tensor:
     """Fused ``normalise -> + noise`` over a uint8 NHWC batch.
 
     ``ratios``: ``(B,)`` per-sample noise ratios in [0, 1]; ``mean``/``std``
@@ -256,7 +303,7 @@ def fused_normalise_noise_blend(batch_u8: torch.Tensor, ratios: torch.Tensor,
 
 
 def fused_noise_blend(x: torch.Tensor, ratios: torch.Tensor, *, seed: int,
-                      offset: int = 0) -> torch.Tensor:
+                      offset=0) -> torch.Tensor:
     """Fused VP noise blend of a normalised fp32 NHWC batch: the noise stage
     of ``blend_random_amount_of_noise`` with the noise drawn in the kernel
     (the ratios still come from the caller)."""
@@ -271,7 +318,7 @@ def fused_noise_blend(x: torch.Tensor, ratios: torch.Tensor, *, seed: int,
 
 
 def fused_noise_for_balance(batch_u8: torch.Tensor, ratio: float, mean, std,
-                            seed: int, offset: int = 0) -> torch.Tensor:
+                            seed: int, offset=0) -> torch.Tensor:
     """Balance-workload wrapper: one fixed ratio for the whole batch."""
     ratios = torch.full((batch_u8.shape[0],), ratio, dtype=torch.float32,
                         device=batch_u8.device)

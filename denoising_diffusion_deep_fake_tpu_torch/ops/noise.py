@@ -11,6 +11,8 @@ numbers (JAX's and PyTorch's generators differ by design).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -24,8 +26,15 @@ def sample_truncated_exponential(shape, lam: float, *,
     if uniform is None:
         uniform = torch.rand(shape, generator=generator, device=device)
     y = uniform.to(torch.float32)
-    c = torch.exp(torch.tensor(-lam, dtype=torch.float32, device=y.device))
+    c = _exp_neg(lam, y.device)
     return (1.0 / lam) * torch.log(1.0 / (y * (1.0 - c) + c))
+
+
+@functools.lru_cache(maxsize=None)
+def _exp_neg(lam: float, device: torch.device) -> torch.Tensor:
+    """``exp(-lam)`` in fp32 on ``device``, made once per device: a step
+    captured in a CUDA graph may copy nothing from the host."""
+    return torch.exp(torch.tensor(-lam, dtype=torch.float32, device=device))
 
 
 def blend_noise(batch: torch.Tensor, noise: torch.Tensor,

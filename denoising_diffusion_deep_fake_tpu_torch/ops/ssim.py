@@ -37,7 +37,16 @@ def _gaussian_kernel_tuple(window_size: int, sigma: float
 
 def gaussian_kernel(window_size: int = 11, sigma: float = 1.5,
                     device=None) -> torch.Tensor:
-    """Normalised 1-D Gaussian window, as piqa builds it."""
+    """Normalised 1-D Gaussian window, as piqa builds it; made once per
+    device (a step captured in a CUDA graph may copy nothing from the
+    host), so never write to it."""
+    return _gaussian_kernel_on(window_size, sigma, torch.device(
+        device if device is not None else "cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _gaussian_kernel_on(window_size: int, sigma: float,
+                        device: torch.device) -> torch.Tensor:
     return torch.tensor(_gaussian_kernel_tuple(window_size, sigma),
                         dtype=torch.float32, device=device)
 

@@ -31,6 +31,11 @@ a test can feed both frameworks the same numbers; given noise is blended
 with ``blend_fixed_amount_of_noise`` after ``normalise_batch``, as the JAX
 step composes it. ``with_images`` returns the denoiser's panels (JAX
 ``:113-121``).
+
+A train step is ``step_core`` at the offset ``step_scalars`` gives, then
+``advance``; ``make_super_step`` runs K of them a call (``steps_per_call``,
+one CUDA graph on the card: ``training/multi_step.py``), the uint8 (or
+fp32) noise kernel reading its offset on the device.
 """
 
 from __future__ import annotations
@@ -58,16 +63,21 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
     blend_fixed_amount_of_noise,
 )
 from denoising_diffusion_deep_fake_tpu_torch.training.denoiser import panels
+from denoising_diffusion_deep_fake_tpu_torch.training.multi_step import (
+    make_super_step,
+)
 from denoising_diffusion_deep_fake_tpu_torch.training.state import (
     ModelState,
     create_model_state,
+    graph_objects,
+    prepare_for_capture,
     train_one_model,
 )
 
 SCORE_STREAM = 1 << 32
 # data_cache: device is the JAX score_dataset_from_cache path.
 _UNPORTED = ("data_cache", "data_parallel",
-             "spatial_parallel", "steps_per_call", "patchify_stem")
+             "spatial_parallel", "patchify_stem")
 
 
 def compute_difficulty_index(losses: np.ndarray,
@@ -111,10 +121,10 @@ class BalanceTrainer:
         Adam (constant learning rate, as ``lit_module.py:83-88``)."""
         return create_model_state(self.cfg, self.dtype, self.device, seed)
 
-    def _images(self, batch_u8: torch.Tensor, offset: int,
+    def _images(self, batch_u8: torch.Tensor, offset,
                 noise: torch.Tensor | None, upload_format: str = "rgb"):
         """(clean normalised batch, noisy batch) of a uint8 batch in
-        ``upload_format``."""
+        ``upload_format``; ``offset`` an int or a device int64."""
         cfg = self.cfg
         batch = unpack_upload(batch_u8.to(self.device, non_blocking=True),
                               upload_format)
@@ -140,12 +150,40 @@ class BalanceTrainer:
         config's ``upload_format``; returns ``{"loss"}`` (a device scalar:
         reading it waits for the step); ``with_images``, ``(metrics,
         panels)``."""
-        image, noisy = self._images(batch_u8, state.step, noise,
+        out = self.step_core(state, batch_u8, self.step_scalars(state, 0),
+                             None, noise=noise, with_images=with_images)
+        self.advance(state, 1)
+        return out
+
+    @staticmethod
+    def step_scalars(state: ModelState, j: int) -> dict:
+        """The noise offset of the ``j``-th step from now."""
+        return {"offset": state.step + j}
+
+    @staticmethod
+    def advance(state: ModelState, k: int) -> None:
+        state.step += k
+
+    def step_core(self, state: ModelState, batch_u8: torch.Tensor,
+                  scalars: dict, generator=None, *,
+                  noise: torch.Tensor | None = None,
+                  with_images: bool = False):
+        """The update of ``train_step`` at its ``step_scalars``; the host
+        counter is left alone (the balancer draws from no generator)."""
+        image, noisy = self._images(batch_u8, scalars["offset"], noise,
                                     self.cfg.upload_format)
         loss, pred = train_one_model(state, noisy, image)
         if with_images:
             return {"loss": loss}, panels(image, noisy, pred)
         return {"loss": loss}
+
+    def make_super_step(self, k: int):
+        """``step(state, batch_0 .. batch_{k-1})``: K train steps a call
+        (``training/multi_step.py``), the losses a ``(K,)`` tensor."""
+        return make_super_step(
+            self.step_core, k, scalars=self.step_scalars,
+            advance=self.advance, generator=None, device=self.device,
+            identity=graph_objects, prepare=prepare_for_capture)
 
     def make_validation_step(self):
         """Per-batch difficulty scoring: ``(state, batch_u8, *, offset,

@@ -36,6 +36,12 @@ the same numbers; given noise is blended with ``blend_noise``.
 ``with_images`` also returns the TensorBoard panels under the JAX tags
 (``:239-287`` there), each the step's own tensor through ``panel_grid_u8``:
 a uint8 3x3 grid made on the device.
+
+A step is ``step_core`` on the numbers ``step_scalars`` gives from the host
+counters (each model's learning rate and noise offset; in swap mode each
+shadow's ``ema_scalars`` from its ``ema_step``), then ``advance``;
+``make_super_step`` runs K of them a call (``steps_per_call``, one CUDA
+graph on the card: ``training/multi_step.py``).
 """
 
 from __future__ import annotations
@@ -63,20 +69,27 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
     blend_noise,
     sample_truncated_exponential,
 )
-from denoising_diffusion_deep_fake_tpu_torch.training.ema import EmaConfig
+from denoising_diffusion_deep_fake_tpu_torch.training.ema import (
+    EmaConfig,
+    ema_scalars,
+)
+from denoising_diffusion_deep_fake_tpu_torch.training.multi_step import (
+    make_super_step,
+)
 from denoising_diffusion_deep_fake_tpu_torch.training.optim import (
     learning_rate_at,
 )
 from denoising_diffusion_deep_fake_tpu_torch.training.state import (
     ModelState,
     create_model_state,
+    graph_objects,
+    prepare_for_capture,
     train_one_model,
 )
 
 IDENTITIES = ("a", "b")
 _UNPORTED = ("data_cache", "data_parallel",
-             "spatial_parallel", "remat", "steps_per_call", "patchify_stem",
-             "color_jitter")
+             "spatial_parallel", "remat", "patchify_stem", "color_jitter")
 
 
 def noise_offset(step: int, name: str) -> int:
@@ -139,17 +152,17 @@ class DeepFakeTrainer:
         with torch.no_grad():
             return state.ema_model(x)
 
-    def _noisy(self, x: torch.Tensor, name: str, step: int, ratios,
-               noise) -> torch.Tensor:
+    def _noisy(self, x: torch.Tensor, name: str, offset, ratios, noise,
+               generator: torch.Generator) -> torch.Tensor:
         b = x.shape[0]
         r = (ratios[name] if ratios is not None else
              sample_truncated_exponential(
                  (b, 1, 1, 1), self.cfg.noise_exponential_sampling_lambda,
-                 generator=self.generator, device=self.device))
+                 generator=generator, device=self.device))
         r = r.to(self.device)
         if noise is None:
             return fused_noise_blend(x, r.reshape(b), seed=self.cfg.seed,
-                                     offset=noise_offset(step, name))
+                                     offset=offset)
         return blend_noise(x, noise[name].to(self.device),
                            r.reshape(b, 1, 1, 1))
 
@@ -163,8 +176,53 @@ class DeepFakeTrainer:
         ``lr`` and the losses (device scalars) under the JAX metric names;
         ``with_images``, ``(metrics, panels)`` with the uint8 panels under
         the JAX image tags."""
+        scalars = self.step_scalars(states, 0)
+        out = self.step_core(states, batch_a_u8, batch_b_u8, scalars,
+                             self.generator, affine_params=affine_params,
+                             ratios=ratios, noise=noise,
+                             with_images=with_images)
+        self.advance(states, 1)
+        metrics = {"lr": scalars["lr"], **(out[0] if with_images else out)}
+        return (metrics, out[1]) if with_images else metrics
+
+    def step_scalars(self, states: dict[str, ModelState], j: int) -> dict:
+        """The numbers of the ``j``-th step from now: ``lr`` (model a's, the
+        logged one) and ``lr_b``, ``offset_a`` and ``offset_b`` (both from
+        a's step), and in swap mode each shadow's ``ema_scalars`` under
+        ``<name>_<identity>``."""
         cfg = self.cfg
-        step = states["a"].step
+        step = states["a"].step + j
+
+        def lr(name):
+            return learning_rate_at(states[name].step + j, cfg.learning_rate,
+                                    cosine_t_max=cfg.cosine_t_max,
+                                    steps_per_epoch=self.steps_per_epoch)
+
+        out = {"lr": lr("a"), "lr_b": lr("b")}
+        out.update({f"offset_{name}": noise_offset(step, name)
+                    for name in IDENTITIES})
+        if cfg.mode == "swap":
+            for name in IDENTITIES:
+                out.update({f"{k}_{name}": v for k, v in ema_scalars(
+                    states[name].ema_step + j, self.ema_cfg).items()})
+        return out
+
+    def advance(self, states: dict[str, ModelState], k: int) -> None:
+        for state in states.values():
+            state.step += k
+            if self.cfg.mode == "swap":
+                state.ema_step += k
+
+    def step_core(self, states: dict[str, ModelState],
+                  batch_a_u8: torch.Tensor, batch_b_u8: torch.Tensor,
+                  scalars: dict, generator: torch.Generator, *,
+                  affine_params: dict | None = None,
+                  ratios: dict | None = None, noise: dict | None = None,
+                  with_images: bool = False):
+        """The update of ``train_step`` with its ``step_scalars`` and draws
+        from ``generator``; the host counters are left alone. Returns the
+        losses (and the panels ``with_images``)."""
+        cfg = self.cfg
         real = {}
         for name, batch, mean, std in (
                 ("a", batch_a_u8, cfg.mean_a, cfg.std_a),
@@ -172,18 +230,19 @@ class DeepFakeTrainer:
             batch = unpack_upload(batch.to(self.device, non_blocking=True),
                                   cfg.upload_format)
             real[name] = augment_batch(
-                batch, mean, std, self.aug, generator=self.generator,
+                batch, mean, std, self.aug, generator=generator,
                 params=None if affine_params is None else affine_params[name],
                 method=cfg.warp_method)
 
-        metrics = {"lr": learning_rate_at(
-            step, cfg.learning_rate, cosine_t_max=cfg.cosine_t_max,
-            steps_per_epoch=self.steps_per_epoch)}
-        panels = {}
+        lrs = {"a": scalars["lr"], "b": scalars["lr_b"]}
+        metrics, panels = {}, {}
         if cfg.mode == "denoise":
             for name in IDENTITIES:
-                noisy = self._noisy(real[name], name, step, ratios, noise)
-                loss, pred = self._update(states[name], noisy, real[name])
+                noisy = self._noisy(real[name], name,
+                                    scalars[f"offset_{name}"], ratios, noise,
+                                    generator)
+                loss, pred = train_one_model(states[name], noisy, real[name],
+                                             lrs[name])
                 metrics[f"loss_denoise/train_{name}"] = loss
                 if with_images:
                     panels[f"denoise_1_model_input/{name}"] = (
@@ -194,12 +253,17 @@ class DeepFakeTrainer:
             # Swap: a learns from b's shadow's fakes, then b from a's
             # shadow's, each shadow updated just before it makes its fake.
             for name, other in (("a", "b"), ("b", "a")):
-                states[other].update_ema(self.ema_cfg)
+                states[other].blend_ema({
+                    k: scalars[f"{k}_{other}"]
+                    for k in ("decay", "weight", "gate")
+                    if f"{k}_{other}" in scalars})
                 fake = self._ema_forward(states[other], real[name])
                 metrics[f"swap_difference/{name}"] = mse_loss(real[name],
                                                               fake)
-                noisy = self._noisy(fake, name, step, ratios, noise)
-                loss, pred = self._update(states[name], noisy, real[name])
+                noisy = self._noisy(fake, name, scalars[f"offset_{name}"],
+                                    ratios, noise, generator)
+                loss, pred = train_one_model(states[name], noisy, real[name],
+                                             lrs[name])
                 metrics[f"loss_swap/train_{name}"] = loss
                 if with_images:
                     panels.update({
@@ -210,12 +274,16 @@ class DeepFakeTrainer:
                             pred)})
         return (metrics, panels) if with_images else metrics
 
-    def _update(self, state: ModelState, noisy: torch.Tensor,
-                target: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        lr = learning_rate_at(state.step, self.cfg.learning_rate,
-                              cosine_t_max=self.cfg.cosine_t_max,
-                              steps_per_epoch=self.steps_per_epoch)
-        return train_one_model(state, noisy, target, lr)
+    def make_super_step(self, k: int):
+        """``step(states, a_0 .. a_{k-1}, b_0 .. b_{k-1})``: K steps a call
+        (``training/multi_step.py``), captured anew when the mode changes;
+        the losses ``(K,)`` tensors and ``lr`` a list."""
+        return make_super_step(
+            self.step_core, k, scalars=self.step_scalars,
+            advance=self.advance, generator=self.generator,
+            device=self.device, n_batch_args=2, host_metrics=("lr",),
+            identity=graph_objects, prepare=prepare_for_capture,
+            key=lambda states: self.cfg.mode)
 
     # -------------------------------------------------------------- inference
 

@@ -25,6 +25,11 @@ the JAX tags (``image``, ``image_noisy``, ``image_prediction``; JAX
 ``:139-148``), each a uint8 3x3 grid made on the device by
 ``panel_grid_u8``.
 
+A step is ``step_core`` on the numbers ``step_scalars`` gives from the
+host step counter (the learning rate, the noise offset), then ``advance``;
+``make_super_step`` runs K of them a call (``steps_per_call``, one CUDA
+graph on the card: ``training/multi_step.py``).
+
 On the GPU the U-Net weights and activations are ``channels_last``: the
 warp writes NHWC and the model takes its NCHW view as it is. cuDNN's TF32
 is turned off (``torch.backends.cudnn.allow_tf32 = False``, a process-wide
@@ -57,18 +62,22 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
     blend_noise,
     sample_truncated_exponential,
 )
+from denoising_diffusion_deep_fake_tpu_torch.training.multi_step import (
+    make_super_step,
+)
 from denoising_diffusion_deep_fake_tpu_torch.training.optim import (
     learning_rate_at,
 )
 from denoising_diffusion_deep_fake_tpu_torch.training.state import (
     ModelState,
     create_model_state,
+    graph_objects,
+    prepare_for_capture,
     train_one_model,
 )
 
 _UNPORTED = ("data_cache", "data_parallel",
-             "spatial_parallel", "remat", "steps_per_call", "patchify_stem",
-             "color_jitter")
+             "spatial_parallel", "remat", "patchify_stem", "color_jitter")
 
 
 class DenoiserTrainer:
@@ -106,30 +115,68 @@ class DenoiserTrainer:
         config's ``upload_format``; returns ``{"loss", "lr"}`` (the loss as
         a device scalar: reading it waits for the step); ``with_images``,
         ``(metrics, panels)``."""
+        scalars = self.step_scalars(state, 0)
+        out = self.step_core(state, batch_u8, scalars, self.generator,
+                             affine_params=affine_params, ratios=ratios,
+                             noise=noise, with_images=with_images)
+        self.advance(state, 1)
+        metrics = out[0] if with_images else out
+        metrics["lr"] = scalars["lr"]
+        return out
+
+    def step_scalars(self, state: ModelState, j: int) -> dict:
+        """The learning rate and noise offset of the ``j``-th step from
+        now."""
+        step = state.step + j
+        return {"lr": learning_rate_at(step, self.cfg.learning_rate,
+                                       cosine_t_max=self.cfg.cosine_t_max,
+                                       steps_per_epoch=self.steps_per_epoch),
+                "offset": step}
+
+    @staticmethod
+    def advance(state: ModelState, k: int) -> None:
+        state.step += k
+
+    def step_core(self, state: ModelState, batch_u8: torch.Tensor,
+                  scalars: dict, generator: torch.Generator, *,
+                  affine_params: dict | None = None,
+                  ratios: torch.Tensor | None = None,
+                  noise: torch.Tensor | None = None,
+                  with_images: bool = False):
+        """The update of ``train_step`` with its ``step_scalars`` and draws
+        from ``generator``; the host counter is left alone. Returns
+        ``{"loss"}`` (and the panels ``with_images``)."""
         cfg = self.cfg
         batch = unpack_upload(batch_u8.to(self.device, non_blocking=True),
                               cfg.upload_format)
         b = batch.shape[0]
         image = augment_batch(batch, cfg.mean, cfg.std, self.aug,
-                              generator=self.generator, params=affine_params,
+                              generator=generator, params=affine_params,
                               method=cfg.warp_method)
         if ratios is None:
             ratios = sample_truncated_exponential(
                 (b, 1, 1, 1), cfg.noise_exponential_sampling_lambda,
-                generator=self.generator, device=self.device)
+                generator=generator, device=self.device)
         if noise is None:
             noisy = fused_noise_blend(image, ratios.reshape(b), seed=cfg.seed,
-                                      offset=state.step)
+                                      offset=scalars["offset"])
         else:
             noisy = blend_noise(image, noise, ratios.reshape(b, 1, 1, 1))
-        lr = learning_rate_at(state.step, cfg.learning_rate,
-                              cosine_t_max=cfg.cosine_t_max,
-                              steps_per_epoch=self.steps_per_epoch)
-        loss, pred = train_one_model(state, noisy, image, lr)
-        metrics = {"loss": loss, "lr": lr}
+        loss, pred = train_one_model(state, noisy, image, scalars["lr"])
+        metrics = {"loss": loss}
         if with_images:
             return metrics, panels(image, noisy, pred)
         return metrics
+
+    def make_super_step(self, k: int):
+        """``step(state, batch_0 .. batch_{k-1})``: K steps a call
+        (``training/multi_step.py``); metrics ``(K,)`` tensors and ``lr`` a
+        list."""
+        return make_super_step(
+            self.step_core, k, scalars=self.step_scalars,
+            advance=self.advance, generator=self.generator,
+            device=self.device, host_metrics=("lr",), identity=graph_objects,
+            prepare=prepare_for_capture)
 
     def make_denoise_fn(self):
         """Eval-mode forward (running-average BN), NHWC in and out."""

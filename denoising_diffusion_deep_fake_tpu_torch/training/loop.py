@@ -3,11 +3,15 @@
 Port of ``denoising_diffusion_deep_fake_tpu/training/loop.py:29-422``, the
 parts of ``pl.Trainer`` the reference leaned on, on one process:
 
-* metrics are queued as device scalars; a worker thread fetches the whole
-  backlog with one ``torch.stack(...).cpu()`` (which waits only for the
-  steps that made them: the stack runs on the default stream behind
-  them), NaN-guards every value and writes TensorBoard rows on the
-  ``log_every_n_steps`` cadence; image panels ride the same queue;
+* metrics are queued as device scalars, or for a K-step group
+  (``log_step(..., n_steps=K)``, ``training/multi_step.py``) as ``(K,)``
+  tensors and lists of K numbers; a worker thread fetches the whole
+  backlog with one ``torch.cat(...).cpu()`` (which waits only for the
+  steps that made them: it runs on the default stream behind them),
+  NaN-guards every value, a group's at each of its steps, and writes one
+  TensorBoard row a step on the ``log_every_n_steps`` cadence; image
+  panels ride the same queue. The worker goes on while a K-step graph is
+  captured: the capture is thread-local (see ``training/multi_step.py``);
 * ``maybe_checkpoint`` saves on the ``checkpoint_every_hours`` cadence
   without blocking, at an epoch's end (``force``) at most once every
   ``last_checkpoint_min_interval_s``, and at the end (``final``), blocking;
@@ -124,15 +128,18 @@ class LoopContext:
 
     def log_step(self, metrics: dict[str, Any],
                  images: dict[str, Any] | None = None,
-                 states=None, generator=None) -> None:
-        """Queue one step's metrics (device scalars or numbers) and panels;
-        first raise a divergence the worker found in an earlier step."""
+                 states=None, generator=None, *, n_steps: int = 1) -> None:
+        """Queue one step's metrics (device scalars or numbers) and panels,
+        or a K-step group's (``n_steps=K``: ``(K,)`` tensors or lists, the
+        rows of steps ``global_step .. global_step + K - 1``); first raise a
+        divergence the worker found in an earlier step."""
         self._raise_if_diverged(states, generator)
         step = self.global_step
-        due = step % self.cfg.log_every_n_steps == 0
+        every = self.cfg.log_every_n_steps
+        due = any((step + j) % every == 0 for j in range(n_steps))
         if due or images:
             self._metric_q.put((step, float(self.epoch),
-                                metrics if due else None, images))
+                                metrics if due else None, images, n_steps))
 
     # -------------------------------------------------- async scalar worker
 
@@ -166,15 +173,23 @@ class LoopContext:
                 return
 
     def _log_metric_items(self, items: list) -> None:
-        scalar_items = [(s, e, m) for s, e, m, _ in items if m is not None]
-        fetched_all = fetch_scalars([m for _, _, m in scalar_items])
-        for (step, epoch, _), row in zip(scalar_items, fetched_all):
-            bad = [k for k, v in row.items() if not math.isfinite(v)]
-            if bad:
-                self._diverged = [step, bad]
-                return  # skip logging this and later queued steps
-            self.tb.log_scalars(dict(row, epoch=epoch), step)
-        for step, _, _, images in items:
+        scalar_items = [(s, e, m, n) for s, e, m, _, n in items
+                        if m is not None]
+        fetched_all = fetch_scalars([m for _, _, m, _ in scalar_items])
+        every = self.cfg.log_every_n_steps
+        for (step, epoch, _, n), fetched in zip(scalar_items, fetched_all):
+            # Every value is NaN-guarded, a group's steps off the logging
+            # cadence too, so a divergence is reported at its true step.
+            for j in range(n):
+                row = {k: v[j] if len(v) > 1 else v[0]
+                       for k, v in fetched.items()}
+                bad = [k for k, v in row.items() if not math.isfinite(v)]
+                if bad:
+                    self._diverged = [step + j, bad]
+                    return  # skip logging this and later queued steps
+                if (step + j) % every == 0:
+                    self.tb.log_scalars(dict(row, epoch=epoch), step + j)
+        for step, _, _, images, _ in items:
             for tag, grid in (images or {}).items():
                 self.tb.log_batch_as_image_grid(tag, grid, step)
 
@@ -247,17 +262,25 @@ class LoopContext:
 
 
 def fetch_scalars(metric_dicts: list[dict[str, Any]]
-                  ) -> list[dict[str, float]]:
-    """Many dicts of device scalars (or numbers) as floats, the tensors of
-    each device fetched with one ``torch.stack(...).cpu()``."""
+                  ) -> list[dict[str, list[float]]]:
+    """Many dicts of metrics as lists of floats: a device scalar or number
+    gives one, a ``(K,)`` tensor or a list of K numbers (a K-step group's)
+    K; the tensors of each device are fetched with one
+    ``torch.cat(...).cpu()``."""
     by_device: dict[torch.device, list[torch.Tensor]] = {}
     for m in metric_dicts:
         for v in m.values():
             if isinstance(v, torch.Tensor):
                 by_device.setdefault(v.device, []).append(
-                    v.detach().reshape(()).to(torch.float32))
-    fetched = {dev: iter(torch.stack(ts).cpu().tolist())
+                    v.detach().reshape(-1).to(torch.float32))
+    fetched = {dev: iter(torch.cat(ts).cpu().tolist())
                for dev, ts in by_device.items()}
-    return [{k: (next(fetched[v.device]) if isinstance(v, torch.Tensor)
-                 else float(v)) for k, v in m.items()}
-            for m in metric_dicts]
+
+    def values(v) -> list[float]:
+        if isinstance(v, torch.Tensor):
+            return [next(fetched[v.device]) for _ in range(v.numel())]
+        if isinstance(v, (list, tuple)):
+            return [float(x) for x in v]
+        return [float(v)]
+
+    return [{k: values(v) for k, v in m.items()} for m in metric_dicts]

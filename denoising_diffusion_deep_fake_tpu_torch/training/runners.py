@@ -17,14 +17,23 @@ checkpoints to ``training/loop.py``. Each runs on ``device`` (``cuda``
 when None; it raises without one) and decodes with ``decode_fn``
 (``cv2`` when None).
 
+With ``steps_per_call: K > 1``, ``_drive_epoch`` groups steps as JAX's
+(``runners.py:159-230`` there): K consecutive steps run as one call of the
+trainer's ``make_super_step`` (one CUDA graph replay on the card,
+``training/multi_step.py``) whenever no image panel is due, nothing is
+buffered and a whole group fits before ``max_steps``; image steps, epoch
+tails and ``max_steps`` remainders run as single steps. ``step_callback``,
+the checkpoint check and the preemption check run once a group, the loop
+fans the group's metrics out to one row a step.
+
 Resume, as JAX's: the checkpoint's own ``mode`` decides whether shadows are
 built before the restore; training starts at the epoch after the saved one,
 at the saved ``global_step``, with the trainer's generator restored.
 ``modify`` keeps the weights, BN buffers and shadows, gives fresh
 optimizers and steps, and attaches shadows in swap mode (``ensure_ema``).
 
-Left out: the K-step superstep (ROADMAP A4) and the device-resident
-dataset (A7); the trainers refuse their knobs.
+Left out: the device-resident dataset (``data_cache: device``, ROADMAP
+A7), and with it JAX's cached superstep; the trainers refuse the knob.
 """
 
 from __future__ import annotations
@@ -80,31 +89,82 @@ def _steps_per_epoch(cfg, loader) -> int:
             else loader.batches_per_epoch)
 
 
-def _drive_epoch(ctx: LoopContext, trainer, states, batches, *,
-                 step_callback, max_steps, verbose) -> bool:
-    """One epoch's batches through ``trainer.train_step``, in place on
-    ``states``; True when training is to stop (``max_steps`` reached, or
-    SIGTERM)."""
-    generator = trainer.generator
-    for step_args in batches:
-        if ctx.want_images():
-            metrics, images = trainer.train_step(states, *step_args,
-                                                 with_images=True)
+class _StepSet:
+    """The calls one workload loop drives: a step, a step with panels and,
+    with ``steps_per_call`` K > 1, the trainer's K-step call (made once, so
+    its graph is captured once a run)."""
+
+    def __init__(self, trainer, k: int):
+        self.trainer = trainer
+        self.k = k
+        self.super = trainer.make_super_step(k) if k > 1 else None
+
+    def plain(self, states, *step_args):
+        return self.trainer.train_step(states, *step_args)
+
+    def img(self, states, *step_args):
+        return self.trainer.train_step(states, *step_args, with_images=True)
+
+
+def _drive_epoch(ctx: LoopContext, states, generator, batches,
+                 steps: _StepSet, *, step_callback, max_steps,
+                 verbose) -> bool:
+    """One epoch's batches through the step calls, in place on ``states``;
+    True when training is to stop (``max_steps`` reached, or SIGTERM).
+    Groups of ``steps.k`` as JAX's ``_drive_epoch`` (the module docstring);
+    ``step_callback`` gets a group's ``(K,)`` metrics."""
+    done = False
+    it = iter(batches)
+    buffered: list = []  # epoch-tail items that failed to fill a group
+    while not done:
+        if buffered:
+            step_args = buffered.pop(0)
+        else:
+            try:
+                step_args = next(it)
+            except StopIteration:
+                break
+        want_img = ctx.want_images()
+        remaining = (None if max_steps is None
+                     else max_steps - ctx.global_step)
+        if (steps.super is not None and not want_img and not buffered
+                and (remaining is None or remaining >= steps.k)):
+            group = [step_args]
+            while len(group) < steps.k:
+                try:
+                    group.append(next(it))
+                except StopIteration:
+                    break
+            if len(group) == steps.k:
+                flat = [x for pos in zip(*group) for x in pos]
+                metrics = steps.super(states, *flat)
+                ctx.log_step(metrics, states=states, generator=generator,
+                             n_steps=steps.k)
+                ctx.global_step += steps.k
+                if step_callback is not None:
+                    step_callback(ctx.global_step, states, metrics)
+                done = _post_step(ctx, states, generator, max_steps, verbose)
+                continue
+            # Short group (epoch tail): run what was pulled as singles.
+            step_args, *rest = group
+            buffered.extend(rest)
+        if want_img:
+            metrics, images = steps.img(states, *step_args)
             ctx.log_step(metrics, images, states=states, generator=generator)
         else:
-            metrics = trainer.train_step(states, *step_args)
+            metrics = steps.plain(states, *step_args)
             ctx.log_step(metrics, states=states, generator=generator)
         ctx.global_step += 1
         if step_callback is not None:
             step_callback(ctx.global_step, states, metrics)
-        if _post_step(ctx, states, generator, max_steps, verbose):
-            return True
-    return False
+        done = _post_step(ctx, states, generator, max_steps, verbose)
+    return done
 
 
 def _post_step(ctx: LoopContext, states, generator, max_steps,
                verbose) -> bool:
-    """Per-step bookkeeping shared by the three loops."""
+    """Bookkeeping after each call (a step or a group), shared by the
+    three loops."""
     ctx.maybe_checkpoint(states, generator)
     if ctx.preempted():
         if verbose:
@@ -133,12 +193,13 @@ def _run_epochs(ctx: LoopContext, trainer, states, start_epoch: int,
     uint8 arrays); ``after_epoch(epoch)`` runs before the epoch's save."""
     cfg, generator = ctx.cfg, trainer.generator
     with _abort_on_error(ctx):
+        steps = _StepSet(trainer, cfg.steps_per_call)
         for epoch in range(start_epoch, cfg.max_epochs):
             ctx.epoch = epoch
             with contextlib.closing(device_prefetch(
                     epoch_batches(epoch), trainer.device,
                     upload_format=cfg.upload_format)) as batches:
-                done = _drive_epoch(ctx, trainer, states, batches,
+                done = _drive_epoch(ctx, states, generator, batches, steps,
                                     step_callback=step_callback,
                                     max_steps=max_steps, verbose=verbose)
             if after_epoch is not None:

@@ -11,7 +11,13 @@ train-mode BN writes no running statistics: they move only through
 
 ``train_one_model`` is the update every trainer shares (JAX
 ``training/deep_fake.py:150-166``): train-mode forward,
-``mse_ssim_loss``, backward, Adam.
+``mse_ssim_loss``, backward, Adam. It leaves the host counters alone: a
+trainer advances ``step`` (and ``ema_step``) after its step, by one or, after
+a K-step CUDA graph (``training/multi_step.py``), by K.
+
+``graph_objects`` tells the K-step graph which tensors
+a group's graph was captured on, so that it is captured again when any is
+replaced (a restore, ``modify``, the shadows of the denoise -> swap flip).
 """
 
 from __future__ import annotations
@@ -32,9 +38,15 @@ from denoising_diffusion_deep_fake_tpu_torch.models.unet import (
 from denoising_diffusion_deep_fake_tpu_torch.ops.losses import mse_ssim_loss
 from denoising_diffusion_deep_fake_tpu_torch.training.ema import (
     EmaConfig,
+    ema_blend,
     ema_update,
 )
-from denoising_diffusion_deep_fake_tpu_torch.training.optim import make_adam
+from denoising_diffusion_deep_fake_tpu_torch.training.optim import (
+    bind_device_lr,
+    ensure_adam_state,
+    make_adam,
+    set_learning_rate,
+)
 
 
 @dataclasses.dataclass
@@ -65,10 +77,52 @@ class ModelState:
             shadow_tensors(self.ema_model), shadow_tensors(self.model),
             self.ema_step, cfg)
 
+    def blend_ema(self, scalars: dict) -> None:
+        """The blend of an ``update()`` from its ``ema_scalars`` (numbers or
+        device tensors); ``ema_step`` is the caller's to advance."""
+        ema_blend(shadow_tensors(self.ema_model), shadow_tensors(self.model),
+                  **scalars)
+
 
 def shadow_tensors(model: nn.Module) -> list[torch.Tensor]:
     """The tensors an EMA blends: the params, then the BN buffers."""
     return list(model.parameters()) + list(model.buffers())
+
+
+def _model_states(states) -> list[ModelState]:
+    """A trainer's states (one ``ModelState`` or the identity dict) as a
+    list."""
+    return list(states.values()) if isinstance(states, dict) else [states]
+
+
+def graph_objects(states) -> list:
+    """Every object a CUDA graph of a train step captures the memory of:
+    modules, optimizers, params, buffers, Adam's state tensors and learning
+    rates, shadows. Whoever holds this list keeps them alive, so a
+    replaced one can be told apart by identity."""
+    out = []
+    for state in _model_states(states):
+        out += [state.model, state.optimizer, state.ema_model]
+        out += shadow_tensors(state.model)
+        if state.has_ema:
+            out += shadow_tensors(state.ema_model)
+        for group in state.optimizer.param_groups:
+            out.append(group["lr"])
+            for p in group["params"]:
+                out += list(state.optimizer.state.get(p, {}).values())
+    return out
+
+
+def prepare_for_capture(states) -> None:
+    """What a CUDA graph of a train step needs before its capture: each
+    optimizer's learning rate a device tensor, ``capturable`` set (Adam
+    refuses to be captured without it; the fused update computes the same
+    either way), and Adam's state made."""
+    for state in _model_states(states):
+        bind_device_lr(state.optimizer)
+        for group in state.optimizer.param_groups:
+            group["capturable"] = True
+        ensure_adam_state(state.optimizer)
 
 
 def param_count(model: nn.Module) -> int:
@@ -96,11 +150,13 @@ def create_model_state(cfg, dtype: torch.dtype, device: torch.device,
 
 
 def train_one_model(state: ModelState, noisy: torch.Tensor,
-                    target: torch.Tensor, lr: float | None = None
+                    target: torch.Tensor, lr=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One update of ``state`` in place: ``mse_ssim_loss(model(noisy),
-    target)`` in train mode, backward, Adam at ``lr`` (the optimizer's own
-    when None). Returns the loss as a device scalar and the prediction."""
+    """One update of ``state``'s tensors in place: ``mse_ssim_loss(
+    model(noisy), target)`` in train mode, backward, Adam at ``lr`` (a
+    float, or an fp32 device tensor; the optimizer's own when None). The
+    host ``step`` is the caller's to advance. Returns the loss as a device
+    scalar and the prediction."""
     model, optimizer = state.model, state.optimizer
     model.train()
     optimizer.zero_grad(set_to_none=True)
@@ -108,8 +164,6 @@ def train_one_model(state: ModelState, noisy: torch.Tensor,
     loss = mse_ssim_loss(pred, target)
     loss.backward()
     if lr is not None:
-        for group in optimizer.param_groups:
-            group["lr"] = lr
+        set_learning_rate(optimizer, lr)
     optimizer.step()
-    state.step += 1
     return loss.detach(), pred.detach()

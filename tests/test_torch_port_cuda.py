@@ -781,3 +781,110 @@ def test_fit_denoiser_on_gpu_and_restore(cuda, tmp_path):
         for k in want:
             assert got[k].device == want[k].device, k
             assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("offset", [5, 2 ** 32 + 3])
+def test_noise_device_offset_launch_matches_by_value(cuda, offset):
+    """The form a K-step graph replays reads its offset from a device
+    int64: the same Philox words and outputs as the by-value launch."""
+    gen = torch.Generator().manual_seed(4)
+    at = torch.tensor(offset, dtype=torch.int64, device=cuda)
+    assert torch.equal(nk.philox_words(1000, seed=9, offset=at, device=cuda),
+                       nk.philox_words(1000, seed=9, offset=offset,
+                                       device=cuda))
+    u8 = torch.randint(0, 256, (3, 32, 32, 3), dtype=torch.uint8,
+                       generator=gen).to(cuda)
+    x = torch.randn((3, 32, 32, 3), generator=gen).to(cuda)
+    r = torch.rand(3, generator=gen).to(cuda)
+    assert torch.equal(
+        nk.fused_normalise_noise_blend(u8, r, *IMAGENET, seed=9, offset=at),
+        nk.fused_normalise_noise_blend(u8, r, *IMAGENET, seed=9,
+                                       offset=offset))
+    assert torch.equal(nk.fused_noise_blend(x, r, seed=9, offset=at),
+                       nk.fused_noise_blend(x, r, seed=9, offset=offset))
+    with pytest.raises(ValueError):
+        nk.fused_noise_blend(x, r, seed=9, offset=at.to(torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["denoiser", "denoiser_i420", "swap"])
+def test_k_step_graph_matches_eager_steps(cuda, mode):
+    """Two replays of a K = 3 graph against 6 eager steps, fp32 under
+    cudnn.deterministic: every tensor, loss, counter and the generator
+    bit-equal, the launches counted per replay; a restored optimizer makes
+    the next call capture a new graph."""
+    import io
+
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DeepFakeConfig, DenoiserConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.training.deep_fake import (
+        DeepFakeTrainer)
+    from denoising_diffusion_deep_fake_tpu_torch.training.denoiser import (
+        DenoiserTrainer)
+    from denoising_diffusion_deep_fake_tpu_torch.training.optim import (
+        bind_device_lr)
+
+    def make():
+        if mode.startswith("denoiser"):
+            cfg = config_from_dict(DenoiserConfig, dict(
+                input_image_list_path="x", batch_size=2,
+                encoder_name="resnet18", compute_dtype="float32",
+                upload_format="i420" if mode.endswith("i420") else "rgb"))
+            t = DenoiserTrainer(cfg, steps_per_epoch=1, image_size=64)
+            return t, t.init_state(seed=0), 1
+        cfg = config_from_dict(DeepFakeConfig, dict(
+            data_path_a="a", data_path_b="b", batch_size=2, mode="swap",
+            encoder_name="resnet18", compute_dtype="float32",
+            ema_update_after_step=2))
+        t = DeepFakeTrainer(cfg, steps_per_epoch=1, image_size=64)
+        return t, t.init_states(seed=0), 2
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        (eager_t, eager_s, n), (graph_t, graph_s, _) = make(), make()
+        gen = torch.Generator().manual_seed(3)
+        shape = (2, 96, 64) if mode.endswith("i420") else (2, 64, 64, 3)
+        steps = [[torch.randint(0, 256, shape, dtype=torch.uint8,
+                                generator=gen).to(cuda) for _ in range(n)]
+                 for _ in range(9)]
+        eager = [eager_t.train_step(eager_s, *b) for b in steps]
+        step = graph_t.make_super_step(3)
+        before = dict(LAUNCHES)
+        groups = [step(graph_s, *[x for pos in zip(*steps[i:i + 3])
+                                  for x in pos]) for i in (0, 3)]
+        per_replay = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                      if v != before.get(k, 0)}
+        assert per_replay == {"warp_axis_pass": 12 * n,
+                              "fused_noise_blend": 6 * n}
+        assert step.captures == 1
+        for st in (graph_s.values() if mode == "swap" else [graph_s]):
+            buf = io.BytesIO()
+            torch.save(st.optimizer.state_dict(), buf)
+            buf.seek(0)
+            st.optimizer.load_state_dict(torch.load(buf, weights_only=True))
+            bind_device_lr(st.optimizer)
+        groups.append(step(graph_s, *[x for pos in zip(*steps[6:])
+                                      for x in pos]))
+        assert step.captures == 2
+    finally:
+        cudnn.deterministic = saved
+    pairs = ([(graph_s[n], eager_s[n]) for n in "ab"] if mode == "swap"
+             else [(graph_s, eager_s)])
+    for g, w in pairs:
+        assert (g.step, g.ema_step) == (w.step, w.ema_step)
+        for a, b in zip(list(g.model.state_dict().values())
+                        + (list(g.ema_model.state_dict().values())
+                           if g.has_ema else []),
+                        list(w.model.state_dict().values())
+                        + (list(w.ema_model.state_dict().values())
+                           if w.has_ema else [])):
+            assert torch.equal(a, b)
+        gs, ws = (s.optimizer.state_dict()["state"] for s in (g, w))
+        assert all(torch.equal(gs[i][k], ws[i][k]) for i in ws
+                   for k in ws[i])
+    assert torch.equal(graph_t.generator.get_state(),
+                       eager_t.generator.get_state())
+    for key in groups[0]:
+        got = [float(v) for g in groups for v in g[key]]
+        assert got == [float(m[key]) for m in eager], key

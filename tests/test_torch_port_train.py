@@ -96,11 +96,31 @@ KNOBS = [dict(remat="dots"), dict(steps_per_call=2),
                  else f"{name}-knob{i}")
     for name in TRAINERS for i, knob in enumerate(KNOBS)])
 def test_trainer_refuses_unported_knobs(trainer, knob):
-    """Each knob without its feature in the port is refused. ``knob3``,
-    ``upload_format: i420``, has been ported since: that case checks that
-    the trainer takes it and trains a step on a packed batch (its parity
-    with JAX: ``tests/test_torch_port_i420.py``)."""
+    """Each knob without its feature in the port is refused. Two have been
+    ported since, and their cases check that the trainer takes the knob
+    and trains: ``knob3``, ``upload_format: i420``, a step on a packed
+    batch (its parity with JAX: ``tests/test_torch_port_i420.py``);
+    ``knob1``, ``steps_per_call: 2``, one K-step call
+    (``tests/test_torch_port_multi_step.py``)."""
     cls, make_cfg = TRAINERS[trainer]
+    if knob == dict(steps_per_call=2):
+        t = cls(make_cfg(**knob), steps_per_epoch=1, image_size=32,
+                device="cpu")
+        u8 = torch.zeros((2, 32, 32, 3), dtype=torch.uint8)
+        step = t.make_super_step(2)
+        if trainer == "denoiser":
+            state = t.init_state(seed=0)
+            m = step(state, u8, u8)
+            losses = [m["loss"]]
+        else:
+            states = t.init_states(seed=0)
+            state = states["a"]
+            m = step(states, u8, u8, u8, u8)
+            losses = [m["loss_denoise/train_a"], m["loss_denoise/train_b"]]
+        assert state.step == 2 and len(m["lr"]) == 2
+        assert all(v.shape == (2,) and torch.isfinite(v).all()
+                   for v in losses)
+        return
     if knob == dict(upload_format="i420"):
         t = cls(make_cfg(**knob), steps_per_epoch=1, image_size=32,
                 device="cpu")
