@@ -126,6 +126,25 @@ Phases, in order; any failure exits non-zero:
    10a's frames with K = 2 (a group and the tail single an epoch, one
    event row a step); (e) a grouped 64^2 fit_deep_fake resumed from its
    checkpoint, bit-equal to the uninterrupted grouped run.
+13. data on the device (``data_cache: device``, data/device_cache.py,
+   training/cached.py): (a) at 64^2 x2, resnet18, fp32,
+   cudnn.deterministic, each runner from the cache against the host
+   loader: fit_denoiser at K = 1 and K = 3 (4 steps an epoch: a group and
+   the tail single), fit_deep_fake in swap mode at K = 2 and a resume of
+   the cached run, fit_balance with its scoring from the cache: every
+   weight, BN buffer, Adam moment, shadow, counter, the generator and
+   every event row bit-equal, the balanced manifests equal, one graph
+   captured across a K-step run's epochs; (b) at full width from 256
+   frames of 448^2, host loader against cache, 3 epochs each:
+   fit_denoiser x16 eager and at K = 16, fit_deep_fake in denoise mode
+   at K = 8 (16 per identity from 2 x 128 frames), fit_balance x12: imgs/s
+   over epochs 2-3 on the host clock, each epoch boundary on the host
+   clock and as the card's idle time, scoring ms; (c) no host batch load
+   and no device_prefetch call in a cached run, and the host-to-device
+   copies of one profiled cached epoch at K = 16 by count and bytes, as
+   sent and as traced; (d) 10,000 frames of 448^2 (6.02 GB) made by a
+   numpy decode_fn: decode and upload s, device and host memory, then K =
+   16 for 32 steps.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Every launch count is the count from the
@@ -138,11 +157,16 @@ result.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import faulthandler
+import gc
 import http.client
 import json
 import math
+import resource
+import shutil
 import struct
 import subprocess
 import sys
@@ -155,6 +179,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
@@ -2720,6 +2745,583 @@ def graph_from_disk(root: Path, data: dict, dev, launches,
             "graph_fit_deep_fake_64": small_counts}
 
 
+# ----------------------------------------- phase 13: data on the device
+
+
+class CacheProbe:
+    """Phase 13's instruments, installed for the phase and taken out after
+    it: the host loader's batch loads and ``device_prefetch`` calls
+    counted, the K-step graphs captured counted, the caches the runners
+    make kept, the balancer's scoring passes and the garbage collector's
+    passes timed, and each epoch's boundary marked on the host clock (from
+    the end of ``_drive_epoch`` to the next epoch's first step arguments
+    in hand)."""
+
+    def __init__(self):
+        self.stack = contextlib.ExitStack()
+        self.reset()
+
+    def reset(self) -> None:
+        self.loads = self.prefetches = self.captures = 0
+        self.caches, self.scores, self.marks, self.gc_ms = [], [], [], []
+
+    def patch(self, obj, name: str, value) -> None:
+        old = getattr(obj, name)
+        setattr(obj, name, value)
+        self.stack.callback(setattr, obj, name, old)
+
+    def __enter__(self) -> "CacheProbe":
+        from denoising_diffusion_deep_fake_tpu_torch.data.loader import (
+            ImageLoader)
+        from denoising_diffusion_deep_fake_tpu_torch.training import (
+            multi_step, runners)
+        from denoising_diffusion_deep_fake_tpu_torch.training.balance import (
+            BalanceTrainer)
+
+        probe = self
+        load, prefetch = ImageLoader._load_batch, runners.device_prefetch
+        drive = runners._drive_epoch
+
+        def counted_load(loader, indices):
+            probe.loads += 1
+            return load(loader, indices)
+
+        def counted_prefetch(*args, **kwargs):
+            probe.prefetches += 1
+            return prefetch(*args, **kwargs)
+
+        class Graph(multi_step._Graph):
+            def __init__(self, *args, **kwargs):
+                probe.captures += 1
+                super().__init__(*args, **kwargs)
+
+        class Cache(runners.DeviceDatasetCache):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                self.rss_gb = rss_gb()
+                probe.caches.append(self)
+
+        def mark(kind: str) -> None:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            probe.marks.append((kind, time.perf_counter(), event))
+
+        def marked(batches):
+            for i, item in enumerate(batches):
+                if i == 0:
+                    mark("first")
+                yield item
+
+        def marked_drive(ctx, states, generator, batches, steps, **kwargs):
+            done = drive(ctx, states, generator, marked(batches), steps,
+                         **kwargs)
+            mark("end")
+            return done
+
+        def timed(name):
+            score = getattr(BalanceTrainer, name)
+
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = score(*args, **kwargs)
+                torch.cuda.synchronize()
+                probe.scores.append((name, (time.perf_counter() - t0) * 1e3))
+                return out
+
+            return run
+
+        def on_gc(phase, info):
+            if phase == "start":
+                probe.gc_start = time.perf_counter()
+            else:
+                probe.gc_ms.append((time.perf_counter() - probe.gc_start)
+                                   * 1e3)
+
+        gc.callbacks.append(on_gc)
+        self.stack.callback(gc.callbacks.remove, on_gc)
+        self.patch(ImageLoader, "_load_batch", counted_load)
+        self.patch(runners, "device_prefetch", counted_prefetch)
+        self.patch(runners, "_drive_epoch", marked_drive)
+        self.patch(runners, "DeviceDatasetCache", Cache)
+        self.patch(multi_step, "_Graph", Graph)
+        for name in ("score_dataset", "score_dataset_from_cache"):
+            self.patch(BalanceTrainer, name, timed(name))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stack.close()
+
+    def boundaries_ms(self) -> tuple[list, list]:
+        """Each epoch boundary, from the end of an epoch's last call to the
+        next epoch's first step arguments in hand (for the cache the
+        order's copy, for the host loader its threads' start and the first
+        batch's load and upload; for the balancer the scoring pass too):
+        on the host clock, and on the device timeline (events recorded at
+        both ends: the time the card idled, since a group's launch
+        returns before the card has run it). Read after a synchronise."""
+        ends = [m[1:] for m in self.marks if m[0] == "end"]
+        firsts = [m[1:] for m in self.marks if m[0] == "first"][1:]
+        return ([(b - a) * 1e3 for (a, _), (b, _) in zip(ends, firsts)],
+                [a.elapsed_time(b) for (_, a), (_, b) in zip(ends, firsts)])
+
+    def score_ms(self) -> list:
+        """Each scoring pass's ms, the cache's form where it ran."""
+        cached = [ms for name, ms in self.scores
+                  if name == "score_dataset_from_cache"]
+        return cached or [ms for _, ms in self.scores]
+
+
+def rss_gb() -> float:
+    """This process's resident host memory now, GB."""
+    status = Path("/proc/self/status").read_text()
+    return int(status.split("VmRSS:")[1].split()[0]) * 1024 / 1e9
+
+
+def event_rows(cfg, workload: str) -> list:
+    return sorted(read_event_file(Path(cfg.log_dir) / workload),
+                  key=lambda row: (row[0], row[1]))
+
+
+def cached_pair(probe, launches, what: str, fit, make_cfg, workload: str,
+                k: int, want: dict, **kwargs) -> dict:
+    """One runner from the host loader and from the cache: every tensor
+    and counter, the generator and every event row bit-equal; the launches
+    ``want``; with K > 1, one graph captured across the run's epochs; no
+    host batch load and no upload thread in the cached run. Returns the
+    cached run's ``(result, cfg)`` and its launch counts."""
+    runs = {}
+    for cache in ("host", "device"):
+        cfg = make_cfg(cache)
+        probe.reset()
+        out, counts = fit_counted(fit, launches, cfg, **kwargs)
+        check_launches(counts, want, f"13a {what} ({cache})")
+        check(probe.captures == (1 if k > 1 else 0),
+              f"13a {what} ({cache}): {probe.captures} graphs captured")
+        if cache == "device":
+            n_caches = len(out[0]) if isinstance(out[0], dict) else 1
+            check(probe.loads == probe.prefetches == 0
+                  and len(probe.caches) == n_caches,
+                  f"13a {what}: {probe.loads} host batch loads, "
+                  f"{probe.prefetches} device_prefetch calls, "
+                  f"{len(probe.caches)} caches in the cached run")
+        runs[cache] = out, cfg, counts
+    (dev_out, dev_cfg, dev_counts), (host_out, host_cfg, _) = (
+        runs["device"], runs["host"])
+    bad = states_differ(dev_out[0], host_out[0])
+    check(not bad, f"13a {what}: the cached run differs: {bad[:5]}")
+    if host_out[1].generator is not None:
+        check(torch.equal(dev_out[1].generator.get_state(),
+                          host_out[1].generator.get_state()),
+              f"13a {what}: the cached run's generator differs")
+    rows = event_rows(dev_cfg, workload)
+    check(rows == event_rows(host_cfg, workload) and rows,
+          f"13a {what}: the event rows differ from the host run's")
+    log(f"  13a {what}, K = {k}: cached run bit-equal to the host run "
+        f"(weights, BN buffers, Adam moments and steps, counters, "
+        f"generator, {len(rows)} event rows); "
+        f"{probe.captures} graph captured; launches {dev_counts}")
+    return {"out": dev_out, "cfg": dev_cfg, "counts": dev_counts,
+            "host_cfg": host_cfg}
+
+
+def cached_against_host(root: Path, dev, launches, probe) -> dict:
+    """Phase 13a: at 64^2 x2, resnet18, fp32, under cudnn.deterministic,
+    each runner from the cache against the host loader: fit_denoiser at K
+    = 1 and K = 3 (8 frames, 4 steps an epoch: a group and the tail single),
+    fit_deep_fake in swap mode at K = 2 and a resume of the cached run,
+    fit_balance (9 frames; 4 steps an epoch, 5 scoring batches, the tail
+    padded) with the manifests equal. Returns the launch counts by
+    path."""
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        BalanceConfig, DenoiserConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_balance, fit_deep_fake, fit_denoiser)
+
+    frames = {n: write_frames(root / f"cache_small_{n}", 8, 64,
+                              SEED + 50 + i) for i, n in enumerate("ab")}
+    nine = write_frames(root / "cache_small_nine", 9, 64, SEED + 52)
+    small = dict(batch_size=2, encoder_name="resnet18",
+                 compute_dtype="float32", image_size=64, max_epochs=2,
+                 log_images=False)
+    twopass = {"warp_axis_pass": 2, "fused_noise_blend": 1}
+    swap_small = dict(SWAP_YML, **small, steps_per_call=2,
+                      ema_update_after_step=1)
+    counts = {}
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        for k in (1, 3):
+            run = cached_pair(
+                probe, launches, "fit_denoiser", fit_denoiser,
+                lambda cache: config_from_dict(DenoiserConfig, dict(
+                    small, input_image_list_path=str(frames["a"]),
+                    steps_per_call=k, data_cache=cache, seed=SEED,
+                    log_dir=str(root / f"c_den_{k}_{cache}" / "runs"),
+                    checkpoint_dir=str(root / f"c_den_{k}_{cache}" / "ck"))),
+                "denoiser", k, {n: 8 * v for n, v in twopass.items()})
+            counts[f"cache_fit_denoiser_64_k{k}"] = run["counts"]
+        swap = cached_pair(
+            probe, launches, "fit_deep_fake swap", fit_deep_fake,
+            lambda cache: deep_fake_cfg(
+                frames, root, f"c_swap_{cache}", **swap_small,
+                data_cache=cache),
+            "deep_fake", 2, {n: 16 * v for n, v in twopass.items()})
+        counts["cache_graph_fit_deep_fake_swap_64"] = swap["counts"]
+        cfg = deep_fake_cfg(frames, root, "c_swap_resumed", **swap_small,
+                            data_cache="device")
+        fit_counted(fit_deep_fake, launches, cfg, max_steps=4)
+        (resumed, trainer, ctx), _ = fit_counted(
+            fit_deep_fake, launches, cfg, resume_from=cfg.checkpoint_dir)
+        bad = states_differ(resumed, swap["out"][0])
+        check(ctx.global_step == 8 and not bad
+              and torch.equal(trainer.generator.get_state(),
+                              swap["out"][1].generator.get_state()),
+              f"13a: the cached resume differs from the whole run: "
+              f"{bad[:5]}")
+        log("  13a cached fit_deep_fake swap, K = 2: 1 epoch + resume "
+            "bit-equal to 2 epochs, generator included")
+        balance = cached_pair(
+            probe, launches, "fit_balance", fit_balance,
+            lambda cache: config_from_dict(BalanceConfig, dict(
+                small, data_path=str(nine), data_cache=cache,
+                number_of_classes=4, seed=SEED,
+                output_image_list_path=str(root / f"c_bal_{cache}.txt"),
+                log_dir=str(root / f"c_bal_{cache}" / "runs"),
+                checkpoint_dir=str(root / f"c_bal_{cache}" / "ck"))),
+            "balance", 1, {"fused_normalise_noise_blend": 8 + 10})
+        check(Path(balance["cfg"].output_image_list_path).read_text()
+              == Path(balance["host_cfg"].output_image_list_path)
+              .read_text(), "13a: the balanced manifests differ")
+        log("  13a fit_balance: scoring from the cache gave the host "
+            "scoring's manifest (9 images, 5 batches a pass, the tail "
+            "padded)")
+        counts["cache_fit_balance_64"] = balance["counts"]
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    return counts
+
+
+def timed_fit(probe, launches, fit, cfg, *, spe: int, images: int,
+              decode_fn=np.load, marks=None, **kwargs) -> dict:
+    """A runner's call with the phase's instruments: the card synchronised
+    after the calls that end on ``marks`` (the ends of epochs 1 and 3 by
+    default; the host runs ahead of the card everywhere else), the rate
+    over epochs 2-3 on the host clock, the boundaries, the scoring passes,
+    the launch counts and the host loads. ``images`` a step."""
+    ends = {}
+    marks = marks or (spe, 3 * spe)
+
+    def at_epoch_end(step, states, metrics):
+        if step in marks:
+            torch.cuda.synchronize()
+            ends[step] = time.perf_counter()
+
+    probe.reset()
+    torch.cuda.synchronize()
+    launches.clear()
+    out = fit(cfg, verbose=False, decode_fn=decode_fn,
+              step_callback=at_epoch_end, **kwargs)
+    torch.cuda.synchronize()
+    rate = (2 * spe * images / (ends[3 * spe] - ends[spe])
+            if 3 * spe in ends else None)
+    shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
+    host_ms, idle_ms = probe.boundaries_ms()
+    return {"out": out, "counts": dict(launches), "imgs_s": rate,
+            "boundary_ms": host_ms, "idle_ms": idle_ms,
+            "score_ms": probe.score_ms(),
+            "loads": probe.loads, "prefetches": probe.prefetches,
+            "captures": probe.captures, "caches": list(probe.caches),
+            "ends": ends, "gc_ms": list(probe.gc_ms)}
+
+
+def fmt(values) -> str:
+    return ", ".join(f"{v:.3f}" for v in values)
+
+
+def cached_full_width(root: Path, dev, launches, probe, card: str) -> dict:
+    """Phase 13b and 13c: at full width from 256 .npy frames of 448^2, 3
+    epochs each, host loader against cache: fit_denoiser x16 (16 steps an
+    epoch) eager and at K = 16; fit_deep_fake in denoise mode, 16 per
+    identity, from the first and last 128 frames (8 steps an epoch), K =
+    8; fit_balance x12 (21 steps an epoch, 22 scoring batches). Each
+    run's imgs/s over epochs 2-3 on the host clock, its epoch boundaries,
+    the scoring passes; the cached runs load no host batch and start no
+    upload thread (13c). Returns the launch counts by path."""
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        BalanceConfig, DenoiserConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
+        read_image_manifest, write_image_manifest)
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_balance, fit_deep_fake, fit_denoiser)
+
+    t0 = time.perf_counter()
+    data = write_frames(root / "cache_256", 256, 448, SEED + 60)
+    paths = read_image_manifest(data)
+    halves = {}
+    for name, part in (("a", paths[:128]), ("b", paths[128:])):
+        halves[name] = root / f"cache_128_{name}.txt"
+        write_image_manifest(halves[name], part)
+    log(f"  256 uint8 448^2 frames as .npy in {time.perf_counter() - t0:.2f}"
+        f" s; identities a and b their halves")
+    fused = {"affine_warp_fused": 1, "fused_noise_blend": 1}
+    counts, figures = {}, {}
+
+    def report(what, run, per_step, steps, k):
+        check_launches(run["counts"], {n: steps * v
+                                       for n, v in per_step.items()},
+                       f"13b {what}")
+        check(run["captures"] == (1 if k > 1 else 0),
+              f"13b {what}: {run['captures']} graphs captured")
+        cached = bool(run["caches"])
+        if cached:
+            check(run["loads"] == run["prefetches"] == 0,
+                  f"13c {what}: {run['loads']} host batch loads and "
+                  f"{run['prefetches']} device_prefetch calls in a cached "
+                  "run")
+        else:
+            check(run["loads"] > 0 and run["prefetches"] > 0,
+                  f"13c {what}: the host run loaded nothing")
+        log(f"  {what}: {run['imgs_s']:.1f} imgs/s over epochs 2-3 (host "
+            f"clock between the synchronised ends of epochs 1 and 3); epoch "
+            f"boundaries {fmt(run['boundary_ms'])} ms on the host clock, "
+            f"the card idle {fmt(run['idle_ms'])} ms of them; host batch "
+            f"loads {run['loads']}, device_prefetch calls "
+            f"{run['prefetches']}; "
+            f"{len(run['gc_ms'])} garbage collections, the longest "
+            f"{max(run['gc_ms'], default=0):.3f} ms; launches "
+            f"{run['counts']} [{card}]")
+
+    for cache in ("host", "device"):
+        for k in (1, 16):
+            cfg = config_from_dict(DenoiserConfig, dict(
+                input_image_list_path=str(data), batch_size=16,
+                learning_rate=0.02, max_epochs=3,
+                cosine_scheduler_max_epoch=100, encoder_name="resnet34",
+                noise_exponential_sampling_lambda=5,
+                compute_dtype="bfloat16", image_size=448, seed=SEED,
+                steps_per_call=k, data_cache=cache, log_images=False,
+                log_dir=str(root / f"c13b_{cache}_{k}" / "runs"),
+                checkpoint_dir=str(root / f"c13b_{cache}_{k}" / "ck")))
+            run = timed_fit(probe, launches, fit_denoiser, cfg, spe=16,
+                            images=16)
+            report(f"fit_denoiser 448^2 x16, {cache}, K = {k}", run, fused,
+                   48, k)
+            figures[f"denoiser_{cache}_{k}"] = run
+            if cache == "device":
+                counts[f"cache_{'graph_' if k > 1 else ''}fit_denoiser_448"
+                       ] = run["counts"]
+    for cache in ("host", "device"):
+        cfg = deep_fake_cfg(halves, root, f"c13b_pair_{cache}",
+                            max_epochs=3, steps_per_call=8,
+                            data_cache=cache, log_images=False)
+        run = timed_fit(probe, launches, fit_deep_fake, cfg, spe=8,
+                        images=32)
+        report(f"fit_deep_fake denoise 448^2, 16 per identity, {cache}, "
+               f"K = 8", run, {n: 2 * v for n, v in fused.items()}, 24, 8)
+        figures[f"pair_{cache}"] = run
+        if cache == "device":
+            counts["cache_graph_fit_deep_fake_448"] = run["counts"]
+    for cache in ("host", "device"):
+        cfg = config_from_dict(BalanceConfig, dict(
+            data_path=str(data), batch_size=12, learning_rate=0.01,
+            max_epochs=3, encoder_name="resnet34", ratio_of_noise=0.7,
+            number_of_classes=10, compute_dtype="bfloat16", image_size=448,
+            seed=SEED, data_cache=cache, log_images=False,
+            output_image_list_path=str(root / f"c13b_bal_{cache}.txt"),
+            log_dir=str(root / f"c13b_bal_{cache}" / "runs"),
+            checkpoint_dir=str(root / f"c13b_bal_{cache}" / "ck")))
+        run = timed_fit(probe, launches, fit_balance, cfg, spe=21,
+                        images=12)
+        report(f"fit_balance 448^2 x12, {cache}, K = 1 (boundaries hold "
+               f"the scoring pass)", run,
+               {"fused_normalise_noise_blend": 1}, 63 + 66, 1)
+        log(f"    scoring 256 images (22 batches, the last 4 padded to "
+            f"12): {fmt(run['score_ms'])} ms a pass [{card}]")
+        figures[f"balance_{cache}"] = run
+        if cache == "device":
+            counts["cache_fit_balance_448"] = run["counts"]
+    return counts, figures
+
+
+def h2d_copies(trace: Path) -> tuple:
+    """The host-to-device copies in a chrome trace of ``torch.profiler``:
+    their count, their bytes where the trace gives them, the count of
+    kernels the trace holds (none: the profiler saw no device activity)
+    and the count of its events by category."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    sizes = [e.get("args", {}).get("bytes") for e in copies]
+    cats = collections.Counter(e.get("cat") for e in events)
+    return (len(copies), sum(sizes) if None not in sizes else None,
+            cats["kernel"], dict(cats))
+
+
+class CopiesSent(TorchDispatchMode):
+    """Counts the host-to-device copies this thread sends (``copy_`` and
+    ``to`` from a CPU tensor into a CUDA one) and their bytes, whatever
+    the profiler records."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        aten = torch.ops.aten
+        if func in (aten.copy_.default, aten._to_copy.default):
+            src, dst = ((args[1], args[0]) if func is aten.copy_.default
+                        else (args[0], out))
+            if src.device.type == "cpu" and dst.device.type == "cuda":
+                self.count += 1
+                self.bytes += src.nbytes
+        return out
+
+
+def profiled_cached_epoch(root: Path, data: Path, dev, launches, probe,
+                          card: str, k: int) -> None:
+    """Phase 13c: a cached fit_denoiser at 448^2 x16 (16 steps an epoch,
+    2 epochs) at ``k`` under ``torch.profiler`` from the synchronised end
+    of epoch 1 to that of epoch 2: the boundary (the order's copy) and
+    epoch 2's 16 steps. Its host-to-device copies by count and bytes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DenoiserConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_denoiser)
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    sent = CopiesSent()
+
+    def window(step, states, metrics):
+        torch.cuda.synchronize()
+        if step == 16:
+            prof.__enter__()
+            sent.__enter__()
+        elif step == 32:
+            sent.__exit__(None, None, None)
+            prof.__exit__(None, None, None)
+
+    cfg = config_from_dict(DenoiserConfig, dict(
+        input_image_list_path=str(data), batch_size=16, learning_rate=0.02,
+        max_epochs=2, encoder_name="resnet34", compute_dtype="bfloat16",
+        image_size=448, seed=SEED, steps_per_call=k, data_cache="device",
+        log_images=False, log_dir=str(root / f"c13c_{k}" / "runs"),
+        checkpoint_dir=str(root / f"c13c_{k}" / "ck")))
+    probe.reset()
+    fit_counted(fit_denoiser, launches, cfg, step_callback=window)
+    shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
+    trace = root / f"c13c_{k}.json"
+    prof.export_chrome_trace(str(trace))
+    n, n_bytes, n_kernels, cats = h2d_copies(trace)
+    check(probe.loads == probe.prefetches == 0,
+          f"13c: {probe.loads} host batch loads in the profiled run")
+    check(sent.bytes < 1 << 20 and (n_bytes is None or n_bytes < 1 << 20),
+          f"13c: a cached epoch copied {sent.bytes} bytes to the card "
+          f"({n_bytes} in the trace)")
+    size = "bytes not in the trace" if n_bytes is None else f"{n_bytes} B"
+    traced = (f"the trace: {n} host-to-device copies, {size}, beside "
+              f"{n_kernels} kernels" if n_kernels else
+              "the profiler recorded no device activity in the window "
+              f"(its events by category: {cats})")
+    log(f"  13c one profiled cached epoch (its boundary and 16 steps of "
+        f"448^2 x16, K = {k}): sent {sent.count} host-to-device copies "
+        f"of {sent.bytes} B in all; {traced} (a host batch is "
+        f"{16 * 448 * 448 * 3} B) [{card}]")
+
+
+def dataset_at_jax_sizing(root: Path, dev, launches, probe,
+                          card: str, n: int = 10_000,
+                          size: int = 448) -> dict:
+    """Phase 13d: 10,000 frames of 448^2 (6.02 GB), each made from its
+    manifest index by a numpy ``decode_fn`` (no disk, no cv2): the cache's
+    decode and upload times, its bytes, the device's and the host's peak
+    memory, then fit_denoiser x16 at K = 16 for 32 steps from it. Returns
+    the launch counts."""
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DenoiserConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
+        write_image_manifest)
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_denoiser)
+
+    base = np.random.default_rng(SEED + 70).integers(
+        0, 256, (size, size, 3), np.uint8)
+
+    def decode(path: str) -> np.ndarray:
+        return base + np.uint8(int(Path(path).stem) % 256)
+
+    manifest = root / "cache_10k.txt"
+    write_image_manifest(manifest, [f"virtual/{i:05d}.npy" for i in range(n)])
+    cfg = config_from_dict(DenoiserConfig, dict(
+        input_image_list_path=str(manifest), batch_size=16,
+        learning_rate=0.02, max_epochs=1, encoder_name="resnet34",
+        compute_dtype="bfloat16", image_size=size, seed=SEED,
+        steps_per_call=16, data_cache="device", log_images=False,
+        log_dir=str(root / "c13d" / "runs"),
+        checkpoint_dir=str(root / "c13d" / "ck")))
+    rss_before = rss_gb()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = timed_fit(probe, launches, fit_denoiser, cfg, spe=16, images=16,
+                    decode_fn=decode, marks=(16, 32), max_steps=32)
+    (cache,) = run["caches"]
+    group_ms = (run["ends"][32] - run["ends"][16]) * 1e3
+    peak_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    check(cache.n_images == n and cache.dataset.shape == (n, size, size, 3)
+          and run["out"][0].step == 32,
+          f"13d: {cache.n_images} images, {run['out'][0].step} steps")
+    check(run["loads"] == 0 and run["captures"] == 1,
+          f"13d: {run['loads']} host loads, {run['captures']} captures")
+    check_launches(run["counts"], {"affine_warp_fused": 32,
+                                   "fused_noise_blend": 32}, "13d")
+    row = torch.from_numpy(decode(f"virtual/{n - 1:05d}.npy")).to(dev)
+    check(torch.equal(cache.dataset[n - 1], row),
+          "13d: the last frame on the card is not its decode")
+    log(f"  13d {n} frames of {size}^2 from a numpy decode_fn: "
+        f"{cache.nbytes / 1e9:.2f} GB, decoded in {cache.decode_s:.2f} s, "
+        f"uploaded in {cache.upload_s:.2f} s "
+        f"({cache.nbytes / cache.upload_s / 1e9:.2f} GB/s); the second "
+        f"group of K = 16 {group_ms / 16:.3f} ms a step "
+        f"({16 * 16 / group_ms * 1e3:.1f} imgs/s); the whole call "
+        f"{time.perf_counter() - t0:.2f} s; device peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; host resident "
+        f"memory {rss_before:.2f} GB before the call, {cache.rss_gb:.2f} GB "
+        f"once the cache was made, {rss_gb():.2f} GB after, the process's "
+        f"peak {peak_gb:.2f} GB [{card}]")
+    return run["counts"]
+
+
+def data_on_the_device(root: Path, dev, launches, card: str) -> dict:
+    """Phase 13: 13a the cached runners against the host loader's, bit for
+    bit at 64^2; 13b their rates at full width; 13c a cached epoch's
+    host-to-device copies; 13d the dataset at JAX's sizing. Returns the
+    launch counts by path."""
+    with CacheProbe() as probe:
+        t0 = time.perf_counter()
+        log("[13a] the cache against the host loader: 64^2 fp32, "
+            "cudnn.deterministic")
+        counts = cached_against_host(root, dev, launches, probe)
+        log(f"    ({time.perf_counter() - t0:.1f} s)")
+        log("[13b] full width from 256 frames of 448^2: host against cache")
+        full, figures = cached_full_width(root, dev, launches, probe, card)
+        counts.update(full)
+        log(f"    ({time.perf_counter() - t0:.1f} s)")
+        log("[13c] a profiled cached epoch's host-to-device copies")
+        profiled_cached_epoch(root, root / "cache_256" / "images.txt", dev,
+                              launches, probe, card, 16)
+        log(f"    ({time.perf_counter() - t0:.1f} s)")
+        log("[13d] 10,000 frames of 448^2 on the card")
+        counts["cache_graph_fit_denoiser_10k"] = dataset_at_jax_sizing(
+            root, dev, launches, probe, card)
+        log(f"  phase 13 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", type=Path, default=None,
@@ -2889,13 +3491,18 @@ def main() -> int:
                                            _build.LAUNCHES, card))
         log(f"  phase 12 took {time.perf_counter() - t12:.1f} s [{card}]")
 
+        log("[13] data on the device (data_cache: device): the runners "
+            "from a dataset on the card")
+        cache_paths = data_on_the_device(Path(tmp) / "disk", dev,
+                                         _build.LAUNCHES, card)
+
     paths = {"denoiser_448": main_run["counts"],
              "twopass_640": twopass_run["counts"],
              "balancer_448": balance_counts,
              "deep_fake_denoise_448": denoise_run["counts"],
              "deep_fake_swap_448": swap_run["counts"],
              "serve_ddim_448": ddim_counts, **loop_paths, **i420_paths,
-             **graph_paths}
+             **graph_paths, **cache_paths}
     first_path = {"affine_warp_fused": "denoiser_448",
                   "warp_axis_pass": "twopass_640",
                   "fused_noise_blend": "denoiser_448",

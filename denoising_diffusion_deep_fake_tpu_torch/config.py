@@ -106,6 +106,10 @@ class BaseConfig:
             raise ValueError(
                 "data_cache='device' already eliminates per-step uploads — "
                 "use upload_format='rgb' with it")
+        if self.data_cache == "device" and self.spatial_parallel > 1:
+            raise ValueError(
+                "data_cache='device' supports the data axis only; use "
+                "data_cache='host' with spatial_parallel > 1")
         if self.warp_method not in WARP_METHODS:
             raise ValueError(f"unknown warp_method {self.warp_method!r}")
         if self.remat not in ("none", "dots", "full"):

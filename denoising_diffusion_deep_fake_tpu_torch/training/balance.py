@@ -19,7 +19,9 @@ unpacked to fp32 RGB first (JAX ``:89-91``); the uint8 kernel cannot read
 that, so the step normalises it (``normalise_batch``'s rounding, JAX
 ``:96``) and noises it with the fp32 kernel ``fused_noise_blend``, every
 sample at ``ratio_of_noise``, from the same stream (seed and offset).
-Scoring always reads RGB, as in JAX.
+Scoring always reads RGB, as in JAX. With ``data_cache: device``
+``score_dataset_from_cache`` scores the dataset on the device in manifest
+order (JAX ``:137-174``): no image crosses the host link.
 
 Random streams: the kernel's stream is keyed by ``cfg.seed``; a train step
 draws at offset ``state.step`` and scoring batch ``k`` of epoch ``e`` at
@@ -75,9 +77,7 @@ from denoising_diffusion_deep_fake_tpu_torch.training.state import (
 )
 
 SCORE_STREAM = 1 << 32
-# data_cache: device is the JAX score_dataset_from_cache path.
-_UNPORTED = ("data_cache", "data_parallel",
-             "spatial_parallel", "patchify_stem")
+_UNPORTED = ("data_parallel", "spatial_parallel", "patchify_stem")
 
 
 def compute_difficulty_index(losses: np.ndarray,
@@ -226,3 +226,18 @@ class BalanceTrainer:
             all_loss.append(losses[:n_valid])
         return (np.concatenate(all_idx),
                 torch.cat(all_loss).cpu().numpy())
+
+    def score_dataset_from_cache(self, state: ModelState, cache, *,
+                                 epoch: int = 0
+                                 ) -> tuple[np.ndarray, np.ndarray]:
+        """``score_dataset`` over a ``DeviceDatasetCache``'s dataset in
+        manifest order (JAX ``balance.py:137-174``): the batches are views
+        of the tensor on the device, the tail padded by its last image as
+        ``score_dataset`` pads it (JAX clips the tail's indices to the
+        last image: the same batch), at the same ``score_offset``s, so
+        every image gets the loss the host scoring gives it."""
+        n, b = cache.n_images, self.cfg.batch_size
+        batches = ((cache.dataset[pos:pos + b],
+                    np.arange(pos, min(pos + b, n)))
+                   for pos in range(0, n, b))
+        return self.score_dataset(state, batches, epoch=epoch)

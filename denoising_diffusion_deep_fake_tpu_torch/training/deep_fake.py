@@ -88,8 +88,8 @@ from denoising_diffusion_deep_fake_tpu_torch.training.state import (
 )
 
 IDENTITIES = ("a", "b")
-_UNPORTED = ("data_cache", "data_parallel",
-             "spatial_parallel", "remat", "patchify_stem", "color_jitter")
+_UNPORTED = ("data_parallel", "spatial_parallel", "remat", "patchify_stem",
+             "color_jitter")
 
 
 def noise_offset(step: int, name: str) -> int:

@@ -76,8 +76,8 @@ from denoising_diffusion_deep_fake_tpu_torch.training.state import (
     train_one_model,
 )
 
-_UNPORTED = ("data_cache", "data_parallel",
-             "spatial_parallel", "remat", "patchify_stem", "color_jitter")
+_UNPORTED = ("data_parallel", "spatial_parallel", "remat", "patchify_stem",
+             "color_jitter")
 
 
 class DenoiserTrainer:

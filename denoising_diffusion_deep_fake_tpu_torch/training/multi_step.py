@@ -7,9 +7,10 @@ counterpart is one ``torch.cuda.CUDAGraph`` whose replay runs K whole train
 steps (the warp and noise kernels, the U-Net's forward and backward, Adam,
 in swap mode both EMA blends) with no host work between them; on the CPU
 (the tests) the same call runs the same step function eagerly K times,
-which is its plain version. The JAX package's device-cache superstep
-(``make_cached_super_step``, ``:60-100``) needs ``data_cache: device``
-(ROADMAP A7) and has no counterpart yet.
+which is its plain version. ``make_cached_super_step`` is the
+counterpart of JAX's ``:67-102``: with ``data_cache: device``
+(``data/device_cache.py``) a group takes no batches, and each step gathers
+its own from the device dataset inside the graph.
 
 The contract a step keeps, JAX's "the per-step randomness derives from the
 step counter", carried to host counters:
@@ -30,6 +31,17 @@ numbers, the same draws (``tests/test_torch_port_multi_step.py`` holds it
 bit for bit on the CPU, ``chip_smoke.py`` phase 12 on the card). Metrics
 come back as ``(K,)`` tensors, and the ``host_metrics`` (the learning
 rate) as lists of K numbers; the loop fans them out to per-step rows.
+
+With ``data_cache: device`` (``make_cached_super_step``) the step's
+scalar row also carries ``pos``, the batch's position in the epoch's
+order, ``((counter + j) % steps_per_epoch) * batch_size`` from the host
+counter (``state.step``, or model a's), as an int64 column of the table;
+the graph gathers from the dataset and the order buffer at it. Each
+cache's dataset and order buffer, as the cache holds them at the call,
+are part of the graph's identity: a new epoch's order is copied into the
+same buffer and replays the same graph, while a buffer replaced instead
+of filled is captured anew. A new cache comes with a new K-step call
+(``training/runners.py`` builds one a run), captured on its tensors.
 
 On CUDA, the capture (``_Graph``):
 
@@ -82,9 +94,15 @@ from typing import Callable
 import numpy as np
 import torch
 
+from denoising_diffusion_deep_fake_tpu_torch.data.device_cache import (
+    gather_batch,
+)
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda._build import (
     LAUNCHES,
     moved_launches,
+)
+from denoising_diffusion_deep_fake_tpu_torch.training.state import (
+    step_counter,
 )
 
 
@@ -107,6 +125,31 @@ def make_super_step(step_core: Callable, k: int, *,
                      n_batch_args=n_batch_args, host_metrics=host_metrics,
                      identity=identity or (lambda states: []),
                      prepare=prepare, key=key or (lambda states: None))
+
+
+def make_cached_super_step(step: "SuperStep", caches: list,
+                           steps_per_epoch: int) -> "SuperStep":
+    """``step(states)``: the K steps of ``step`` (a trainer's
+    ``make_super_step(k)``) with no batch arguments, each gathering its
+    batch, one from each of ``caches`` (two for the identity pair, at the
+    same position), from the device dataset at its row's ``pos``."""
+    batch_size = caches[0].batch_size
+
+    def scalars(states, j):
+        pos = (step_counter(states) + j) % steps_per_epoch * batch_size
+        return {**step.scalars(states, j), "pos": pos}
+
+    def core(states, row, generator):
+        batches = [gather_batch(c.dataset, c.order, row["pos"], batch_size)
+                   for c in caches]
+        return step.step_core(states, *batches, row, generator)
+
+    return SuperStep(core, step.k, scalars=scalars, advance=step.advance,
+                     generator=step.generator, device=step.device,
+                     n_batch_args=0, host_metrics=step.host_metrics,
+                     identity=lambda states: step.identity(states) + [
+                         t for c in caches for t in (c.dataset, c.order)],
+                     prepare=step.prepare, key=step.key)
 
 
 class SuperStep:

@@ -32,14 +32,23 @@ at the saved ``global_step``, with the trainer's generator restored.
 ``modify`` keeps the weights, BN buffers and shadows, gives fresh
 optimizers and steps, and attaches shadows in swap mode (``ensure_ema``).
 
-Left out: the device-resident dataset (``data_cache: device``, ROADMAP
-A7), and with it JAX's cached superstep; the trainers refuse the knob.
+With ``data_cache: device`` (JAX ``runners.py:90-134``, ``:232-237``)
+each loader's decoded dataset goes to the device once
+(``data/device_cache.py``) and the step calls are ``training/cached.py``'s:
+an epoch copies its order to the device and drives steps that gather
+their own batches, with no loader thread and no ``device_prefetch``;
+``fit_balance`` scores from the cache (JAX ``:452-463``). A cache that
+cannot be made raises: there is no way back to the host loader.
+
+Left out: the multi-process layouts of the loader and the cache (ROADMAP
+A9).
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -53,6 +62,9 @@ from denoising_diffusion_deep_fake_tpu_torch.config import (
     DenoiserConfig,
     config_to_dict,
 )
+from denoising_diffusion_deep_fake_tpu_torch.data.device_cache import (
+    DeviceDatasetCache,
+)
 from denoising_diffusion_deep_fake_tpu_torch.data.loader import (
     ImageLoader,
     PairedLoader,
@@ -65,6 +77,9 @@ from denoising_diffusion_deep_fake_tpu_torch.training.balance import (
     BalanceTrainer,
     compute_difficulty_index,
 )
+from denoising_diffusion_deep_fake_tpu_torch.training.cached import (
+    cached_steps_for,
+)
 from denoising_diffusion_deep_fake_tpu_torch.training.deep_fake import (
     DeepFakeTrainer,
 )
@@ -72,6 +87,9 @@ from denoising_diffusion_deep_fake_tpu_torch.training.denoiser import (
     DenoiserTrainer,
 )
 from denoising_diffusion_deep_fake_tpu_torch.training.loop import LoopContext
+from denoising_diffusion_deep_fake_tpu_torch.training.multi_step import (
+    make_cached_super_step,
+)
 from denoising_diffusion_deep_fake_tpu_torch.training.optim import make_adam
 
 HISTOGRAM_TAG = "difficulty_class_histogram"
@@ -89,26 +107,66 @@ def _steps_per_epoch(cfg, loader) -> int:
             else loader.batches_per_epoch)
 
 
-class _StepSet:
-    """The calls one workload loop drives: a step, a step with panels and,
-    with ``steps_per_call`` K > 1, the trainer's K-step call (made once, so
-    its graph is captured once a run)."""
+class _StepSet(NamedTuple):
+    """The calls one workload loop drives (JAX's ``_StepSet``): a step, a
+    step with panels and, with ``steps_per_call`` K > 1, the K-step call
+    (made once, so its graph is captured once a run). From the host loader
+    each takes the step's uploaded batches; from the cache none
+    (``training/cached.py``)."""
 
-    def __init__(self, trainer, k: int):
-        self.trainer = trainer
-        self.k = k
-        self.super = trainer.make_super_step(k) if k > 1 else None
-
-    def plain(self, states, *step_args):
-        return self.trainer.train_step(states, *step_args)
-
-    def img(self, states, *step_args):
-        return self.trainer.train_step(states, *step_args, with_images=True)
+    plain: Callable
+    img: Callable
+    super: Callable | None
+    k: int
 
 
-def _drive_epoch(ctx: LoopContext, states, generator, batches,
-                 steps: _StepSet, *, step_callback, max_steps,
-                 verbose) -> bool:
+def _host_steps(trainer, k: int) -> _StepSet:
+    return _StepSet(trainer.train_step,
+                    functools.partial(trainer.train_step, with_images=True),
+                    trainer.make_super_step(k) if k > 1 else None, k)
+
+
+def _build_steps(cfg, trainer, epoch_batches, *loaders, verbose: bool):
+    """``(caches, steps, epochs)``, JAX's ``_build_steps``: the step set
+    and ``epochs(epoch)``, an epoch's stream of step arguments. From the
+    host loader (``caches`` None), ``epoch_batches(epoch)`` (tuples of
+    uint8 arrays) uploaded ahead by ``device_prefetch``; with
+    ``data_cache: device``, a ``DeviceDatasetCache`` of each loader and
+    steps that gather from them."""
+    k = cfg.steps_per_call
+    if cfg.data_cache != "device":
+        return (None, _host_steps(trainer, k),
+                lambda epoch: device_prefetch(
+                    epoch_batches(epoch), trainer.device,
+                    upload_format=cfg.upload_format))
+    caches = [DeviceDatasetCache(loader, device=trainer.device,
+                                 limit_bytes=cfg.device_cache_limit_bytes)
+              for loader in loaders]
+    if verbose:
+        for cache in caches:
+            print(f"dataset on {cache.device}: {cache.n_images} images, "
+                  f"{cache.nbytes / 1e9:.2f} GB, decoded in "
+                  f"{cache.decode_s:.2f} s, uploaded in "
+                  f"{cache.upload_s:.2f} s")
+    spe = min(c.steps_per_epoch for c in caches)
+    plain, img = cached_steps_for(trainer, caches, spe)
+    super_step = (make_cached_super_step(trainer.make_super_step(k), caches,
+                                         spe) if k > 1 else None)
+    return (caches, _StepSet(plain, img, super_step, k),
+            functools.partial(_cached_batches, caches, spe))
+
+
+def _cached_batches(caches, spe: int, epoch: int):
+    """An epoch's stream on the cached path: ``epoch``'s orders copied into
+    the caches' buffers, then ``()`` once a step (the steps gather their
+    own batches)."""
+    for cache in caches:
+        cache.order_for_epoch(epoch)
+    return (() for _ in range(spe))
+
+
+def _drive_epoch(ctx: LoopContext, states, generator, batches, steps, *,
+                 step_callback, max_steps, verbose) -> bool:
     """One epoch's batches through the step calls, in place on ``states``;
     True when training is to stop (``max_steps`` reached, or SIGTERM).
     Groups of ``steps.k`` as JAX's ``_drive_epoch`` (the module docstring);
@@ -185,20 +243,17 @@ def _abort_on_error(ctx: LoopContext):
         raise
 
 
-def _run_epochs(ctx: LoopContext, trainer, states, start_epoch: int,
-                epoch_batches, *, step_callback, max_steps, verbose,
+def _run_epochs(ctx: LoopContext, trainer, steps, epochs, states,
+                start_epoch: int, *, step_callback, max_steps, verbose,
                 after_epoch=None) -> None:
-    """The epoch loop every runner shares, its final save and ``close``.
-    ``epoch_batches(epoch)`` gives an epoch's host batches (tuples of
-    uint8 arrays); ``after_epoch(epoch)`` runs before the epoch's save."""
+    """The epoch loop every runner shares over a step set and its epochs
+    (``_build_steps``), its final save and ``close``.
+    ``after_epoch(epoch)`` runs before the epoch's save."""
     cfg, generator = ctx.cfg, trainer.generator
     with _abort_on_error(ctx):
-        steps = _StepSet(trainer, cfg.steps_per_call)
         for epoch in range(start_epoch, cfg.max_epochs):
             ctx.epoch = epoch
-            with contextlib.closing(device_prefetch(
-                    epoch_batches(epoch), trainer.device,
-                    upload_format=cfg.upload_format)) as batches:
+            with contextlib.closing(epochs(epoch)) as batches:
                 done = _drive_epoch(ctx, states, generator, batches, steps,
                                     step_callback=step_callback,
                                     max_steps=max_steps, verbose=verbose)
@@ -236,13 +291,15 @@ def fit_deep_fake(cfg: DeepFakeConfig, *, resume_from: str | None = None,
     trainer = DeepFakeTrainer(cfg,
                               steps_per_epoch=_steps_per_epoch(cfg, paired),
                               image_size=paired.image_size, device=device)
+    _, steps, epochs = _build_steps(
+        cfg, trainer, lambda epoch: ((ba, bb) for (ba, _), (bb, _)
+                                     in paired.epoch(epoch)),
+        *loaders, verbose=verbose)
     ctx = LoopContext(cfg, hparams, workload="deep_fake")
     with _abort_on_error(ctx):
         states, start_epoch = _deep_fake_states(cfg, trainer, ctx,
                                                 resume_from, modify_from)
-    _run_epochs(ctx, trainer, states, start_epoch,
-                lambda epoch: ((ba, bb) for (ba, _), (bb, _)
-                               in paired.epoch(epoch)),
+    _run_epochs(ctx, trainer, steps, epochs, states, start_epoch,
                 step_callback=step_callback, max_steps=max_steps,
                 verbose=verbose)
     return states, trainer, ctx
@@ -287,10 +344,12 @@ def fit_denoiser(cfg: DenoiserConfig, *, max_steps: int | None = None,
     trainer = DenoiserTrainer(cfg,
                               steps_per_epoch=_steps_per_epoch(cfg, loader),
                               image_size=loader.image_size, device=device)
+    _, steps, epochs = _build_steps(
+        cfg, trainer, lambda epoch: ((b,) for b, _ in loader.epoch(epoch)),
+        loader, verbose=verbose)
     state = trainer.init_state(cfg.seed)
     ctx = LoopContext(cfg, hparams, workload="denoiser")
-    _run_epochs(ctx, trainer, state, 0,
-                lambda epoch: ((b,) for b, _ in loader.epoch(epoch)),
+    _run_epochs(ctx, trainer, steps, epochs, state, 0,
                 step_callback=step_callback, max_steps=max_steps,
                 verbose=verbose)
     return state, trainer, ctx
@@ -317,23 +376,30 @@ def fit_balance(cfg: BalanceConfig, *, max_steps: int | None = None,
     trainer = BalanceTrainer(cfg,
                              steps_per_epoch=_steps_per_epoch(cfg, loader),
                              image_size=loader.image_size, device=device)
+    caches, steps, epochs = _build_steps(
+        cfg, trainer, lambda epoch: ((b,) for b, _ in loader.epoch(epoch)),
+        loader, verbose=verbose)
     state = trainer.init_state(cfg.seed)
     ctx = LoopContext(cfg, hparams, workload="balance")
 
     def score(epoch: int) -> None:
-        # Scoring uploads RGB whatever upload_format says (JAX
-        # balance.py:89-90).
-        indices, losses = trainer.score_dataset(
-            state, device_prefetch(val_loader.epoch(0), trainer.device),
-            epoch=epoch)
+        if caches:
+            # Its rows are in manifest order, as val_loader's.
+            indices, losses = trainer.score_dataset_from_cache(
+                state, caches[0], epoch=epoch)
+        else:
+            # Scoring uploads RGB whatever upload_format says (JAX
+            # balance.py:89-90).
+            indices, losses = trainer.score_dataset(
+                state, device_prefetch(val_loader.epoch(0), trainer.device),
+                epoch=epoch)
         classes = compute_difficulty_index(losses, cfg.number_of_classes)
         ctx.tb.log_figure(HISTOGRAM_TAG, difficulty_histogram_image(
             classes, cfg.number_of_classes), ctx.global_step)
         if cfg.output_image_list_path:
             write_balanced_manifest(cfg, val_loader, indices, classes)
 
-    _run_epochs(ctx, trainer, state, 0,
-                lambda epoch: ((b,) for b, _ in loader.epoch(epoch)),
+    _run_epochs(ctx, trainer, steps, epochs, state, 0,
                 step_callback=step_callback, max_steps=max_steps,
                 verbose=verbose, after_epoch=score)
     return state, trainer, ctx

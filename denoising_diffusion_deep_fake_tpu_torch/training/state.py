@@ -95,6 +95,13 @@ def _model_states(states) -> list[ModelState]:
     return list(states.values()) if isinstance(states, dict) else [states]
 
 
+def step_counter(states) -> int:
+    """The host counter a step's batch position and randomness derive
+    from: ``state.step``, or model ``a``'s for the identity pair (JAX
+    ``training/cached.py:57, :71``)."""
+    return states["a"].step if isinstance(states, dict) else states.step
+
+
 def graph_objects(states) -> list:
     """Every object a CUDA graph of a train step captures the memory of:
     modules, optimizers, params, buffers, Adam's state tensors and learning

@@ -66,6 +66,10 @@ from denoising_diffusion_deep_fake_tpu.training.runners import (
     write_balanced_manifest as jax_write_balanced,
 )
 from denoising_diffusion_deep_fake_tpu_torch import config as port_config
+from denoising_diffusion_deep_fake_tpu_torch.data.device_cache import (
+    DeviceDatasetCache,
+)
+from denoising_diffusion_deep_fake_tpu_torch.data.loader import ImageLoader
 from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
     read_image_manifest,
     read_image_manifest_with_classes,
@@ -79,10 +83,14 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.losses import (
     mse_ssim_loss as port_mse_ssim_loss,
 )
 from denoising_diffusion_deep_fake_tpu_torch.training import balance, runners
+from denoising_diffusion_deep_fake_tpu_torch.training.cached import (
+    cached_steps_for,
+)
 from denoising_diffusion_deep_fake_tpu_torch.utils.jax_weights import (
     state_dict_from_jax,
 )
 
+from helpers import make_image_dataset
 from test_torch_port_model import random_flax_variables
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -192,12 +200,29 @@ def test_balance_config_validation():
 @pytest.mark.parametrize("knob", [dict(upload_format="i420"),
                                   dict(data_cache="device"),
                                   dict(patchify_stem=2)])
-def test_balancer_refuses_unported_knobs(knob):
+def test_balancer_refuses_unported_knobs(knob, tmp_path):
     """Each knob without its feature in the port is refused. ``knob0``,
     ``upload_format: i420``, has been ported since: that case checks that
     the balancer takes it and trains a step on a packed batch, while its
     scoring pass reads RGB (parity with JAX:
-    ``tests/test_torch_port_i420.py``)."""
+    ``tests/test_torch_port_i420.py``). ``knob1``, ``data_cache: device``,
+    too: that case builds a cache, trains a step on a batch gathered from
+    it and scores from it (against the host runs:
+    ``tests/test_torch_port_device_cache.py``)."""
+    if knob == dict(data_cache="device"):
+        manifest = make_image_dataset(tmp_path, n=3, size=S)
+        trainer = balance.BalanceTrainer(_cfg(**knob), steps_per_epoch=1,
+                                         image_size=S, device="cpu")
+        state = trainer.init_state(seed=0)
+        cache = DeviceDatasetCache(ImageLoader(manifest, B, image_size=S),
+                                   device="cpu")
+        plain, _ = cached_steps_for(trainer, [cache], cache.steps_per_epoch)
+        cache.order_for_epoch(0)
+        loss = plain(state)["loss"]
+        indices, losses = trainer.score_dataset_from_cache(state, cache)
+        assert state.step == 1 and torch.isfinite(loss)
+        assert indices.tolist() == [0, 1, 2] and np.isfinite(losses).all()
+        return
     if knob == dict(upload_format="i420"):
         trainer = balance.BalanceTrainer(_cfg(**knob), steps_per_epoch=1,
                                          image_size=32, device="cpu")

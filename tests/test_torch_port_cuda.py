@@ -888,3 +888,97 @@ def test_k_step_graph_matches_eager_steps(cuda, mode):
     for key in groups[0]:
         got = [float(v) for g in groups for v in g[key]]
         assert got == [float(m[key]) for m in eager], key
+
+
+def _npy_frames(root, n, size, seed):
+    from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
+        write_image_manifest)
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+    paths = [root / f"{i}.npy" for i in range(n)]
+    for p in paths:
+        np.save(p, rng.integers(0, 256, (size, size, 3), np.uint8))
+    write_image_manifest(root / "images.txt", paths)
+    return root / "images.txt"
+
+
+def test_cached_k_step_fit_denoiser_matches_host(cuda, tmp_path,
+                                                 monkeypatch):
+    """``data_cache: device`` with K = 3 against the host loader with K =
+    3, 64^2 fp32 under cudnn.deterministic, 2 epochs of 4 steps (a group
+    and the tail single each): every tensor, loss and the generator
+    bit-equal, and one graph captured across both epochs."""
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DenoiserConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.training import multi_step
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_denoiser)
+
+    manifest = _npy_frames(tmp_path / "data", 8, 64, 5)
+    captures = []
+
+    class Counted(multi_step._Graph):
+        def __init__(self, *args, **kwargs):
+            captures.append(1)
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(multi_step, "_Graph", Counted)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    runs = {}
+    for cache in ("host", "device"):
+        captures.clear()
+        cfg = config_from_dict(DenoiserConfig, dict(
+            input_image_list_path=str(manifest), batch_size=2,
+            encoder_name="resnet18", compute_dtype="float32", image_size=64,
+            max_epochs=2, steps_per_call=3, log_images=False,
+            data_cache=cache, log_dir=str(tmp_path / cache / "runs"),
+            checkpoint_dir=str(tmp_path / cache / "ckpt")))
+        losses = []
+        state, trainer, ctx = fit_denoiser(
+            cfg, verbose=False, decode_fn=np.load,
+            step_callback=lambda step, s, m: losses.extend(
+                torch.atleast_1d(m["loss"]).tolist()))
+        torch.cuda.synchronize()
+        assert ctx.global_step == 8 and len(captures) == 1
+        runs[cache] = state, trainer, losses
+    (got, got_t, got_l), (want, want_t, want_l) = runs["device"], runs["host"]
+    assert got_l == want_l
+    assert torch.equal(got_t.generator.get_state(),
+                       want_t.generator.get_state())
+    for a, b in ((got.model.state_dict(), want.model.state_dict()),
+                 *zip(got.optimizer.state_dict()["state"].values(),
+                      want.optimizer.state_dict()["state"].values())):
+        assert all(torch.equal(a[k], b[k]) for k in b)
+
+
+def test_scoring_from_the_cache_matches_host_scoring(cuda, tmp_path):
+    """The balancer's scoring from the dataset on the card against its
+    scoring of the host loader's uploads, 5 images in batches of 2 (the
+    tail padded): the same losses bit for bit."""
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        BalanceConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.data.device_cache import (
+        DeviceDatasetCache)
+    from denoising_diffusion_deep_fake_tpu_torch.data.loader import (
+        ImageLoader, device_prefetch)
+    from denoising_diffusion_deep_fake_tpu_torch.training.balance import (
+        BalanceTrainer)
+
+    manifest = _npy_frames(tmp_path / "data", 5, 64, 6)
+    cfg = config_from_dict(BalanceConfig, dict(
+        data_path=str(manifest), batch_size=2, encoder_name="resnet18",
+        compute_dtype="float32", image_size=64))
+    trainer = BalanceTrainer(cfg, steps_per_epoch=2, image_size=64)
+    state = trainer.init_state(0)
+    val = ImageLoader(manifest, 2, shuffle=False, drop_remainder=False,
+                      decode_fn=np.load)
+    LAUNCHES.clear()
+    want_idx, want = trainer.score_dataset(
+        state, device_prefetch(val.epoch(0), cuda), epoch=1)
+    cache = DeviceDatasetCache(ImageLoader(manifest, 2, decode_fn=np.load),
+                               device=cuda)
+    got_idx, got = trainer.score_dataset_from_cache(state, cache, epoch=1)
+    assert LAUNCHES["fused_normalise_noise_blend"] == 6
+    np.testing.assert_array_equal(got_idx, want_idx)
+    np.testing.assert_array_equal(got, want)

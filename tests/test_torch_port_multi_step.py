@@ -364,7 +364,7 @@ def _drive(impl, epoch_len, k, max_steps, image_steps, epochs=4):
     if impl == "jax":
         steps = _jax_steps(k, calls)
     else:
-        steps = runners._StepSet(_PortTrainer(calls), k)
+        steps = runners._host_steps(_PortTrainer(calls), k)
     for epoch in range(epochs):
         batches = [(f"b{epoch}.{i}",) for i in range(epoch_len)]
         cb = lambda step, *_: starts.append(step)  # noqa: E731
