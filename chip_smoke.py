@@ -145,6 +145,27 @@ Phases, in order; any failure exits non-zero:
    sent and as traced; (d) 10,000 frames of 448^2 (6.02 GB) made by a
    numpy decode_fn: decode and upload s, device and host memory, then K =
    16 for 32 steps.
+14. the resnet encoder family and reference checkpoints in and out: (a)
+   a 64^2 fp32 denoiser step on the GPU against the CPU for resnet50,
+   resnext50_32x4d and wide_resnet50_2 (1e-4 relative); (b) the denoiser
+   at 448^2 x16 bf16 with each of those encoders (3 warm-up and 10 timed
+   steps, a profile of 3 more: imgs/s beside phase 5's resnet34, kernels
+   and idle share a step, peak memory, one fused warp and one fp32 noise
+   launch a step), then one eval forward at 448^2 x16 bf16 of resnet101,
+   resnet152, resnext101_32x8d and wide_resnet101_2; every name's
+   parameter count as the CPU tests pin it; (c) a reference Lightning
+   .ckpt of a resnet34 pair in swap mode (configs/swap.yml over
+   configs/denoise.yml, its data paths at 10a's frames) written here in
+   the reference's layout, imported (seconds, bytes); the imported
+   shadow's 448^2 x16 swap batch bit-equal to the .ckpt's shadow weights
+   loaded straight; fit_deep_fake resumed from the import for one epoch
+   of 3 steps, eager and as one K = 3 group captured on the imported
+   fresh Adam (from epoch and global_step + 1, a fused Adam that took 3
+   steps, 2 fused warps and 2 fp32 noise launches a step, finite losses);
+   the grouped run's checkpoint exported and imported again, every model
+   and shadow tensor bit-equal to the resumed states, its keys the
+   .ckpt's less criterion.*; a resnet50 .ckpt imported and its swap batch
+   checked the same way.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Every launch count is the count from the
@@ -660,9 +681,11 @@ def make_trainer(device, *, encoder: str, batch: int, size: int,
                            device=device)
 
 
-def small_reference(dev, upload_format: str = "rgb") -> None:
-    """Phase 4 (and 11b with ``upload_format="i420"``): a 64^2 fp32 step
-    on the GPU against the CPU plain path."""
+def small_reference(dev, upload_format: str = "rgb",
+                    encoder: str = "resnet18") -> None:
+    """Phase 4 (11b with ``upload_format="i420"``, 14a with a Bottleneck
+    ``encoder``): a 64^2 fp32 step on the GPU against the CPU plain
+    path."""
     from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
         AffineAugmentConfig, sample_affine_params)
     from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
@@ -685,7 +708,7 @@ def small_reference(dev, upload_format: str = "rgb") -> None:
         np.float32))
     losses = {}
     for name, device in (("cpu", "cpu"), ("cuda", dev)):
-        trainer = make_trainer(device, encoder="resnet18", batch=b, size=s,
+        trainer = make_trainer(device, encoder=encoder, batch=b, size=s,
                                dtype="float32", warp_method="pallas_fused",
                                upload_format=upload_format)
         state = trainer.init_state(seed=7)
@@ -695,7 +718,7 @@ def small_reference(dev, upload_format: str = "rgb") -> None:
             ratios=ratios.to(on), noise=noise.to(on))
         losses[name] = float(m["loss"])
     rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-    log(f"  64^2 fp32 {upload_format} step loss: cuda "
+    log(f"  64^2 fp32 {encoder} {upload_format} step loss: cuda "
         f"{losses['cuda']:.7f}, cpu {losses['cpu']:.7f}, relative "
         f"difference {rel:.2e} (limit 1e-4: "
         "cuDNN and the CPU sum convolutions in other orders)")
@@ -759,7 +782,8 @@ def drive(dev, launches, card: str, run: dict, *, warmup: int, steps: int,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     images = run["images"]
     for key, values in losses.items():
-        log(f"  {size}^2 x{batch} resnet34 bf16: {key} "
+        log(f"  {size}^2 x{batch} {run['trainer'].cfg.encoder_name} "
+            f"{run['trainer'].cfg.compute_dtype}: {key} "
             f"{[round(v, 5) for v in values]}")
     log(f"  {size}^2 x{batch}: {step_ms:.3f} ms/step (host clock, mean of "
         f"{steps}), {images / step_ms * 1e3:.1f} imgs/s ({images} images a "
@@ -784,7 +808,8 @@ def drive(dev, launches, card: str, run: dict, *, warmup: int, steps: int,
 
 def profile_steps(run: dict, dev, path: Path | None) -> dict:
     """Device time by kernel over 3 more steps of a path; returns the port's
-    kernels' time per step by device function."""
+    kernels' time per step by device function, and records the kernels'
+    time a step in ``run["busy_ms"]`` (0 when the profiler saw none)."""
     from torch.profiler import ProfilerActivity, profile
 
     size = run["size"]
@@ -813,6 +838,7 @@ def profile_steps(run: dict, dev, path: Path | None) -> dict:
     port_ms = {fn: sum(e.self_device_time_total for e in kernels
                        if fn in e.key) / 3e3
                for fn in sorted({f for k in KERNELS.values() for f in k[2:]})}
+    run["busy_ms"] = busy_ms
     if busy_ms > 0:
         share = busy_ms / run["step_ms"]
         log(f"  profile of 3 steps ({window_ms / 3:.3f} "
@@ -3322,6 +3348,339 @@ def data_on_the_device(root: Path, dev, launches, card: str) -> dict:
     return counts
 
 
+# ------------------------- phase 14: the resnet family, checkpoints in and out
+
+FAMILY_STEPPED = ("resnet50", "resnext50_32x4d", "wide_resnet50_2")
+FAMILY_FORWARD = ("resnet101", "resnet152", "resnext101_32x8d",
+                  "wide_resnet101_2")
+# Each name's U-Net parameter count, as tests/test_torch_port_resnet_family.py
+# pins it against the JAX package's models.
+PARAM_COUNTS = {
+    "resnet34": 24_436_659,
+    "resnet50": 32_521_395,
+    "resnet101": 51_513_523,
+    "resnet152": 67_157_171,
+    "resnext50_32x4d": 31_993_267,
+    "resnext101_32x8d": 95_755_699,
+    "wide_resnet50_2": 75_847_603,
+    "wide_resnet101_2": 133_851_059,
+}
+# The reference's Lightning counters in the hand-built checkpoint.
+REF_EPOCH, REF_GLOBAL_STEP = 41, 1234
+
+
+def held_memory_gb() -> float:
+    """Device memory still allocated by earlier phases' tensors, after a
+    collection: the base a model's peak is stated above."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def family_full_width(dev, launches, card: str, main_run: dict) -> dict:
+    """Phase 14b: the denoiser at 448^2 x16 bf16 for the three *50 names
+    (3 warm-up and 10 timed steps, a profile of 3 more), then one eval
+    forward at 448^2 x16 bf16 of each deeper name. Returns the launch
+    counts by path."""
+    from denoising_diffusion_deep_fake_tpu_torch.training.state import (
+        param_count)
+
+    counts = {}
+    rows = [f"resnet34 (phase 5) {16 / main_run['step_ms'] * 1e3:.1f} "
+            f"imgs/s"]
+    for name in FAMILY_STEPPED:
+        held_gb = held_memory_gb()
+        trainer = make_trainer(dev, encoder=name, batch=16, size=448,
+                               dtype="bfloat16")
+        run = drive(dev, launches, card, single_path(trainer, size=448,
+                                                     batch=16),
+                    warmup=3, steps=10,
+                    per_step={"affine_warp_fused": 1,
+                              "fused_noise_blend": 1})
+        n = param_count(run["state"].model)
+        check(n == PARAM_COUNTS[name], f"{name} has {n} parameters, not "
+              f"{PARAM_COUNTS[name]}")
+        profile_steps(run, dev, None)
+        counts[f"family_{name}_448"] = run["counts"]
+        idle = (f"idle {1 - run['busy_ms'] / run['step_ms']:.1%}"
+                if run["busy_ms"] > 0 else "idle not measured")
+        rows.append(f"{name} {16 / run['step_ms'] * 1e3:.1f} imgs/s "
+                    f"({run['step_ms']:.3f} ms a step, kernels "
+                    f"{run['busy_ms']:.3f} ms, {idle}, peak "
+                    f"{run['peak_gb'] - held_gb:.2f} GB above the "
+                    f"{held_gb:.2f} GB held before, {n:,} params)")
+        del trainer, run
+        torch.cuda.empty_cache()
+    log(f"  14b 448^2 x16 bf16 denoiser: {'; '.join(rows)} [{card}]")
+
+    x = torch.rand((16, 448, 448, 3), device=dev) * 2 - 1
+    for name in FAMILY_FORWARD:
+        held_gb = held_memory_gb()
+        trainer = make_trainer(dev, encoder=name, batch=16, size=448,
+                               dtype="bfloat16")
+        state = trainer.init_state(seed=SEED)
+        n = param_count(state.model)
+        check(n == PARAM_COUNTS[name], f"{name} has {n} parameters, not "
+              f"{PARAM_COUNTS[name]}")
+        denoise = trainer.make_denoise_fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = denoise(state, x)
+        check(out.shape == x.shape and torch.isfinite(out).all().item(),
+              f"{name}: the eval forward is not finite")
+        ms = time_ms(lambda: denoise(state, x), iters=20, warmup=3)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+        log(f"  14b {name}: {n:,} params, eval forward 448^2 x16 bf16 "
+            f"{ms:.3f} ms (mean of 20 back to back, {16 / ms * 1e3:.1f} "
+            f"imgs/s), peak memory {peak_gb:.2f} GB above the "
+            f"{held_gb:.2f} GB held before [{card}]")
+        del trainer, state, out
+        torch.cuda.empty_cache()
+    return counts
+
+
+def reference_ckpt(path: Path, encoder: str, hparams: dict, *,
+                   with_ema: bool) -> dict:
+    """A reference Lightning ``.ckpt``, written as the reference's trainer
+    saves one: smp keys (the port's U-Net has them) with BN's
+    ``num_batches_tracked``, under ``model_{a,b}.`` and, with EMA,
+    ``ema_model_{a,b}.ema_model.`` with ema_pytorch's ``initted`` and
+    ``step``; ``criterion.*``; the Lightning counters. Every model has
+    its own weights and BN statistics. Returns the state_dict."""
+    from denoising_diffusion_deep_fake_tpu_torch.models.unet import (
+        create_unet, init_unet_)
+
+    names = ["model_a", "model_b"]
+    if with_ema:
+        names += ["ema_model_a", "ema_model_b"]
+    sd = {}
+    for i, name in enumerate(names):
+        g = torch.Generator().manual_seed(SEED + 40 + i)
+        model = init_unet_(create_unet(encoder), g)
+        prefix = (f"{name}." if name.startswith("model")
+                  else f"{name}.ema_model.")
+        for key, value in model.state_dict().items():
+            if key.endswith("running_mean"):
+                value = torch.randn(value.shape, generator=g) * 0.1
+            elif key.endswith("running_var"):
+                value = 1 + torch.rand(value.shape, generator=g) * 0.5
+            sd[prefix + key] = value
+            if key.endswith("running_mean"):
+                sd[prefix + key[:-len("running_mean")]
+                   + "num_batches_tracked"] = torch.tensor(
+                       REF_GLOBAL_STEP, dtype=torch.int64)
+        if not name.startswith("model"):
+            sd[f"{name}.initted"] = torch.tensor(True)
+            sd[f"{name}.step"] = torch.tensor(REF_GLOBAL_STEP)
+    sd["criterion.ssim.kernel"] = torch.ones(1, 1, 11, 11) / 121
+    torch.save({"state_dict": sd, "hyper_parameters": hparams,
+                "epoch": REF_EPOCH, "global_step": REF_GLOBAL_STEP,
+                "pytorch-lightning_version": "1.9.0",
+                "optimizer_states": [{}], "lr_schedulers": [{}]}, path)
+    return sd
+
+
+def _without(sd: dict, prefix: str) -> dict:
+    """``sd``'s keys under ``prefix``, less BN's ``num_batches_tracked``."""
+    return {k[len(prefix):]: v for k, v in sd.items()
+            if k.startswith(prefix) and not k.endswith("num_batches_tracked")}
+
+
+def swap_batch_check(imported: Path, sd: dict, prefix: str, encoder: str,
+                     dev, *, use_ema: bool) -> float:
+    """One 448^2 x16 single-pass batch from ``load_swap_model`` of the
+    import, bit-equal to the same pipeline with the .ckpt's weights
+    under ``prefix`` loaded straight into a port U-Net. Returns its ms."""
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        load_swap_model, make_device_pipeline)
+    from denoising_diffusion_deep_fake_tpu_torch.models.unet import (
+        create_unet)
+
+    swap = load_swap_model(imported, "a", use_ema=use_ema, device=dev)
+    frames = torch.from_numpy(np.random.default_rng(SEED + 41).integers(
+        0, 256, (16, 448, 448, 3), np.uint8)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = make_device_pipeline(swap)(frames, 0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    straight = create_unet(encoder, dtype=torch.bfloat16)
+    straight.load_state_dict(_without(sd, prefix))
+    swap.model = straight.to(dev).to(
+        memory_format=torch.channels_last).eval().requires_grad_(False)
+    want = make_device_pipeline(swap)(frames, 0)
+    check(got.shape == frames.shape and got.dtype == torch.uint8
+          and torch.equal(got, want),
+          f"{encoder}: the imported swap model's batch differs from the "
+          f".ckpt's weights loaded straight ({prefix})")
+    return ms
+
+
+def resume_from_import(imported: Path, root: Path, data: dict, dev,
+                       launches, card: str, *, k: int) -> tuple:
+    """fit_deep_fake resumed from the import for one epoch of 3 steps
+    (eager, or with ``steps_per_call`` k = 3: one group captured on the
+    imported fresh Adam), in a checkpoint directory of its own. Returns
+    (states, checkpoint directory, launch counts)."""
+    from denoising_diffusion_deep_fake_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DeepFakeConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_deep_fake)
+
+    meta = CheckpointManager(imported).read_meta()
+    name = f"import_resume_k{k}"
+    cfg = config_from_dict(DeepFakeConfig, dict(
+        meta["hparams"], steps_per_call=k, log_images=False,
+        log_dir=str(root / name / "runs"),
+        checkpoint_dir=str(root / name / "ckpt")))
+    calls = []
+    t0 = time.perf_counter()
+    (states, _, ctx), counts = fit_counted(
+        fit_deep_fake, launches, cfg, resume_from=str(imported),
+        max_steps=REF_GLOBAL_STEP + 3,
+        step_callback=lambda step, _, m: calls.append(
+            (step, [float(v) for v in torch.atleast_1d(
+                m["loss_swap/train_a"])])))
+    run_s = time.perf_counter() - t0
+    want_calls = ([REF_GLOBAL_STEP + 3] if k == 3
+                  else [REF_GLOBAL_STEP + i for i in (1, 2, 3)])
+    check([c[0] for c in calls] == want_calls
+          and ctx.epoch == REF_EPOCH + 1
+          and ctx.global_step == REF_GLOBAL_STEP + 3,
+          f"the resume from the import (K = {k}) ran {calls} in epoch "
+          f"{ctx.epoch}")
+    check(all(math.isfinite(v) for _, vs in calls for v in vs),
+          f"the resume from the import (K = {k}): losses {calls}")
+    for ident, state in states.items():
+        steps = {float(s["step"]) for s in
+                 state.optimizer.state_dict()["state"].values()}
+        check(state.step == 3 and state.ema_step == 3 and steps == {3.0},
+              f"{ident}: a fresh Adam would have taken 3 steps; the state "
+              f"has step {state.step}, Adam steps {steps}")
+        check(all(g["fused"] for g in state.optimizer.param_groups),
+              f"{ident}: the resumed Adam is not the fused one")
+    check_launches(counts, {"affine_warp_fused": 6, "fused_noise_blend": 6},
+                   f"the resume from the import (K = {k})")
+    log(f"  resumed from the import, K = {k}: steps {want_calls} in epoch "
+        f"{ctx.epoch} in {run_s:.2f} s (loader, 3 steps, final save), "
+        f"losses a {[round(v, 5) for _, vs in calls for v in vs]} [{card}]")
+    return states, Path(cfg.checkpoint_dir), counts
+
+
+def checkpoints_in_and_out(root: Path, data: dict, dev, launches,
+                           card: str) -> dict:
+    """Phase 14c: a reference .ckpt of a resnet34 pair in swap mode
+    (configs/swap.yml over configs/denoise.yml, data paths at 10a's
+    frames) -> import -> the shadow's swap batch -> resume on the card,
+    eager and grouped -> export -> import again, bit-equal; then a
+    resnet50 .ckpt's import and swap batch. Returns the launch counts."""
+    from denoising_diffusion_deep_fake_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from denoising_diffusion_deep_fake_tpu_torch.utils.torch_export import (
+        export_reference_checkpoint)
+    from denoising_diffusion_deep_fake_tpu_torch.utils.torch_import import (
+        import_reference_checkpoint)
+
+    root.mkdir(parents=True)
+    hparams = {k: list(v) if isinstance(v, tuple) else v
+               for k, v in dict(DENOISE_YML, **SWAP_YML).items()}
+    hparams.update(data_path_a=str(data["a"]), data_path_b=str(data["b"]))
+    ckpt = root / "reference.ckpt"
+    t0 = time.perf_counter()
+    sd = reference_ckpt(ckpt, "resnet34", hparams, with_ema=True)
+    log(f"  reference .ckpt: {len(sd)} keys, {ckpt.stat().st_size / 1e6:.1f}"
+        f" MB, written in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    imported = import_reference_checkpoint(ckpt, root / "imported").parent
+    import_s = time.perf_counter() - t0
+    meta = CheckpointManager(imported).read_meta()
+    check(meta["step"] == REF_GLOBAL_STEP and meta["hparams"]["mode"] ==
+          "swap" and meta["extra"]["epoch"] == REF_EPOCH,
+          f"the import's meta: {meta['step']}, {meta['extra']}")
+    swap_ms = swap_batch_check(imported, sd, "ema_model_a.ema_model.",
+                               "resnet34", dev, use_ema=True)
+    log(f"  import: {import_s:.2f} s, {tree_bytes(imported) / 1e6:.1f} MB "
+        f"written; the shadow's 448^2 x16 swap batch ({swap_ms:.1f} ms, "
+        f"first call) bit-equal to the .ckpt's shadow loaded straight "
+        f"[{card}]")
+
+    counts = {}
+    for k in (1, 3):
+        states, resumed, counts[f"import_resume_448_k{k}"] = \
+            resume_from_import(imported, root, data, dev, launches, card,
+                               k=k)
+    out = root / "exported.ckpt"
+    t0 = time.perf_counter()
+    info = export_reference_checkpoint(resumed, out)
+    export_s = time.perf_counter() - t0
+    exported = torch.load(out, map_location="cpu", weights_only=False)
+    want_keys = {k for k in sd if not k.startswith("criterion.")}
+    check(set(exported["state_dict"]) == want_keys,
+          "the exported keys are not the reference's less criterion.*: "
+          f"{sorted(set(exported['state_dict']) ^ want_keys)[:6]}")
+    check(exported["global_step"] == REF_GLOBAL_STEP + 3
+          and exported["epoch"] == REF_EPOCH + 1
+          and all(exported["state_dict"][f"ema_model_{i}.step"].item() == 3
+                  for i in "ab"), "the exported counters")
+    t0 = time.perf_counter()
+    again = import_reference_checkpoint(out, root / "again").parent
+    reimport_s = time.perf_counter() - t0
+    manager = CheckpointManager(again)
+    for ident, state in states.items():
+        parts = manager.restore_partial(ident, ["model", "ema_model"],
+                                        device="cpu")
+        for part, module in (("model", state.model),
+                             ("ema_model", state.ema_model)):
+            want = module.state_dict()
+            got = parts[part]
+            bad = [key for key in want if not torch.equal(
+                got[key], want[key].cpu())]
+            check(got.keys() == want.keys() and not bad,
+                  f"{ident} {part}: export + import differs from the "
+                  f"resumed state at {bad[:4]}")
+    log(f"  export of the resumed pair: {info['keys']} tensors, "
+        f"{out.stat().st_size / 1e6:.1f} MB in {export_s:.2f} s; imported "
+        f"again in {reimport_s:.2f} s, every model and shadow tensor "
+        f"bit-equal to the resumed states [{card}]")
+
+    ckpt50 = root / "reference_resnet50.ckpt"
+    sd50 = reference_ckpt(ckpt50, "resnet50", dict(
+        hparams, mode="denoise", encoder_name="resnet50"), with_ema=False)
+    t0 = time.perf_counter()
+    imported50 = import_reference_checkpoint(ckpt50,
+                                             root / "imported50").parent
+    import50_s = time.perf_counter() - t0
+    ms50 = swap_batch_check(imported50, sd50, "model_a.", "resnet50", dev,
+                            use_ema=False)
+    log(f"  resnet50 .ckpt ({ckpt50.stat().st_size / 1e6:.1f} MB, denoise "
+        f"mode): imported in {import50_s:.2f} s, "
+        f"{tree_bytes(imported50) / 1e6:.1f} MB written; its 448^2 x16 "
+        f"swap batch ({ms50:.1f} ms, first call) bit-equal to the .ckpt's "
+        f"weights loaded straight [{card}]")
+    return counts
+
+
+def resnet_family_and_checkpoints(root: Path, data: dict, dev, launches,
+                                  card: str, main_run: dict) -> dict:
+    """Phase 14: 14a the *50 names' 64^2 fp32 steps on the GPU against the
+    CPU, 14b their full-width rates and the deeper names' forwards, 14c
+    reference checkpoints in and out. Returns the launch counts by path."""
+    t0 = time.perf_counter()
+    log("[14a] the Bottleneck family's small references: 64^2 fp32 steps, "
+        "GPU vs CPU")
+    for name in FAMILY_STEPPED:
+        small_reference(dev, encoder=name)
+    log("[14b] the resnet family at full width: 448^2 x16 bf16")
+    counts = family_full_width(dev, launches, card, main_run)
+    log(f"    ({time.perf_counter() - t0:.1f} s)")
+    log("[14c] a reference .ckpt in, resumed on the card, and out again")
+    counts.update(checkpoints_in_and_out(root, data, dev, launches, card))
+    log(f"  phase 14 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", type=Path, default=None,
@@ -3330,6 +3689,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     # A hang anywhere prints every thread's stack and exits non-zero within
     # the script's 1200 s limit.
     faulthandler.dump_traceback_later(1100, exit=True)
@@ -3496,13 +3856,19 @@ def main() -> int:
         cache_paths = data_on_the_device(Path(tmp) / "disk", dev,
                                          _build.LAUNCHES, card)
 
+        log("[14] the resnet encoder family and reference checkpoints in "
+            "and out")
+        family_paths = resnet_family_and_checkpoints(
+            Path(tmp) / "migration", data, dev, _build.LAUNCHES, card,
+            main_run)
+
     paths = {"denoiser_448": main_run["counts"],
              "twopass_640": twopass_run["counts"],
              "balancer_448": balance_counts,
              "deep_fake_denoise_448": denoise_run["counts"],
              "deep_fake_swap_448": swap_run["counts"],
              "serve_ddim_448": ddim_counts, **loop_paths, **i420_paths,
-             **graph_paths, **cache_paths}
+             **graph_paths, **cache_paths, **family_paths}
     first_path = {"affine_warp_fused": "denoiser_448",
                   "warp_axis_pass": "twopass_640",
                   "fused_noise_blend": "denoiser_448",
@@ -3517,6 +3883,8 @@ def main() -> int:
             replaces=f"{REPO}/{tpu}", launches=by_path[first_path[k]],
             launches_by_path=by_path, library_ms=None, **results[k],
             **extra))
+    log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in "
+        f"all [{card}]")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -24,7 +24,8 @@ is written last, so a step without it is incomplete and ignored.
   tensors); ``wait_until_finished`` joins it and raises its failure.
 * ``restore`` loads every part into states built by the caller's
   function (the counterpart of JAX's ``jax.eval_shape(target_fn)``) and,
-  given the trainer's ``torch.Generator``, its state.
+  given the trainer's ``torch.Generator``, its state. The optimizers keep
+  their own implementation flags (fused, foreach, capturable).
 * ``restore_partial`` reads only the files it is asked for: a swap model
   needs one identity's model (or shadow), a sixth of the bytes.
 * ``reset_for_modify`` keeps weights, BN buffers and shadows and gives each
@@ -50,6 +51,8 @@ from denoising_diffusion_deep_fake_tpu_torch.training.optim import (
 )
 
 PARTS = ("model", "ema_model", "optimizer", "counters")
+# Optimizer group keys that choose how the update runs, not what it is.
+_IMPLEMENTATION = ("foreach", "fused", "capturable")
 SINGLE = "state"
 
 
@@ -207,8 +210,16 @@ class CheckpointManager:
             # Adam's load_state_dict moves its tensors to the params'
             # device; the fused kernel's steps stay beside the params. It
             # also puts back the saved groups' learning rates, which a CUDA
-            # optimizer holds as device tensors (training/optim.py).
+            # optimizer holds as device tensors (training/optim.py), and
+            # the saved groups' implementation flags, which belong to the
+            # device this run is on: a checkpoint written on the host (an
+            # import, utils/torch_import.py) must not turn the card's
+            # fused Adam into the CPU's loop.
+            flags = [{k: g[k] for k in _IMPLEMENTATION if k in g}
+                     for g in state.optimizer.param_groups]
             state.optimizer.load_state_dict(load("optimizer", "cpu"))
+            for group, kept in zip(state.optimizer.param_groups, flags):
+                group.update(kept)
             bind_device_lr(state.optimizer)
             counters = load("counters", "cpu")
             state.step = counters["step"]

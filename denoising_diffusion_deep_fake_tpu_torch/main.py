@@ -11,14 +11,18 @@
     ... video swap VIDEO CHECKPOINT a|b [--output OUT.mp4 --batch_size 8 \\
         --sampler_steps 0 --transfer rgb|i420]
     ... serve CHECKPOINT a|b|both [--port 8000 --transfer rgb|i420 --check]
+    ... import CKPT_PATH OUTPUT_DIR
+    ... export CHECKPOINT_DIR OUTPUT_PATH [--step N]
 
 Port of ``denoising_diffusion_deep_fake_tpu/main.py:44-187`` and
-``:272-318`` (the reference's ``d3f`` click group), with ``argparse`` in
+``:231-318`` (the reference's ``d3f`` click group), with ``argparse`` in
 place of ``click`` and the same subcommand and option names. ``--device``
 (default ``cuda``) is the port's counterpart of ``JAX_PLATFORMS=cpu``:
-``--device cpu`` runs the plain PyTorch path. ``serve --devices`` other
+``--device cpu`` runs the plain PyTorch path. ``import`` and ``export``
+convert files on the host and take no ``--device``; they cover the resnet
+encoder family (the others are ROADMAP A11). ``serve --devices`` other
 than 1 is refused (replicas are ROADMAP A9). Not ported yet: ``profile``
-(A10), ``import`` and ``export``.
+(A10).
 """
 
 from __future__ import annotations
@@ -122,6 +126,25 @@ def _serve(args):
                check=args.check, device=args.device)
 
 
+def _import(args):
+    from denoising_diffusion_deep_fake_tpu_torch.utils.torch_import import (
+        import_reference_checkpoint)
+
+    path = import_reference_checkpoint(args.ckpt_path, args.output_dir)
+    print(f"imported -> {path}")
+
+
+def _export(args):
+    from denoising_diffusion_deep_fake_tpu_torch.utils.torch_export import (
+        export_reference_checkpoint)
+
+    info = export_reference_checkpoint(args.checkpoint_dir, args.output_path,
+                                       step=args.step)
+    print(f"exported {info['keys']} tensors "
+          f"(identities {','.join(info['identities'])}, "
+          f"step {info['global_step']}) -> {args.output_path}")
+
+
 def _frame_options(p) -> None:
     p.add_argument("--width", type=int, default=448)
     p.add_argument("--height", type=int, default=448)
@@ -143,14 +166,15 @@ def build_parser() -> argparse.ArgumentParser:
         description="Face-swap-via-denoising training on an NVIDIA GPU.")
     commands = parser.add_subparsers(dest="command", required=True)
 
-    def command(group, name, run, help_text, *, steps=True):
+    def command(group, name, run, help_text, *, steps=True, device=True):
         p = group.add_parser(name, help=help_text, description=help_text)
         p.set_defaults(run=run)
         if steps:
             p.add_argument("--max_steps", type=int, default=None,
                            help="Stop after N optimizer steps (smoke runs).")
-        p.add_argument("--device", default="cuda",
-                       help="cuda (default) or cpu: the plain PyTorch path.")
+        if device:
+            p.add_argument("--device", default="cuda", help="cuda "
+                           "(default) or cpu: the plain PyTorch path.")
         return p
 
     train = commands.add_parser(
@@ -226,6 +250,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--check", action="store_true",
                    help="Deployment validation: restore, build, one device "
                    "round trip per engine, print stats JSON, exit.")
+
+    p = command(commands, "import", _import, "Convert a reference Lightning "
+                ".ckpt into a checkpoint directory (for train resume|modify, "
+                "video swap and serve).", steps=False, device=False)
+    p.add_argument("ckpt_path")
+    p.add_argument("output_dir")
+    p = command(commands, "export", _export, "Convert a checkpoint directory "
+                "into a reference Lightning .ckpt (weights, EMA shadows, BN "
+                "statistics and hparams).", steps=False, device=False)
+    p.add_argument("checkpoint_dir")
+    p.add_argument("output_path")
+    p.add_argument("--step", type=int, default=None,
+                   help="Checkpoint step to export (default: latest).")
     return parser
 
 

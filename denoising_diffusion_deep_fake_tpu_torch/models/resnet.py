@@ -1,10 +1,12 @@
 """ResNet encoders with torchvision topology and flax numerics.
 
-Port of ``denoising_diffusion_deep_fake_tpu/models/resnet.py:35-101,
-142-187``: the resnet18/34 (BasicBlock) encoders of smp's ``Unet``,
-returning the six-level feature pyramid ``[x, c1, c2, c3, c4, c5]`` at
-strides (1, 2, 4, 8, 16, 32). Module and parameter names follow
-torchvision/smp, so the state_dict uses smp's keys.
+Port of ``denoising_diffusion_deep_fake_tpu/models/resnet.py``: the whole
+resnet encoder family of smp's ``Unet`` (``RESNET_SPECS``, JAX's table):
+resnet18/34 (BasicBlock), resnet50/101/152 (Bottleneck), resnext50_32x4d
+and resnext101_32x8d (grouped Bottleneck), wide_resnet50_2 and
+wide_resnet101_2, returning the six-level feature pyramid ``[x, c1, c2,
+c3, c4, c5]`` at strides (1, 2, 4, 8, 16, 32). Module and parameter names
+follow torchvision/smp, so the state_dict uses smp's keys.
 
 Numerics follow the flax model, not ``torch.nn`` defaults:
 
@@ -22,21 +24,45 @@ its own statistics move only through the EMA blend, as the JAX package
 discards the mutated ``batch_stats`` of its shadow forward
 (``training/deep_fake.py:145-148``).
 
-The Bottleneck families (resnet50+, resnext, wide_resnet) and the other
-encoder families are not ported yet.
+The other encoder families (VGG, DenseNet, EfficientNet, SE-Net, ...) are
+not ported yet (ROADMAP A11).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-RESNET_BLOCKS = {
-    "resnet18": (2, 2, 2, 2),
-    "resnet34": (3, 4, 6, 3),
+
+class ResNetSpec(NamedTuple):
+    """One torchvision-family encoder variant (smp's resnet catalog)."""
+
+    kind: str                   # "basic" | "bottleneck"
+    blocks: tuple               # blocks per stage
+    widths: tuple = (64, 128, 256, 512)   # stage planes
+    expansion: int = 1
+    groups: int = 1             # ResNeXt cardinality
+    base_width: int = 64        # ResNeXt/wide bottleneck width basis
+
+
+RESNET_SPECS = {
+    "resnet18": ResNetSpec("basic", (2, 2, 2, 2)),
+    "resnet34": ResNetSpec("basic", (3, 4, 6, 3)),
+    "resnet50": ResNetSpec("bottleneck", (3, 4, 6, 3), expansion=4),
+    "resnet101": ResNetSpec("bottleneck", (3, 4, 23, 3), expansion=4),
+    "resnet152": ResNetSpec("bottleneck", (3, 8, 36, 3), expansion=4),
+    "resnext50_32x4d": ResNetSpec("bottleneck", (3, 4, 6, 3), expansion=4,
+                                  groups=32, base_width=4),
+    "resnext101_32x8d": ResNetSpec("bottleneck", (3, 4, 23, 3), expansion=4,
+                                   groups=32, base_width=8),
+    "wide_resnet50_2": ResNetSpec("bottleneck", (3, 4, 6, 3), expansion=4,
+                                  base_width=128),
+    "wide_resnet101_2": ResNetSpec("bottleneck", (3, 4, 23, 3), expansion=4,
+                                   base_width=128),
 }
-WIDTHS = (64, 128, 256, 512)
 
 
 class Conv2d(nn.Conv2d):
@@ -114,15 +140,49 @@ class BasicBlock(nn.Module):
         return self.relu(y + residual)
 
 
+class Bottleneck(nn.Module):
+    """1x1 -> grouped 3x3 -> 1x1 residual block (torchvision Bottleneck):
+    the inner width is ``int(planes * base_width / 64) * groups``, the
+    output ``planes * expansion``."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, *,
+                 expansion: int = 4, groups: int = 1, base_width: int = 64):
+        super().__init__()
+        width = int(planes * base_width / 64) * groups
+        out = planes * expansion
+        self.conv1 = Conv2d(inplanes, width, 1, bias=False)
+        self.bn1 = BatchNorm2d(width)
+        self.conv2 = Conv2d(width, width, 3, stride, 1, groups=groups,
+                            bias=False)
+        self.bn2 = BatchNorm2d(width)
+        self.conv3 = Conv2d(width, out, 1, bias=False)
+        self.bn3 = BatchNorm2d(out)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = None
+        if stride != 1 or inplanes != out:
+            self.downsample = nn.Sequential(
+                Conv2d(inplanes, out, 1, stride, bias=False),
+                BatchNorm2d(out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return self.relu(y + residual)
+
+
 class ResNetEncoder(nn.Module):
     """Feature-pyramid ResNet encoder (smp ``get_stages`` semantics)."""
 
     def __init__(self, encoder_name: str = "resnet34", in_channels: int = 3):
         super().__init__()
-        if encoder_name not in RESNET_BLOCKS:
+        if encoder_name not in RESNET_SPECS:
             raise NotImplementedError(
-                f"encoder {encoder_name!r} is not ported yet; the port has "
-                f"{sorted(RESNET_BLOCKS)}")
+                f"encoder {encoder_name!r} is not ported yet (ROADMAP A11: "
+                f"the other encoder families); the port has "
+                f"{sorted(RESNET_SPECS)}")
+        self.spec = spec = RESNET_SPECS[encoder_name]
         self.in_channels = in_channels
         self.conv1 = Conv2d(in_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64)
@@ -130,17 +190,23 @@ class ResNetEncoder(nn.Module):
         self.maxpool = nn.MaxPool2d(kernel_size=3, stride=2, padding=1)
         inplanes = 64
         for stage, (n_blocks, width) in enumerate(
-                zip(RESNET_BLOCKS[encoder_name], WIDTHS)):
+                zip(spec.blocks, spec.widths)):
             blocks = []
             for i in range(n_blocks):
                 stride = 2 if stage > 0 and i == 0 else 1
-                blocks.append(BasicBlock(inplanes, width, stride))
-                inplanes = width
+                if spec.kind == "basic":
+                    blocks.append(BasicBlock(inplanes, width, stride))
+                else:
+                    blocks.append(Bottleneck(
+                        inplanes, width, stride, expansion=spec.expansion,
+                        groups=spec.groups, base_width=spec.base_width))
+                inplanes = width * spec.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
 
     @property
     def out_channels(self) -> tuple[int, ...]:
-        return (self.in_channels, 64) + WIDTHS
+        return (self.in_channels, 64) + tuple(
+            w * self.spec.expansion for w in self.spec.widths)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         features = [x]

@@ -1,5 +1,10 @@
 """U-Net with smp topology: ResNet encoder + (256, 128, 64, 32, 16) decoder.
 
+The encoder is any of the resnet family's nine names
+(``models/resnet.py``, ``RESNET_SPECS``); the decoder is wired from its
+``out_channels``, so a Bottleneck encoder's 2048-channel head feeds the
+first decoder block as smp wires it.
+
 Port of ``denoising_diffusion_deep_fake_tpu/models/unet.py:122-202,
 254-266`` (``segmentation_models_pytorch.Unet(encoder_name=...,
 in_channels=3, classes=3, activation=None)``, the reference's only model).
@@ -15,6 +20,9 @@ transpose is made.
 Init parity with smp's ``initialize()`` and torchvision: encoder convs
 He-normal fan-out, decoder convs He-uniform fan-in, head xavier-uniform,
 biases zero, BN ones/zeros, drawn from an explicit ``torch.Generator``.
+A grouped 3x3 (ResNeXt) takes the fan-out of its whole weight, out
+channels x 9, as torchvision's ``kaiming_normal_`` and flax's
+``variance_scaling`` both count it.
 """
 
 from __future__ import annotations

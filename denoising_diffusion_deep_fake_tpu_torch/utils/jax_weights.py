@@ -71,7 +71,8 @@ def _torch_key(path: tuple, stat: bool) -> tuple[str, bool]:
             return "segmentation_head.0.weight", True
         return "segmentation_head.0.bias", False
     raise ValueError(f"unmapped flax key {'.'.join(path)} (the port has the "
-                     "resnet18/34 U-Net only)")
+                     "resnet family's U-Nets only; the other encoder "
+                     "families are ROADMAP A11)")
 
 
 def state_dict_from_jax(params: dict, batch_stats: dict

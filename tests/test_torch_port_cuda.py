@@ -982,3 +982,157 @@ def test_scoring_from_the_cache_matches_host_scoring(cuda, tmp_path):
     assert LAUNCHES["fused_normalise_noise_blend"] == 6
     np.testing.assert_array_equal(got_idx, want_idx)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("encoder", ["resnet50", "resnext50_32x4d",
+                                     "wide_resnet50_2"])
+def test_bottleneck_family_step_gpu_matches_cpu(cuda, encoder):
+    """A 64^2 fp32 denoiser step of each Bottleneck geometry on the card
+    against the CPU, from the same weights and injected randomness: the
+    loss within 1e-4 relative (cuDNN and the CPU sum convolutions in
+    other orders), one fused warp launch (the injected noise is blended
+    without the noise kernel)."""
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DenoiserConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
+        AffineAugmentConfig, sample_affine_params)
+    from denoising_diffusion_deep_fake_tpu_torch.training.denoiser import (
+        DenoiserTrainer)
+
+    cfg = config_from_dict(DenoiserConfig, dict(
+        input_image_list_path="unused", batch_size=2, learning_rate=1e-3,
+        encoder_name=encoder, compute_dtype="float32",
+        warp_method="pallas_fused"))
+    rng = np.random.default_rng(1)
+    u8 = torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 3), np.uint8))
+    params = sample_affine_params(2, AffineAugmentConfig.random_affine(),
+                                  generator=torch.Generator().manual_seed(5))
+    ratios = torch.from_numpy(rng.uniform(0, 0.5, 2).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((2, 64, 64, 3)).astype(
+        np.float32))
+    losses = {}
+    for device in ("cpu", cuda):
+        trainer = DenoiserTrainer(cfg, steps_per_epoch=4, image_size=64,
+                                  device=device)
+        state = trainer.init_state(seed=7)
+        on = torch.device(device)
+        LAUNCHES.clear()
+        losses[on.type] = float(trainer.train_step(
+            state, u8, affine_params={k: v.to(on) for k, v in
+                                      params.items()},
+            ratios=ratios.to(on), noise=noise.to(on))["loss"])
+    assert LAUNCHES["affine_warp_fused"] == 1
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+
+
+def _reference_ckpt(path, data, **hparams):
+    """A reference Lightning .ckpt of a resnet18 pair in swap mode, in the
+    reference's layout (smp keys with num_batches_tracked, the EMA's
+    buffers, criterion.*), from the port's own U-Nets: this file imports
+    no JAX."""
+    from denoising_diffusion_deep_fake_tpu_torch.models.unet import (
+        create_unet, init_unet_)
+
+    sd = {}
+    for i, name in enumerate(("model_a", "model_b", "ema_model_a",
+                              "ema_model_b")):
+        model = init_unet_(create_unet("resnet18"),
+                           torch.Generator().manual_seed(i))
+        prefix = name + ("." if name.startswith("model") else ".ema_model.")
+        for key, value in model.state_dict().items():
+            sd[prefix + key] = value
+            if key.endswith("running_mean"):
+                sd[prefix + key[:-len("running_mean")]
+                   + "num_batches_tracked"] = torch.tensor(7)
+        if not name.startswith("model"):
+            sd[f"{name}.initted"] = torch.tensor(True)
+            sd[f"{name}.step"] = torch.tensor(7)
+    sd["criterion.ssim.kernel"] = torch.zeros(1, 11)
+    torch.save({"state_dict": sd, "epoch": 5, "global_step": 70,
+                "hyper_parameters": dict(
+                    mode="swap", data_path_a=str(data["a"]),
+                    data_path_b=str(data["b"]), batch_size=2,
+                    encoder_name="resnet18", max_epochs=20, **hparams)},
+               path)
+    return sd
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_import_resume_export_on_gpu(cuda, tmp_path, k):
+    """A reference .ckpt imported, its shadow's swap batch on the card
+    equal to the .ckpt's weights loaded straight, then resumed on the
+    card for 2 steps (eager, or one K = 2 graph captured on the imported
+    fresh Adam), exported and imported again bit-equal to the resumed
+    states."""
+    from denoising_diffusion_deep_fake_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DeepFakeConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
+        write_image_manifest)
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        load_swap_model, make_device_pipeline)
+    from denoising_diffusion_deep_fake_tpu_torch.models.unet import (
+        create_unet)
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_deep_fake)
+    from denoising_diffusion_deep_fake_tpu_torch.utils.torch_export import (
+        export_reference_checkpoint)
+    from denoising_diffusion_deep_fake_tpu_torch.utils.torch_import import (
+        import_reference_checkpoint)
+
+    rng = np.random.default_rng(2)
+    data = {}
+    for n in "ab":
+        paths = [tmp_path / n / f"{i}.npy" for i in range(4)]
+        paths[0].parent.mkdir()
+        for p in paths:
+            np.save(p, rng.integers(0, 256, (64, 64, 3), np.uint8))
+        data[n] = tmp_path / n / "images.txt"
+        write_image_manifest(data[n], paths)
+    sd = _reference_ckpt(tmp_path / "ref.ckpt", data)
+    imported = import_reference_checkpoint(tmp_path / "ref.ckpt",
+                                           tmp_path / "imported").parent
+
+    swap = load_swap_model(imported, "a", use_ema=True)
+    frames = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(3))
+    got = make_device_pipeline(swap)(frames.to(cuda), 0)
+    straight = create_unet("resnet18", dtype=swap.model.dtype)
+    prefix = "ema_model_a.ema_model."
+    straight.load_state_dict({
+        key[len(prefix):]: v for key, v in sd.items()
+        if key.startswith(prefix) and "num_batches" not in key})
+    swap.model = straight.to(cuda).to(
+        memory_format=torch.channels_last).eval()
+    assert torch.equal(got, make_device_pipeline(swap)(frames.to(cuda), 0))
+
+    meta = CheckpointManager(imported).read_meta()
+    cfg = config_from_dict(DeepFakeConfig, dict(
+        meta["hparams"], compute_dtype="float32", image_size=64,
+        steps_per_call=k, log_images=False, log_dir=str(tmp_path / "runs"),
+        checkpoint_dir=str(tmp_path / "ckpt")))
+    LAUNCHES.clear()
+    states, _, ctx = fit_deep_fake(cfg, resume_from=str(imported),
+                                   max_steps=72, verbose=False,
+                                   decode_fn=np.load)
+    torch.cuda.synchronize()
+    assert ctx.global_step == 72 and ctx.epoch == 6
+    assert LAUNCHES["warp_axis_pass"] == 8
+    assert LAUNCHES["fused_noise_blend"] == 4
+    for state in states.values():
+        assert state.step == state.ema_step == 2
+        assert all(g["fused"] for g in state.optimizer.param_groups)
+        assert {float(s["step"]) for s in
+                state.optimizer.state_dict()["state"].values()} == {2.0}
+    export_reference_checkpoint(tmp_path / "ckpt", tmp_path / "out.ckpt")
+    again = CheckpointManager(import_reference_checkpoint(
+        tmp_path / "out.ckpt", tmp_path / "again").parent)
+    for name, state in states.items():
+        parts = again.restore_partial(name, ["model", "ema_model"])
+        for part, module in (("model", state.model),
+                             ("ema_model", state.ema_model)):
+            want = module.state_dict()
+            assert parts[part].keys() == want.keys()
+            for key in want:
+                assert torch.equal(parts[part][key].cpu(), want[key].cpu())

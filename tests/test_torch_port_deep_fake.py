@@ -121,6 +121,16 @@ SEEDS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one thread: the test run's workers share the cores, and
+    torch's own pool on each of them oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg_dict(mode):
     return dict(mode=mode, data_path_a="a.txt", data_path_b="b.txt",
                 batch_size=B, learning_rate=LR, adam_b1=B1,

@@ -34,6 +34,16 @@ HALF = ((0.5,) * 3, (0.5,) * 3)
 IMAGENET = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one thread: the test run's workers share the cores, and
+    torch's own pool on each of them oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("counter,key,want", [
     ((0, 0, 0, 0), (0, 0),
      (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),

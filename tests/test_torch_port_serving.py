@@ -89,6 +89,16 @@ STATS = {"a": ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
 WEIGHT_SEEDS = {"a": 10, "b": 11}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one thread: the test run's workers share the cores, and
+    torch's own pool on each of them oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg_dict(mode, size=S, **extra):
     return dict(dict(mode=mode, data_path_a="a.txt", data_path_b="b.txt",
                      batch_size=B, encoder_name=ENCODER,

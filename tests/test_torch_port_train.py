@@ -46,6 +46,16 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "denoising_diffusion_deep_fake_tpu_torch"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one thread: the test run's workers share the cores, and
+    torch's own pool on each of them oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(**overrides):
     base = dict(input_image_list_path="unused", batch_size=2,
                 learning_rate=0.02, encoder_name="resnet18",
