@@ -5,7 +5,8 @@
 Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build the CUDA kernels from ops/cuda/csrc (nvcc, sm_90a), one nvcc per
+2. build the CUDA kernels from ops/cuda/csrc (nvcc, sm_90a) and the
+   nvJPEG codec (data/csrc/nvjpeg_codec.cpp, -lnvjpeg), one nvcc per
    source, all started together;
 3. each kernel against its plain PyTorch version at the shapes its path
    gives it, with the kernel's and the plain version's times and the least
@@ -67,8 +68,8 @@ Phases, in order; any failure exits non-zero:
    batch within 1 LSB of the pipeline run directly on it; /healthz,
    /v1/stats and a bad X-Shape;
 10. training from disk, through the runners (training/runners.py) and
-   their loop, on .npy frames read with ``decode_fn=np.load`` (the GPU
-   machine has no cv2): (a) two identities of 48 uint8 448^2 frames and
+   their loop, on .npy frames read with ``decode_fn=np.load`` (phase 15
+   reads JPEG files): (a) two identities of 48 uint8 448^2 frames and
    their manifests; (b) fit_denoiser at phase 5's width for 2 epochs of 3
    steps (one fused warp and one fp32 noise launch a step), its event file
    read back with every record's CRC checked, its final checkpoint
@@ -166,6 +167,31 @@ Phases, in order; any failure exits non-zero:
    and shadow tensor bit-equal to the resumed states, its keys the
    .ckpt's less criterion.*; a resnet50 .ckpt imported and its swap batch
    checked the same way.
+15. the reference's JPEG/PNG frames through cv2 where it imports (the
+   H100 machine's route) and with cv2 hidden from the port
+   (``sys.modules["cv2"] = None``; the port's codec): (a) the probe of
+   what the machine has (``ctypes.util.find_library`` for jpeg,
+   turbojpeg, png, z and nvjpeg; jpeglib.h, png.h and nvjpeg.h in
+   /usr/include, /usr/local/include and the toolkit's include/; g++, cv2,
+   PIL), and the loader's decoder with cv2 and without, each the one the
+   probe implies; (b) every committed fixture of tests/data/codec through
+   the port's codec (nvJPEG for JPEG, data/png.py for PNG) and through
+   this machine's cv2 against the committed cv2 decode, and a 448^2 frame
+   of (c)'s kind decoded by nvJPEG against cv2: PNG bit-equal, nvJPEG
+   within NVJPEG_BOUNDS, cv2 within 3 / mean 1.0 LSB; nvJPEG's q95 round
+   trip beside cv2's; (c) 2 x 256 JPEG frames of 448^2 and 8 of 512x384
+   written by nvJPEG (q95, 4:2:0, smooth synthetic frames), then with no
+   decode_fn, through cv2 and through nvJPEG: fit_denoiser x16 host and
+   data_cache device, eager and K = 16, 3 epochs each (imgs/s over epochs
+   2-3 beside 13b's .npy runs); fit_balance x12 for one epoch; the CLI's
+   ``train new`` for 3 steps; then the DeviceCache's decode of 1,024
+   entries and a host batch's decode and copy back, nvJPEG and cv2; (d)
+   9a's engine behind SwapServer answering 4 clients x 25 ``POST
+   /v1/swap`` requests with JPEG bodies of 640x480 frames (crop and
+   resize), through cv2 and through the port's codec: each reply 448^2
+   and byte-equal to the route's JPEG of its device batch's output at its
+   slot, each batch within 1 LSB of the pipeline on it; frames/s beside
+   9e's raw route, and the route's host stages timed a frame at a time.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Every launch count is the count from the
@@ -3345,7 +3371,7 @@ def data_on_the_device(root: Path, dev, launches, card: str) -> dict:
         counts["cache_graph_fit_denoiser_10k"] = dataset_at_jax_sizing(
             root, dev, launches, probe, card)
         log(f"  phase 13 took {time.perf_counter() - t0:.1f} s [{card}]")
-    return counts
+    return counts, {k: v["imgs_s"] for k, v in figures.items()}
 
 
 # ------------------------- phase 14: the resnet family, checkpoints in and out
@@ -3681,6 +3707,564 @@ def resnet_family_and_checkpoints(root: Path, data: dict, dev, launches,
     return counts
 
 
+# ------------------------------------ phase 15: JPEG/PNG, cv2 and without
+
+CODEC_LIBS = ("jpeg", "turbojpeg", "png", "z", "nvjpeg")
+CODEC_HEADERS = ("jpeglib.h", "png.h", "nvjpeg.h")
+
+
+def codec_probe() -> dict:
+    """What this machine offers to decode JPEG and PNG: the libraries the
+    loader finds, the headers a build could include, g++, cv2 and PIL."""
+    import ctypes.util
+    import importlib
+
+    def imports(name: str) -> bool:
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            return False
+        return True
+
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    include_dirs = ["/usr/include", "/usr/local/include",
+                    str(Path(nvcc).resolve().parent.parent / "include")]
+    return {
+        "libs": {n: ctypes.util.find_library(n) for n in CODEC_LIBS},
+        "headers": {h: [d for d in include_dirs if (Path(d) / h).exists()]
+                    for h in CODEC_HEADERS},
+        "gxx": shutil.which("g++"),
+        "cv2": imports("cv2"),
+        "PIL": imports("PIL"),
+    }
+
+
+FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "codec"
+# nvJPEG against cv2's decode (libjpeg's IDCT and chroma upsampling) of
+# each committed JPEG fixture and of a 448^2 frame of 15c's kind: bounds on
+# the max and mean |difference| in LSB, each the figure measured on NVIDIA
+# H100 80GB HBM3, 700.00 W plus a margin of 2 LSB and 0.25 on the mean.
+# Measured: baseline_420 30 / 5.4463, gray 3 / 0.4062, nonsquare_40x24
+# 26 / 6.1382, progressive 30 / 5.4463, yuv444 3 / 0.5107, the 448^2
+# frame 11 / 1.2623: nvJPEG's 4:2:0 chroma upsampling is not libjpeg's
+# triangle filter (PERF.md section 6, ROADMAP C).
+NVJPEG_BOUNDS = {"baseline_420.jpg": (32, 5.70), "gray.jpg": (5, 0.66),
+                 "nonsquare_40x24.jpg": (28, 6.39),
+                 "progressive.jpg": (32, 5.70), "yuv444.jpg": (5, 0.76),
+                 "frame_448": (13, 1.51)}
+_ABSENT = object()
+
+
+@contextlib.contextmanager
+def without_cv2():
+    """cv2 hidden from the port: ``import cv2`` raises ImportError inside."""
+    saved = sys.modules.get("cv2", _ABSENT)
+    sys.modules["cv2"] = None
+    try:
+        yield
+    finally:
+        if saved is _ABSENT:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+
+
+def implied_decoders(probe: dict) -> tuple[str, str]:
+    """The loader's decoder that the probe implies, with cv2 and without:
+    the native library where g++ finds libjpeg's and libpng's headers and
+    libraries, else cv2, else nvJPEG where the toolkit has it."""
+    native = bool(probe["gxx"] and probe["headers"]["jpeglib.h"]
+                  and probe["headers"]["png.h"] and probe["libs"]["jpeg"]
+                  and probe["libs"]["png"])
+    nvjpeg = bool(probe["headers"]["nvjpeg.h"] and probe["libs"]["nvjpeg"])
+    without = "native" if native else "nvjpeg" if nvjpeg else "none"
+    return ("cv2" if probe["cv2"] and not native else without), without
+
+
+def fixture_manifest(root: Path) -> Path:
+    from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
+        write_image_manifest)
+
+    path = root / "fixtures.txt"
+    write_image_manifest(path, sorted(FIXTURES.glob("*.jpg"))
+                         + sorted(FIXTURES.glob("*.png")))
+    return path
+
+
+def codec_choice(root: Path, card: str) -> str:
+    """15a: the probe, and the decoder the loader chose with cv2 and
+    without; each must be the one the probe implies."""
+    from denoising_diffusion_deep_fake_tpu_torch.data import native_loader
+    from denoising_diffusion_deep_fake_tpu_torch.data.loader import (
+        ImageLoader)
+
+    probe = codec_probe()
+    log(f"  probe: {json.dumps(probe)} [{card}]")
+    want, want_bare = implied_decoders(probe)
+    manifest = fixture_manifest(root)
+    chosen = ImageLoader(manifest, 1, image_size=32).decoder
+    with without_cv2():
+        bare = ImageLoader(manifest, 1, image_size=32).decoder
+    log(f"  the loader chose {chosen!r} ({want!r} implied), without cv2 "
+        f"{bare!r} ({want_bare!r} implied); native library: "
+        f"{native_loader.unavailable_reason() or 'built'}")
+    check(chosen == want and bare == want_bare,
+          "15a: the loader's decoder is not the one the probe implies")
+    return bare
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+    return float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
+def fixture_decodes(dev, card: str) -> dict:
+    """15b: each committed fixture through the card's decoder against the
+    committed cv2 decode, and a 448^2 frame of 15c's kind decoded by
+    nvJPEG against cv2; the encoder's round trip at quality 95."""
+    from denoising_diffusion_deep_fake_tpu_torch.data import codec, nvjpeg
+
+    figures = {}
+    cv2 = codec.cv2_or_none()
+    for path in sorted(FIXTURES.glob("*.jpg")) + sorted(FIXTURES.glob(
+            "*.png")):
+        want = np.load(path.with_suffix(".npy"))
+        got = codec.decode_files([str(path)])[0]
+        check(got.shape == want.shape, f"15b {path.name}: shape {got.shape}")
+        diff = np.abs(got.astype(np.int16) - want)
+        by_cv2 = ""
+        if cv2 is not None:
+            mine = np.abs(cv2.cvtColor(cv2.imread(str(path)),
+                                       cv2.COLOR_BGR2RGB).astype(np.int16)
+                          - want)
+            by_cv2 = (f"; this machine's cv2 {cv2.__version__} against "
+                      f"the committed decode: max {int(mine.max())}")
+            # The JAX package's tolerance for a decoder against cv2's.
+            check(mine.max() <= 3 and mine.mean() < 1.0, f"15b "
+                  f"{path.name}: this machine's cv2 against the committed "
+                  f"decode: max {int(mine.max())}, mean {mine.mean():.4f}")
+        route = "nvJPEG" if path.suffix == ".jpg" else "data/png.py"
+        log(f"  {path.name} {want.shape}: {route} against cv2's decode max "
+            f"{int(diff.max())} LSB, mean {float(diff.mean()):.4f}{by_cv2}")
+        figures[path.name] = (int(diff.max()), float(diff.mean()))
+    frame = smooth_frames(dev, 1, 448, 448, SEED + 170)[0].contiguous()
+    blob = nvjpeg.codec().encode(frame, 95)
+    got = nvjpeg.decode_to_host([blob])[0]
+    source = frame.cpu().numpy()
+    line = (f"  a 448^2 frame of 15c's kind, nvJPEG q95 ({len(blob)} bytes):"
+            f" nvJPEG's decode PSNR {psnr(got, source):.2f} dB")
+    if cv2 is not None:
+        want = cv2.imdecode(np.frombuffer(blob, np.uint8),
+                            cv2.IMREAD_COLOR)[..., ::-1]
+        diff = np.abs(got.astype(np.int16) - want)
+        figures["frame_448"] = (int(diff.max()), float(diff.mean()))
+        line += (f", cv2's {psnr(want, source):.2f} dB; nvJPEG against "
+                 f"cv2's decode max {int(diff.max())} LSB, mean "
+                 f"{float(diff.mean()):.4f}, share above 3 LSB "
+                 f"{float((diff > 3).mean()):.3e}")
+    log(line + f" [{card}]")
+    source = np.load(FIXTURES / "source.npy")
+    blob = nvjpeg.codec().encode(source, 95)
+    back = nvjpeg.decode_to_host([blob])[0]
+    line = (f"  nvJPEG q95 round trip of source.npy: {len(blob)} bytes, "
+            f"PSNR {psnr(back, source):.2f} dB")
+    if cv2 is not None:
+        ok, ref = cv2.imencode(".jpg", source[..., ::-1],
+                               [cv2.IMWRITE_JPEG_QUALITY, 95])
+        ref_back = cv2.imdecode(ref, cv2.IMREAD_COLOR)[..., ::-1]
+        via_cv2 = cv2.imdecode(np.frombuffer(blob, np.uint8),
+                               cv2.IMREAD_COLOR)[..., ::-1]
+        line += (f"; cv2's: {ref.size} bytes, PSNR "
+                 f"{psnr(ref_back, source):.2f} dB; nvJPEG's file decoded "
+                 f"by cv2: PSNR {psnr(via_cv2, source):.2f} dB")
+    log(line + f" [{card}]")
+    for name, (top, mean) in figures.items():
+        if name.endswith(".png"):
+            check(top == 0, f"15b {name}: data/png.py is not bit-equal to "
+                  "cv2's decode")
+        else:
+            bound = NVJPEG_BOUNDS[name]
+            check(top <= bound[0] and mean <= bound[1],
+                  f"15b {name}: nvJPEG beyond its bound {bound} of cv2's "
+                  f"decode: max {top}, mean {mean:.4f}")
+    return figures
+
+
+def smooth_frames(dev, n: int, height: int, width: int, seed: int
+                  ) -> torch.Tensor:
+    """``n`` uint8 RGB frames on the card that compress like face crops:
+    noise at four scales, each cubic-upsampled, over a gradient."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ramp = torch.linspace(0, 60, width, device=dev)[None, None, None, :]
+    x = 90 + ramp + torch.zeros((n, 3, height, width), device=dev)
+    for cells, amp in ((7, 140.0), (28, 50.0), (112, 18.0), (448, 5.0)):
+        noise = torch.rand((n, 3, cells, cells * width // height),
+                           generator=g, device=dev) - 0.5
+        x += amp * torch.nn.functional.interpolate(
+            noise, size=(height, width), mode="bicubic", align_corners=False)
+    return x.clamp(0, 255).round().to(torch.uint8).permute(0, 2, 3, 1)
+
+
+def write_jpegs(root: Path, frames: torch.Tensor, start: int = 0) -> list:
+    from denoising_diffusion_deep_fake_tpu_torch.data import nvjpeg
+
+    root.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for i in range(frames.shape[0]):
+        paths.append(root / f"{start + i:05d}.jpg")
+        paths[-1].write_bytes(nvjpeg.codec().encode(
+            frames[i].contiguous(), 95))
+    return paths
+
+
+# The loader's routes from JPEG files that phase 15 drives: cv2, which the
+# H100 machine has and takes, and the port's codec (nvJPEG) with cv2
+# hidden; each with the prefix of its paths' launch counts.
+CODEC_ROUTES = (("cv2", "jpeg_cv2"), ("nvjpeg", "jpeg"))
+
+
+def jpeg_fits(root: Path, route: str, prefix: str, data: Path,
+              ident: dict, launches, probe, npy_rates: dict, card: str
+              ) -> dict:
+    """15c on one route: fit_denoiser x16 host and device, eager and
+    K = 16, 3 epochs each; fit_balance x12 for one epoch; the CLI's train
+    new for 3 steps. Returns the launch counts by path."""
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        BalanceConfig, DenoiserConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.data import nvjpeg
+    from denoising_diffusion_deep_fake_tpu_torch import main as cli
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_balance, fit_denoiser)
+
+    fused = {"affine_warp_fused": 1, "fused_noise_blend": 1}
+    counts = {}
+    out = root / route
+    for cache in ("host", "device"):
+        for k in (1, 16):
+            cfg = config_from_dict(DenoiserConfig, dict(
+                input_image_list_path=str(data), batch_size=16,
+                learning_rate=0.02, max_epochs=3,
+                cosine_scheduler_max_epoch=100, encoder_name="resnet34",
+                noise_exponential_sampling_lambda=5,
+                compute_dtype="bfloat16", image_size=448, seed=SEED,
+                steps_per_call=k, data_cache=cache, log_images=False,
+                log_dir=str(out / f"d_{cache}_{k}" / "runs"),
+                checkpoint_dir=str(out / f"d_{cache}_{k}" / "ck")))
+            before = nvjpeg.DECODED["frames"]
+            run = timed_fit(probe, launches, fit_denoiser, cfg, spe=16,
+                            images=16, decode_fn=None)
+            decoded = nvjpeg.DECODED["frames"] - before
+            check_launches(run["counts"], {n: 48 * v
+                                           for n, v in fused.items()},
+                           f"15c fit_denoiser {route} {cache} K = {k}")
+            check(decoded >= 256 if route == "nvjpeg" else decoded == 0,
+                  f"15c fit_denoiser {route} {cache} K = {k}: nvJPEG "
+                  f"decoded {decoded} frames")
+            npy = npy_rates.get(f"denoiser_{cache}_{k}")
+            counts[f"{prefix}_fit_denoiser_448_{cache}_k{k}"] = run["counts"]
+            log(f"  fit_denoiser 448^2 x16 from JPEG through {route}, "
+                f"{cache}, K = {k}: {run['imgs_s']:.1f} imgs/s over epochs "
+                f"2-3 (13b's .npy run {npy:.1f}); nvJPEG decoded {decoded} "
+                f"frames [{card}]")
+    cfg = config_from_dict(BalanceConfig, dict(
+        data_path=str(data), batch_size=12, learning_rate=0.01,
+        max_epochs=1, encoder_name="resnet34", ratio_of_noise=0.7,
+        number_of_classes=10, compute_dtype="bfloat16", image_size=448,
+        seed=SEED, log_images=False,
+        output_image_list_path=str(out / "balanced.txt"),
+        log_dir=str(out / "bal" / "runs"),
+        checkpoint_dir=str(out / "bal" / "ck")))
+    t1 = time.perf_counter()
+    run = timed_fit(probe, launches, fit_balance, cfg, spe=22,
+                    images=12, decode_fn=None, marks=(22,))
+    check_launches(run["counts"], {"fused_normalise_noise_blend":
+                                   22 + 22}, f"15c fit_balance {route}")
+    counts[f"{prefix}_fit_balance_448"] = run["counts"]
+    check(len((out / "balanced.txt").read_text().splitlines()) == 264,
+          "15c: the balanced manifest lacks images")
+    log(f"  fit_balance 448^2 x12 from JPEG through {route}, 1 epoch (22 "
+        f"steps, 264 scored): {time.perf_counter() - t1:.2f} s [{card}]")
+    config = out / "deep_fake.yml"
+    config.write_text(json.dumps(dict(
+        DENOISE_YML, data_path_a=str(ident["a"]),
+        data_path_b=str(ident["b"]), max_epochs=1,
+        log_dir=str(out / "cli" / "runs"),
+        checkpoint_dir=str(out / "cli" / "ck"))))
+    launches.clear()
+    t1 = time.perf_counter()
+    rc = cli.main(["train", "new", "--config_path", str(config),
+                   "--max_steps", "3"])
+    torch.cuda.synchronize()
+    counts[f"{prefix}_cli_train_new_448"] = dict(launches)
+    check(rc in (0, None), f"15c: train new through {route} returned {rc}")
+    check_launches(counts[f"{prefix}_cli_train_new_448"],
+                   {n: 6 * v for n, v in fused.items()},
+                   f"15c train new {route}")
+    log(f"  the CLI's train new from the JPEG manifests through {route}, 3 "
+        f"steps: {time.perf_counter() - t1:.2f} s [{card}]")
+    return counts
+
+
+def jpeg_training(root: Path, dev, launches, probe, card: str,
+                  step_ms: float, npy_rates: dict) -> dict:
+    """15c: 256 JPEG frames of 448^2 an identity and 8 of 512x384, written
+    by nvJPEG; the runners from them with no decode_fn, through cv2 where
+    it imports and through nvJPEG with cv2 hidden. Returns the launch
+    counts by path."""
+    from denoising_diffusion_deep_fake_tpu_torch.data import codec
+    from denoising_diffusion_deep_fake_tpu_torch.data.device_cache import (
+        DeviceDatasetCache)
+    from denoising_diffusion_deep_fake_tpu_torch.data.loader import (
+        ImageLoader)
+    from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
+        write_image_manifest)
+
+    t0 = time.perf_counter()
+    ident = {}
+    for k, name in enumerate(("a", "b")):
+        paths = write_jpegs(root / name, smooth_frames(
+            dev, 256, 448, 448, SEED + 150 + k))
+        ident[name] = root / f"{name}.txt"
+        write_image_manifest(ident[name], paths)
+    write_jpegs(root / "a", smooth_frames(dev, 8, 384, 512, SEED + 152),
+                start=256)
+    torch.cuda.synchronize()
+    sizes = [p.stat().st_size for p in (root / "a").glob("*.jpg")]
+    data = root / "denoiser.txt"
+    write_image_manifest(data, sorted((root / "a").glob("*.jpg")))
+    log(f"  512 JPEG frames of 448^2 and 8 of 512x384 written by nvJPEG "
+        f"(q95, 4:2:0) in {time.perf_counter() - t0:.2f} s; identity a's "
+        f"files {np.mean(sizes) / 1e3:.1f} kB on average [{card}]")
+    counts = {}
+    for route, prefix in CODEC_ROUTES:
+        if route == "cv2" and codec.cv2_or_none() is None:
+            log("  cv2 does not import here: no cv2 route to drive")
+            continue
+        with (without_cv2() if route == "nvjpeg"
+              else contextlib.nullcontext()):
+            chosen = ImageLoader(data, 16, image_size=448).decoder
+            check(chosen == route, f"15c: the loader chose {chosen!r}, "
+                  f"not {route!r}")
+            counts.update(jpeg_fits(root, route, prefix, data, ident,
+                                    launches, probe, npy_rates, card))
+    with without_cv2():
+        # The dataset on the card from 1,024 JPEG entries, and a host
+        # batch's decode and copy back beside the step.
+        big = root / "a_1024.txt"
+        write_image_manifest(big, sorted((root / "a").glob("*.jpg"))[:256]
+                             * 4)
+        cache = DeviceDatasetCache(ImageLoader(big, 16, image_size=448),
+                                   device=dev)
+        nv_s = cache.decode_s
+        del cache
+        loader = ImageLoader(data, 16, image_size=448, cache=False)
+        batch = np.arange(16)
+        loader._decode_batch(batch)
+        t1 = time.perf_counter()
+        for _ in range(5):
+            loader._decode_batch(batch)
+        nv_ms = (time.perf_counter() - t1) / 5 * 1e3
+    cv2_line = ""
+    if codec.cv2_or_none() is not None:
+        cache = DeviceDatasetCache(ImageLoader(big, 16, image_size=448),
+                                   device=dev)
+        cv2_s = cache.decode_s
+        del cache
+        loader = ImageLoader(data, 16, image_size=448, cache=False)
+        t1 = time.perf_counter()
+        for _ in range(5):
+            loader._decode_batch(batch)
+        cv2_line = (f"; cv2 ({loader.decoder}): {cv2_s:.2f} s and "
+                    f"{(time.perf_counter() - t1) / 5 * 1e3:.1f} ms")
+    torch.cuda.empty_cache()
+    log(f"  decode of 1,024 JPEG entries of 448^2 into the DeviceCache: "
+        f"nvJPEG {nv_s:.2f} s; a host batch of 16 decoded and copied back: "
+        f"{nv_ms:.1f} ms beside phase 5's step {step_ms:.1f} ms"
+        f"{cv2_line} [{card}]")
+    log(f"  phase 15c took {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def route_codec(route: str):
+    """The JPEG route's three host stages on ``route``, each a function of
+    one frame: decode (bytes -> BGR), crop and resize, encode (RGB ->
+    bytes at q95). cv2's own calls, or the port's codec."""
+    from denoising_diffusion_deep_fake_tpu_torch.data import codec
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        prepare_frame)
+
+    if route == "cv2":
+        import cv2
+
+        def decode(blob):
+            return cv2.imdecode(np.frombuffer(blob, np.uint8),
+                                cv2.IMREAD_COLOR)
+
+        def encode(rgb):
+            return cv2.imencode(".jpg", np.ascontiguousarray(rgb[..., ::-1]),
+                                [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes()
+    else:
+        def decode(blob):
+            return codec.decode_bytes(blob)[..., ::-1]
+
+        def encode(rgb):
+            return codec.encode_jpeg(np.ascontiguousarray(rgb), 95)
+    return decode, lambda bgr: prepare_frame(bgr, 448, 448), encode
+
+
+def serve_route(route: str, port: int, ran: list, bodies: list, direct,
+                clients: int, per_client: int, raw_rate: float, card: str
+                ) -> float:
+    """15d on one route: ``clients`` x ``per_client`` POST /v1/swap
+    requests, each reply checked against the device batch it rode in
+    (``ran``, the engine's recorded batches); the route's host stages
+    timed a frame at a time after. Returns frames/s over HTTP."""
+    decode, prepare, encode = route_codec(route)
+    ran.clear()
+    replies = [[] for _ in range(clients)]
+
+    def post(body: bytes):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            conn.request("POST", "/v1/swap", body=body,
+                         headers={"Content-Type": "image/jpeg"})
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
+    def client(c):
+        for r in range(per_client):
+            k = (c * per_client + r) % len(bodies)
+            replies[c].append((k, post(bodies[k])))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall_s = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads),
+          f"15d {route}: a client hung")
+    prepared = [prepare(decode(b)) for b in bodies]
+    host = [(f.cpu().numpy(), o.cpu().numpy()) for f, o, _ in ran]
+    for batch, out, idx in ran:
+        u8_compare(out, direct(batch, idx), f"15d {route}: an engine batch "
+                   "against the pipeline on the same batch", quiet=True)
+    n = 0
+    for row in replies:
+        for k, (status, body) in row:
+            check(status == 200, f"15d {route}: /v1/swap answered "
+                  f"{status}: {body[:300]!r}")
+            reply = decode(body)
+            check(reply.shape == (448, 448, 3),
+                  f"15d {route}: a reply decodes to {reply.shape}")
+            slots = [o[s] for f, o in host for s in range(len(f))
+                     if np.array_equal(f[s], prepared[k])]
+            check(bool(slots), f"15d {route}: a request's frame is in no "
+                  "device batch")
+            check(any(encode(o) == body for o in slots),
+                  f"15d {route}: a reply is not the JPEG of its batch's "
+                  "output")
+            n += 1
+    bgr = decode(bodies[0])
+    rgb = prepare(bgr)
+    stages = {}
+    for name, fn in (("decode", lambda: decode(bodies[0])),
+                     ("crop and resize", lambda: prepare(bgr)),
+                     ("encode", lambda: encode(rgb))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        stages[name] = (time.perf_counter() - t0) / 10 * 1e3
+    rate = n / wall_s
+    log(f"  {route}: the route's host stages alone, a frame: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items())
+        + f" [{card}]")
+    log(f"  {route}: {n} JPEG requests of 640x480 (q95, "
+        f"{np.mean([len(b) for b in bodies]) / 1e3:.1f} kB) from {clients} "
+        f"clients: {rate:.1f} frames/s over HTTP (9e's raw route "
+        f"{raw_rate:.1f}); every reply 448^2 and byte-equal to the route's "
+        f"JPEG of its device batch's output, each batch within 1 LSB of "
+        f"the pipeline on it [{card}]")
+    return rate
+
+
+def jpeg_serving(ckpt: Path, dev, launches, card: str, raw_rate: float
+                 ) -> dict:
+    """15d: 9e's engine behind SwapServer: POST /v1/swap with JPEG bodies
+    of 640x480 frames (crop and resize), 4 clients x 25 requests, through
+    cv2 where it imports (the card's route) and with cv2 hidden (the
+    port's codec). Each reply decodes to 448^2 and is byte-equal to the
+    route's JPEG of its device batch's output at its slot; each batch
+    within 1 LSB of the pipeline on the same batch. Returns frames/s by
+    route."""
+    from denoising_diffusion_deep_fake_tpu_torch.data import codec, nvjpeg
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        make_device_pipeline)
+    from denoising_diffusion_deep_fake_tpu_torch.serving import SwapEngine
+    from denoising_diffusion_deep_fake_tpu_torch.serving.server import (
+        SwapServer)
+
+    frames = smooth_frames(dev, 16, 480, 640, SEED + 160)
+    bodies = [nvjpeg.codec().encode(f.contiguous(), 95) for f in frames]
+    engine = SwapEngine(ckpt, "a", height=448, width=448, batch_size=8)
+    engine.warmup()
+    direct = make_device_pipeline(engine.model)
+    ran = []
+    pipeline = engine._dispatcher.pipeline
+
+    def recorded(batch, batch_idx):
+        out = pipeline(batch, batch_idx)
+        ran.append((batch.clone(), out, batch_idx))
+        return out
+
+    engine._dispatcher.pipeline = recorded
+    rates = {}
+    # One server for both routes: it picks cv2 or the port's codec at each
+    # request, and its shutdown closes the engine.
+    server = SwapServer(engine, host="127.0.0.1", port=0)
+    server.start()
+    try:
+        for route, _ in CODEC_ROUTES:
+            if route == "cv2" and codec.cv2_or_none() is None:
+                log("  cv2 does not import here: no cv2 route to serve")
+                continue
+            with (without_cv2() if route == "nvjpeg"
+                  else contextlib.nullcontext()):
+                rates[route] = serve_route(route, server.port, ran, bodies,
+                                           direct, 4, 25, raw_rate, card)
+    finally:
+        server.shutdown()
+    return rates
+
+
+def jpeg_frames(root: Path, ckpt: Path, dev, launches, card: str,
+                step_ms: float, npy_rates: dict, raw_rate: float) -> dict:
+    """Phase 15: the reference's JPEG/PNG frames on the card, through cv2
+    (the card machine's route) and with cv2 hidden (the port's codec).
+    Returns the launch counts by path."""
+    t0 = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    log("[15a] codec probe and the loader's choice")
+    chosen = codec_choice(root, card)
+    check(chosen == "nvjpeg", f"15: phase 15 drives nvJPEG, the loader "
+          f"chose {chosen!r} without cv2")
+    log("[15b] the committed fixtures through the card's decoder")
+    fixture_decodes(dev, card)
+    log("[15c] the runners and the CLI from JPEG files")
+    with CacheProbe() as probe:
+        counts = jpeg_training(root / "jpeg", dev, launches, probe, card,
+                               step_ms, npy_rates)
+    log("[15d] POST /v1/swap with JPEG bodies")
+    jpeg_serving(ckpt, dev, launches, card, raw_rate)
+    log(f"  phase 15 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", type=Path, default=None,
@@ -3693,6 +4277,7 @@ def main() -> int:
     # A hang anywhere prints every thread's stack and exits non-zero within
     # the script's 1200 s limit.
     faulthandler.dump_traceback_later(1100, exit=True)
+    from denoising_diffusion_deep_fake_tpu_torch.data import nvjpeg
     from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import _build
 
     dev = torch.device("cuda")
@@ -3708,10 +4293,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     sources = sorted({k[0][:-3] for k in KERNELS.values()})
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        codec_lib = pool.submit(_build.build, "d3f_nvjpeg", nvjpeg.SOURCE,
+                                nvjpeg.LINK)
         built = list(pool.map(_build.build, sources))
-    log(f"[2] built {', '.join(lib.name for lib, _ in built)} in "
-        f"{time.perf_counter() - t0:.1f} s")
+        codec_lib = codec_lib.result()[0]
+    log(f"[2] built {', '.join(lib.name for lib, _ in built)} and the "
+        f"nvJPEG codec {codec_lib.name} in {time.perf_counter() - t0:.1f} s")
     for _, report in built:
         for line in report.splitlines():
             if ("registers" in line or "spill" in line
@@ -3853,8 +4441,8 @@ def main() -> int:
 
         log("[13] data on the device (data_cache: device): the runners "
             "from a dataset on the card")
-        cache_paths = data_on_the_device(Path(tmp) / "disk", dev,
-                                         _build.LAUNCHES, card)
+        cache_paths, npy_rates = data_on_the_device(
+            Path(tmp) / "disk", dev, _build.LAUNCHES, card)
 
         log("[14] the resnet encoder family and reference checkpoints in "
             "and out")
@@ -3862,13 +4450,20 @@ def main() -> int:
             Path(tmp) / "migration", data, dev, _build.LAUNCHES, card,
             main_run)
 
+        log("[15] the reference's JPEG/PNG frames on the card, through cv2 "
+            "and with cv2 hidden: "
+            "the loader's codec, the runners, the CLI and the JPEG route")
+        jpeg_paths = jpeg_frames(
+            Path(tmp) / "codec", ckpt, dev, _build.LAUNCHES, card,
+            main_run["step_ms"], npy_rates, served)
+
     paths = {"denoiser_448": main_run["counts"],
              "twopass_640": twopass_run["counts"],
              "balancer_448": balance_counts,
              "deep_fake_denoise_448": denoise_run["counts"],
              "deep_fake_swap_448": swap_run["counts"],
              "serve_ddim_448": ddim_counts, **loop_paths, **i420_paths,
-             **graph_paths, **cache_paths, **family_paths}
+             **graph_paths, **cache_paths, **family_paths, **jpeg_paths}
     first_path = {"affine_warp_fused": "denoiser_448",
                   "warp_axis_pass": "twopass_640",
                   "fused_noise_blend": "denoiser_448",

@@ -2,10 +2,9 @@
 
 Own copy of ``denoising_diffusion_deep_fake_tpu/data/loader.py:32-237``:
 
-* the host decodes (``cv2``, or the caller's ``decode_fn``), resizes a
-  mismatched image to the static size (cubic) and assembles **uint8** NHWC
-  batches; normalisation and augmentation run on the device inside the
-  train step;
+* the host decodes, resizes a mismatched image to the static size and
+  assembles **uint8** NHWC batches; normalisation and augmentation run on
+  the device inside the train step;
 * a worker thread keeps a small queue of ready batches, so decoding
   overlaps the device's work, and hands a decode error to the consumer;
 * the epoch order is seeded by ``seed * 100_003 + epoch`` (shuffled, or
@@ -13,11 +12,25 @@ Own copy of ``denoising_diffusion_deep_fake_tpu/data/loader.py:32-237``:
 * a RAM cache (``cache="auto"`` when the decoded dataset fits
   ``cache_limit_bytes``) decodes each image at most once.
 
-The JAX package's native C++ batch loader (``use_native``) and the
-per-process manifest shard (``shard``, ROADMAP A9) are not ported; the
-constructor refuses ``shard``. ``cv2`` is imported only where an image is
-decoded or resized: a machine without it passes ``decode_fn`` (``np.load``
-of uint8 ``.npy`` frames, say).
+The decoder, JAX's selection rule with the card's codec after it
+(``loader.decoder`` names the one chosen):
+
+1. ``decode_fn`` when the caller passes one (``"decode_fn"``);
+2. with ``use_native`` (the default), the port's native batch loader
+   (``data/native_loader.py``: libjpeg/libpng decode, centre crop and
+   bilinear resize, ``native_threads`` threads) where g++ finds
+   libjpeg's and libpng's headers (``"native"``);
+3. ``cv2`` where it imports (``"cv2"``);
+4. the port's own codec (``data/codec.py``): JPEG through nvJPEG on the
+   CUDA device, copied back to the host, PNG through ``data/png.py``
+   (``"nvjpeg"``; ``"png"`` without a CUDA device, where a JPEG raises,
+   naming what is missing).
+
+Off route 2 a mismatched frame is resized by cv2's cubic resize where cv2
+imports, else by ``ops.image.resize_cubic``, OpenCV's own algorithm. The
+decoder and the resize are chosen once, when the loader is built. A file
+no decoder can read raises; none is skipped. The per-process manifest
+shard (``shard``, ROADMAP A9) is not ported; the constructor refuses it.
 
 ``device_prefetch`` is the counterpart of JAX ``parallel/mesh.py:115``
 without sharding or i420: a worker thread uploads each batch's uint8
@@ -34,6 +47,13 @@ from typing import Callable
 import numpy as np
 import torch
 
+from denoising_diffusion_deep_fake_tpu_torch.data import native_loader
+from denoising_diffusion_deep_fake_tpu_torch.data.codec import (
+    cubic_resizer,
+    cv2_or_none,
+    cv2_read_rgb,
+    decode_files,
+)
 from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
     read_image_manifest_with_classes,
 )
@@ -42,32 +62,14 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
 )
 
 
-def _cv2():
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(
-            "decoding and resizing images needs OpenCV (cv2), which is not "
-            "installed; pass decode_fn= (np.load of uint8 HWC .npy frames, "
-            "say) and frames of the configured image_size") from e
-    return cv2
-
-
 def default_decode(path: str) -> np.ndarray:
-    """JPEG/PNG -> RGB uint8 HWC (cv2 reads BGR, like the reference)."""
-    cv2 = _cv2()
-    image = cv2.imread(path)
-    if image is None:
-        raise IOError(f"failed to decode image: {path}")
-    return cv2.cvtColor(image, cv2.COLOR_BGR2RGB)
-
-
-def _resize_if_needed(image: np.ndarray, size: int) -> np.ndarray:
-    if image.shape[0] == size and image.shape[1] == size:
-        return image
-    cv2 = _cv2()
-    # Cubic, like the dataset-prep tool's resize.
-    return cv2.resize(image, (size, size), interpolation=cv2.INTER_CUBIC)
+    """JPEG/PNG -> RGB uint8 HWC through cv2 (it reads BGR, like the
+    reference)."""
+    cv2 = cv2_or_none()
+    if cv2 is None:
+        raise ImportError("default_decode reads images with cv2, which does "
+                          "not import here")
+    return cv2_read_rgb(cv2, path)
 
 
 def _threaded(produce, depth: int):
@@ -116,6 +118,7 @@ class ImageLoader:
                  seed: int = 0, drop_remainder: bool = True,
                  prefetch_batches: int = 2,
                  decode_fn: Callable[[str], np.ndarray] | None = None,
+                 use_native: bool = True, native_threads: int = 4,
                  class_balanced: bool = False,
                  shard: tuple[int, int] | None = None,
                  cache: bool | str = "auto",
@@ -140,15 +143,30 @@ class ImageLoader:
         self.seed = seed
         self.drop_remainder = drop_remainder
         self.prefetch_batches = prefetch_batches
-        self.decode_fn = decode_fn or default_decode
+        # The decoder and the resize, chosen once (module docstring).
+        cv2 = cv2_or_none()
+        self._resize = cubic_resizer()
+        if decode_fn is not None:
+            self.decoder = "decode_fn"
+            self._decode = lambda paths: [decode_fn(p) for p in paths]
+        elif use_native and native_loader.available():
+            self.decoder = "native"
+            self._decode = None
+        elif cv2 is not None:
+            self.decoder = "cv2"
+            self._decode = lambda paths: [cv2_read_rgb(cv2, p)
+                                          for p in paths]
+        else:
+            self.decoder = "nvjpeg" if torch.cuda.is_available() else "png"
+            self._decode = decode_files
         if image_size is None:
-            probe = self.decode_fn(self.paths[0])
-            if probe.shape[0] != probe.shape[1]:
-                raise ValueError(
-                    "image_size not set and first image is not square "
-                    f"({probe.shape}); set image_size in the config")
-            image_size = probe.shape[0]
+            image_size = self._probe_size(self.paths[0])
         self.image_size = image_size
+        # The native batch loader decodes, crops and resizes whole batches.
+        self.load_batch_fn = (
+            native_loader.NativeBatchSource(image_size,
+                                            n_threads=native_threads)
+            if self.decoder == "native" else None)
 
         # Each image is decoded at most once; later epochs are a
         # fancy-index copy.
@@ -186,12 +204,29 @@ class ImageLoader:
             rng.shuffle(order)
         return order
 
+    def _probe_size(self, path: str) -> int:
+        """The square size of ``path``, read by the chosen decoder."""
+        if self.decoder == "native":
+            width, height = native_loader.image_dims(path)
+        else:
+            height, width = self._decode([path])[0].shape[:2]
+        if height != width:
+            raise ValueError(
+                "image_size not set and first image is not square "
+                f"({height}x{width}); set image_size in the config")
+        return height
+
     def _decode_batch(self, indices: np.ndarray) -> np.ndarray:
+        paths = [self.paths[i] for i in indices]
+        if self.load_batch_fn is not None:
+            return self.load_batch_fn(paths)
         size = self.image_size
         batch = np.empty((len(indices), size, size, 3), dtype=np.uint8)
-        for row, idx in enumerate(indices):
-            batch[row] = _resize_if_needed(self.decode_fn(self.paths[idx]),
-                                           size)
+        for row, image in enumerate(self._decode(paths)):
+            if image.shape[:2] != (size, size):
+                # Cubic, like the dataset-prep tool's resize.
+                image = self._resize(image, (size, size))
+            batch[row] = image
         return batch
 
     def _load_batch(self, indices: np.ndarray

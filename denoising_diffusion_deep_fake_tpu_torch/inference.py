@@ -40,6 +40,7 @@ from denoising_diffusion_deep_fake_tpu_torch.config import (
     DeepFakeConfig,
     config_from_dict,
 )
+from denoising_diffusion_deep_fake_tpu_torch.data.codec import cubic_resizer
 from denoising_diffusion_deep_fake_tpu_torch.device import resolve_device
 from denoising_diffusion_deep_fake_tpu_torch.models.unet import create_unet
 from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
@@ -171,14 +172,12 @@ def make_device_pipeline(model: SwapModel, *, sampler_steps: int = 0,
 def crop_resize(frame: np.ndarray, width: int, height: int) -> np.ndarray:
     """An HWC frame of any size -> centre-cropped to ``width:height`` and
     cubic-resized to ``(height, width)``, channels as given: the video
-    prep tool's geometry. cv2 is needed only where a frame needs the
-    resize (cv2's resize to the same size is a copy)."""
+    prep tool's geometry. The resize is cv2's where cv2 imports, as the
+    JAX package's, else ``ops.image.resize_cubic``, OpenCV's own
+    ``INTER_CUBIC`` (``data.codec.cubic_resizer``)."""
     frame = center_crop(frame, width, height)
     if frame.shape[:2] != (height, width):
-        import cv2
-
-        frame = cv2.resize(frame, (width, height),
-                           interpolation=cv2.INTER_CUBIC)
+        frame = cubic_resizer()(frame, (width, height))
     return frame
 
 

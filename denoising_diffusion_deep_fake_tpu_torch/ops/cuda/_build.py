@@ -13,6 +13,14 @@ the noise kernels where their plain PyTorch versions do (csrc/noise.cu).
 There is no ``--use_fast_math``: the uint8 normalise is a true division,
 and ``logf`` and ``sincosf`` are the accurate ones.
 
+``build_host`` compiles host C++ (the image codecs under ``data/csrc/``)
+with ``g++`` the same way. Either build takes link flags (``-ljpeg``,
+``-lnvjpeg``), which join the hash. Two processes may build one library at
+once: each writes a temporary name and renames it into place. The hash
+covers sources and flags, not the machine: ``missing_headers`` asks g++
+whether this machine has a library's headers before it is built or
+loaded.
+
 ``LAUNCHES`` counts, per kernel wrapper, the launches made on the GPU. A
 wrapper adds to it in Python when it launches, which under CUDA-graph
 capture (``training/multi_step.py``) is once at capture and never at the
@@ -40,6 +48,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -73,32 +82,81 @@ def _nvcc() -> str:
                        "use on a machine with the CUDA toolkit")
 
 
-def build(name: str) -> tuple[Path, str]:
-    """Compile ``csrc/<name>.cu`` unless built already; returns the library
-    path and the compiler's report (empty when it was built before)."""
-    source = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def _compile(command: list[str], sources: list[Path], name: str,
+             flags: tuple[str, ...]) -> tuple[Path, str]:
+    """Run ``command + flags`` on ``sources`` into ``_build/`` unless a
+    library of the same sources (and the headers beside them) and flags is
+    there; returns its path and the compiler's report."""
+    texts = b"".join(p.read_bytes() for p in sources)
+    for d in sorted({p.parent for p in sources}):
+        texts += b"".join(h.read_bytes() for h in sorted(d.glob("*.h")))
+    digest = hashlib.sha256(texts + " ".join(
+        [*command[1:], *flags]).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                          capture_output=True, text=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run([*command, "-o", str(tmp), *map(str, sources),
+                           *flags], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{Path(command[0]).name} failed on "
+                           f"{', '.join(p.name for p in sources)}:\n"
+                           f"{proc.stderr}")
     os.replace(tmp, lib)
     return lib, proc.stderr
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+def build(name: str, source: Path | None = None,
+          link: tuple[str, ...] = ()) -> tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` (or ``source``) with nvcc unless built
+    already; returns the library path and the compiler's report (empty when
+    it was built before)."""
+    return _compile([_nvcc(), *NVCC_FLAGS], [source or _CSRC / f"{name}.cu"],
+                    name, link)
+
+
+def build_host(name: str, sources: list[Path],
+               link: tuple[str, ...] = ()) -> tuple[Path, str]:
+    """Compile host C++ ``sources`` into one shared library with g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: {name} is built on first use")
+    return _compile([gxx, *GXX_FLAGS], list(sources), name, link)
+
+
+def missing_headers(headers: tuple[str, ...]) -> list[str]:
+    """Those of ``headers`` that g++'s preprocessor cannot include here
+    (all of them without g++): a machine's own check, run before a build
+    that needs them."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return list(headers)
+    return [h for h in headers if subprocess.run(
+        [gxx, "-E", "-x", "c++", "-", "-o", os.devnull],
+        input=f"#include <cstdio>\n#include <{h}>\n", capture_output=True,
+        text=True).returncode != 0]
+
+
+def _load_once(name: str, make) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
-            path, _ = build(name)
-            _libs[name] = ctypes.CDLL(str(path))
+            _libs[name] = ctypes.CDLL(str(make()[0]))
         return _libs[name]
+
+
+def load(name: str, source: Path | None = None,
+         link: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (or ``source``), built on
+    first use."""
+    return _load_once(name, lambda: build(name, source, link))
+
+
+def load_host(name: str, sources: list[Path],
+              link: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded g++ library ``name`` of ``sources``, built on first use."""
+    return _load_once(name, lambda: build_host(name, sources, link))
 
 
 def build_variants(sources: dict[str, str], out: Path

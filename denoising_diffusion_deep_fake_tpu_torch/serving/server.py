@@ -6,8 +6,11 @@ Port of ``denoising_diffusion_deep_fake_tpu/serving/server.py``. Endpoints:
 * ``GET  /v1/stats``     — engine counters: batches, occupancy, latency (JSON)
 * ``POST /v1/swap``      — body = encoded image (JPEG/PNG, any size; BGR file
                            convention). Center-cropped/resized to the model
-                           frame, swapped, returned as JPEG (cv2, imported
-                           when the route is used).
+                           frame, swapped, returned as JPEG at quality 95.
+                           cv2 decodes and encodes where it imports (as
+                           the JAX server does); elsewhere the port's codec
+                           (``data/codec.py``: the native library, else
+                           nvJPEG for JPEG and ``data/png.py`` for PNG).
 * ``POST /v1/swap_raw``  — body = raw uint8 frame bytes; header ``X-Shape:
                            H,W,3`` or ``N,H,W,3`` (must match the engine's
                            frame shape). Returns raw uint8 of the same
@@ -48,6 +51,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from denoising_diffusion_deep_fake_tpu_torch.data import codec
 from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
     pack_rgb_batch_to_i420_np,
     unpack_i420_batch_to_rgb_np,
@@ -67,6 +71,33 @@ def _supported_formats(engine: SwapEngine) -> list[str]:
     except ValueError:
         return ["rgb"]
     return ["rgb", "i420"]
+
+
+def _decode_bgr(body: bytes) -> np.ndarray:
+    """An encoded image -> BGR uint8 HWC, as ``cv2.imdecode(IMREAD_COLOR)``."""
+    cv2 = codec.cv2_or_none()
+    if cv2 is not None:
+        frame = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+    else:
+        try:
+            frame = codec.decode_bytes(body)[..., ::-1]
+        except (IOError, ValueError):
+            frame = None
+    if frame is None:
+        raise ValueError("body is not a decodable image")
+    return frame
+
+
+def _encode_jpeg(rgb: np.ndarray) -> bytes:
+    """RGB uint8 HWC -> JPEG at quality 95, as ``cv2.imencode``."""
+    cv2 = codec.cv2_or_none()
+    if cv2 is None:
+        return codec.encode_jpeg(rgb, 95)
+    ok, out = cv2.imencode(".jpg", rgb[..., ::-1],
+                           [cv2.IMWRITE_JPEG_QUALITY, 95])
+    if not ok:
+        raise RuntimeError("jpeg encode failed")
+    return out.tobytes()
 
 
 def _make_handler(engines: dict[str, SwapEngine]):
@@ -291,24 +322,15 @@ def _make_handler(engines: dict[str, SwapEngine]):
                 self._reply_json(500, {"error": f"{type(e).__name__}: {e}"})
 
         def _swap_encoded(self, engine: SwapEngine):
-            import cv2
-
             from denoising_diffusion_deep_fake_tpu_torch.inference import (
                 prepare_frame)
 
             body = self._read_body()
-            buf = np.frombuffer(body, np.uint8)
-            frame_bgr = cv2.imdecode(buf, cv2.IMREAD_COLOR)
-            if frame_bgr is None:
-                raise ValueError("body is not a decodable image")
+            frame_bgr = _decode_bgr(body)
             rgb = prepare_frame(frame_bgr, engine.width, engine.height)
             fake_rgb = engine.swap(rgb,
                                    deadline_ms=self._remaining_deadline_ms())
-            ok, out = cv2.imencode(".jpg", fake_rgb[..., ::-1],
-                                   [cv2.IMWRITE_JPEG_QUALITY, 95])
-            if not ok:
-                raise RuntimeError("jpeg encode failed")
-            self._reply(200, out.tobytes(), "image/jpeg")
+            self._reply(200, _encode_jpeg(fake_rgb), "image/jpeg")
 
         def _swap_raw(self, engine: SwapEngine):
             fmt = self.headers.get("X-Format", "rgb").lower()

@@ -14,8 +14,10 @@ All three read uint8 batches from an ``images.txt`` manifest
 take one trainer step a batch (with image panels when the loop's
 wall-clock scheduler asks for them), and hand metrics, panels and
 checkpoints to ``training/loop.py``. Each runs on ``device`` (``cuda``
-when None; it raises without one) and decodes with ``decode_fn``
-(``cv2`` when None).
+when None; it raises without one) and decodes with ``decode_fn``, or
+when None with the loader's choice (``data/loader.py``: the native batch
+loader, cv2, or the port's codec, nvJPEG on a CUDA machine without cv2;
+each run prints ``loader.decoder``).
 
 With ``steps_per_call: K > 1``, ``_drive_epoch`` groups steps as JAX's
 (``runners.py:159-230`` there): K consecutive steps run as one call of the
@@ -134,6 +136,10 @@ def _build_steps(cfg, trainer, epoch_batches, *loaders, verbose: bool):
     ``data_cache: device``, a ``DeviceDatasetCache`` of each loader and
     steps that gather from them."""
     k = cfg.steps_per_call
+    if verbose:
+        for loader in loaders:
+            print(f"images of {loader.manifest_path} decoded by "
+                  f"{loader.decoder}")
     if cfg.data_cache != "device":
         return (None, _host_steps(trainer, k),
                 lambda epoch: device_prefetch(

@@ -1,7 +1,7 @@
 """The port's training-from-disk slice against the JAX package, on the CPU.
 
-* ``data/loader.py``: ``ImageLoader`` against JAX's (``use_native=False``)
-  on PNG datasets: the same epoch order for several (seed, epoch) pairs,
+* ``data/loader.py``: ``ImageLoader``'s cv2 route against JAX's (``use_native=False``
+  on both) on PNG datasets: the same epoch order for several (seed, epoch) pairs,
   shuffled and class-balanced; the same batches bit for bit, a cubic
   resize of a mismatched image included; ``PairedLoader``'s length; a
   decode error surfaces; an empty manifest raises; the RAM cache decodes
@@ -135,7 +135,9 @@ def tmp_path(tmp_path):
 
 
 def _both_loaders(manifest, **kw):
-    return (loader.ImageLoader(manifest, **kw),
+    """The cv2 route of both loaders (the native route is held against
+    JAX's in test_torch_port_codec.py)."""
+    return (loader.ImageLoader(manifest, use_native=False, **kw),
             jax_loader.ImageLoader(manifest, use_native=False, **kw))
 
 
