@@ -192,8 +192,27 @@ Phases, in order; any failure exits non-zero:
    and byte-equal to the route's JPEG of its device batch's output at its
    slot, each batch within 1 LSB of the pipeline on it; frames/s beside
    9e's raw route, and the route's host stages timed a frame at a time.
+16. color jitter, remat and the CLI's ``profile``: (a)
+   ``color_jitter_normalised`` at 448^2 x16 fp32 with injected factors,
+   card against CPU, and its time on the card; (b) at 64^2 x2 resnet18
+   fp32 under cudnn.deterministic, a denoiser step and a deep-fake swap
+   step (jitter on) with ``remat`` none, dots and full bit-equal to one
+   another (weights, BN running statistics, Adam, losses, generator), a K
+   = 3 graph with ``remat: dots`` and jitter on bit-equal to eager steps,
+   and a step with ``warp_method`` shear and hybrid against the CPU; (c)
+   the denoiser at 448^2 x16 resnet34 bf16 with each remat policy, eager
+   (3 + 10 steps, a profile of 3) and at K = 16 (2 groups): imgs/s,
+   kernels ms a step, peak memory; the jitter on against off; the 640^2
+   x4 route with ``remat: dots``; (d) ``main.py profile --steps 20
+   --report`` in a subprocess on 15c's JPEG manifest with jitter and
+   ``remat: dots``: the report names ``warp_fused_kernel`` and
+   ``noise_blend_f32_kernel`` with 20 launches each, its categories sum
+   to its busy time within 1%, the trace directory is removed; (e) the
+   deep-fake pair at 448^2 in swap mode with jitter and ``remat: dots``
+   at K = 8 (2 groups) beside 12c's rate.
 
-It prints one JSON line of per-kernel results, then, as its last line,
+Every profile of the script is a ``utils/profiling.py`` trace read by its
+``analyze_trace``. It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Every launch count is the count from the
 path that runs the kernel, reset to 0 just before the path and read just
 after it: ``launches`` from the kernel's first path, ``launches_by_path``
@@ -708,10 +727,11 @@ def make_trainer(device, *, encoder: str, batch: int, size: int,
 
 
 def small_reference(dev, upload_format: str = "rgb",
-                    encoder: str = "resnet18") -> None:
+                    encoder: str = "resnet18",
+                    warp_method: str = "pallas_fused") -> None:
     """Phase 4 (11b with ``upload_format="i420"``, 14a with a Bottleneck
-    ``encoder``): a 64^2 fp32 step on the GPU against the CPU plain
-    path."""
+    ``encoder``, 16b with ``warp_method`` shear and hybrid): a 64^2 fp32
+    step on the GPU against the CPU plain path."""
     from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
         AffineAugmentConfig, sample_affine_params)
     from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
@@ -735,7 +755,7 @@ def small_reference(dev, upload_format: str = "rgb",
     losses = {}
     for name, device in (("cpu", "cpu"), ("cuda", dev)):
         trainer = make_trainer(device, encoder=encoder, batch=b, size=s,
-                               dtype="float32", warp_method="pallas_fused",
+                               dtype="float32", warp_method=warp_method,
                                upload_format=upload_format)
         state = trainer.init_state(seed=7)
         on = torch.device(device)
@@ -744,17 +764,19 @@ def small_reference(dev, upload_format: str = "rgb",
             ratios=ratios.to(on), noise=noise.to(on))
         losses[name] = float(m["loss"])
     rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-    log(f"  64^2 fp32 {encoder} {upload_format} step loss: cuda "
-        f"{losses['cuda']:.7f}, cpu {losses['cpu']:.7f}, relative "
+    log(f"  64^2 fp32 {encoder} {upload_format} {warp_method} step loss: "
+        f"cuda {losses['cuda']:.7f}, cpu {losses['cpu']:.7f}, relative "
         f"difference {rel:.2e} (limit 1e-4: "
         "cuDNN and the CPU sum convolutions in other orders)")
     check(math.isfinite(losses["cuda"]) and rel < 1e-4,
           "the GPU step disagrees with the CPU reference")
 
 
-def single_path(trainer, *, size: int, batch: int) -> dict:
-    """One model's trainer (denoiser or balancer) as a path for ``drive``."""
-    state = trainer.init_state(seed=SEED)
+def single_path(trainer, *, size: int, batch: int, state=None) -> dict:
+    """One model's trainer (denoiser or balancer) as a path for ``drive``,
+    on ``state`` or a new one."""
+    if state is None:
+        state = trainer.init_state(seed=SEED)
     return dict(
         trainer=trainer, state=state, size=size, batch=batch, images=batch,
         step=lambda u8: {"loss": trainer.train_step(state, u8)["loss"]},
@@ -829,14 +851,26 @@ def drive(dev, launches, card: str, run: dict, *, warmup: int, steps: int,
     check(all(not torch.equal(b, p.detach())
               for b, p in zip(before, run["probes"]())),
           "params did not change")
-    return dict(run, counts=counts, step_ms=step_ms, peak_gb=peak_gb)
+    return dict(run, counts=counts, step_ms=step_ms, peak_gb=peak_gb,
+                device_ms=step_times[len(step_times) // 2])
+
+
+def device_report(report: dict | None) -> dict:
+    """The card's plane of a ``utils/profiling.py`` report ({} when the
+    profiler saw no device activity)."""
+    if not report or not report["planes"]:
+        return {}
+    return report[report["planes"][0]]
 
 
 def profile_steps(run: dict, dev, path: Path | None) -> dict:
-    """Device time by kernel over 3 more steps of a path; returns the port's
-    kernels' time per step by device function, and records the kernels'
-    time a step in ``run["busy_ms"]`` (0 when the profiler saw none)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time by kernel over 3 more steps of a path, from a
+    ``utils/profiling.py`` trace and its report; returns the port's
+    kernels' time per step by device function, and records the card's
+    busy time a step (the union of its kernels, copies and memsets) in
+    ``run["busy_ms"]`` (0 when the profiler saw none)."""
+    from denoising_diffusion_deep_fake_tpu_torch.utils.profiling import (
+        analyze_trace_dir, trace)
 
     size = run["size"]
     u8 = run.get("wire", lambda x: x)(torch.randint(
@@ -844,40 +878,40 @@ def profile_steps(run: dict, dev, path: Path | None) -> dict:
         device=dev))
     run["step"](u8)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            run["step"](u8)
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    averages = prof.key_averages()
-    table = averages.table(sort_by="self_cuda_time_total", row_limit=60)
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp, device=dev):
+            t0 = time.perf_counter()
+            for _ in range(3):
+                run["step"](u8)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        report = analyze_trace_dir(tmp, nsteps=3)
     if path is not None:
         path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_text(table)
-
-    # Kernel rows only: an operator's row repeats its kernels' time.
-    kernels = [e for e in averages
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 3e3
-    port_ms = {fn: sum(e.self_device_time_total for e in kernels
-                       if fn in e.key) / 3e3
+        path.write_text(json.dumps(report, indent=2))
+    plane = device_report(report)
+    busy_ms = plane.get("ops_busy_ms_per_step", 0.0)
+    port_ms = {fn: plane.get("port_kernels", {}).get(fn, {}).get(
+                   "ms_per_step", 0.0)
                for fn in sorted({f for k in KERNELS.values() for f in k[2:]})}
     run["busy_ms"] = busy_ms
+    run["categories"] = plane.get("category_ms_per_step", {})
     if busy_ms > 0:
         share = busy_ms / run["step_ms"]
         log(f"  profile of 3 steps ({window_ms / 3:.3f} "
-            f"ms/step under the profiler): kernels {busy_ms:.3f} ms per step"
-            f", {share:.1%} of the unprofiled {run['step_ms']:.3f} ms step "
-            f"(device idle {1 - share:.1%})")
+            f"ms/step under the profiler): card busy {busy_ms:.3f} ms per "
+            f"step, {share:.1%} of the unprofiled {run['step_ms']:.3f} ms "
+            f"step (device idle {1 - share:.1%})")
         for fn, ms in port_ms.items():
             log(f"    {fn}: {ms:.4f} ms per step ({ms / busy_ms:.2%} of "
                 "device time)")
+        log("    by category, ms a step: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in run["categories"].items()))
+        for name, ms in list(plane["top_ops_ms_per_step"].items())[:12]:
+            log(f"    {ms:8.3f}  {name[:100]}")
     else:
-        log("  profiler recorded no device time: busy share not measured")
-    for line in table.splitlines()[:24]:
-        log("    " + line[:60] + line[100:])
+        log("  profiler recorded no device time: busy share not measured "
+            f"(events by category: {report['events_by_category']})")
     return port_ms
 
 
@@ -2620,12 +2654,15 @@ def graph_against_eager(dev, launches) -> dict:
 
 def graph_rate(dev, launches, card: str, what: str, trainer, states,
                n_args: int, k: int, eager: dict, per_step: dict,
-               groups: int = 2) -> dict:
-    """Phase 12c, one path at full width: one K-step graph captured (the
-    first call: warm-up step, capture, first replay), ``groups`` timed
-    replays, then one group under the profiler; rates beside the eager
-    phase's. Returns the launch counts of the timed groups."""
-    from torch.profiler import ProfilerActivity, profile
+               groups: int = 2, phase: str = "12c") -> dict:
+    """Phase 12c (16c, 16e), one path at full width: one K-step graph
+    captured (the first call: warm-up step, capture, first replay),
+    ``groups`` timed replays, then one group under the profiler; rates
+    beside the eager phase's. Returns the launch counts of the timed
+    groups, the ms and imgs/s a step, the kernels' ms a step and the peak
+    memory."""
+    from denoising_diffusion_deep_fake_tpu_torch.utils.profiling import (
+        analyze_trace_dir, trace)
 
     size, batch = trainer.image_size, trainer.cfg.batch_size
     rng = np.random.default_rng(SEED + 42)
@@ -2654,23 +2691,21 @@ def graph_rate(dev, launches, card: str, what: str, trainer, states,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(step.captures == 1, f"{what}: {step.captures} captures")
     check_launches(counts, {key: groups * k * v
-                            for key, v in per_step.items()}, f"12c {what}")
+                            for key, v in per_step.items()}, f"{phase} {what}")
     values = [float(v) for m in losses for key, vs in m.items()
               if key != "lr" for v in vs]
     check(all(math.isfinite(v) for v in values), f"{what}: non-finite loss")
     # The idle share within one profiled group: its kernels' time against
     # the device timeline from the group's first launch to its last end.
     ends = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ends[0].record()
-        step(states, *flat)
-        ends[1].record()
-        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp, device=dev):
+            ends[0].record()
+            step(states, *flat)
+            ends[1].record()
+        busy_ms = device_report(analyze_trace_dir(tmp)).get(
+            "ops_busy_ms_per_step", 0.0)
     span_ms = ends[0].elapsed_time(ends[1])
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     images = batch * n_args
     step_ms = group_ms / k
     idle = (f"device idle {1 - busy_ms / span_ms:.1%}" if busy_ms > 0
@@ -2687,7 +2722,9 @@ def graph_rate(dev, launches, card: str, what: str, trainer, states,
         f"peak memory "
         f"{peak_gb:.2f} GB (eager phase {eager['peak_gb']:.2f} GB); "
         f"launches {counts} [{card}]")
-    return counts
+    return dict(counts=counts, step_ms=step_ms,
+                imgs_s=images / step_ms * 1e3, busy_ms=busy_ms,
+                peak_gb=peak_gb)
 
 
 def graph_full_width(dev, launches, card: str, runs: dict) -> dict:
@@ -2708,14 +2745,14 @@ def graph_full_width(dev, launches, card: str, runs: dict) -> dict:
          "identity", "denoise", 2, 8, {k: 2 * v for k, v in fused.items()}),
         ("graph_deep_fake_swap_448", "deep-fake swap 448^2, 16 per identity",
          "swap", 2, 8, {k: 2 * v for k, v in fused.items()}))
-    counts = {}
+    counts, rates = {}, {}
     for path, what, run, n_args, k, per_step in paths:
         t0 = time.perf_counter()
-        counts[path] = graph_rate(dev, launches, card, what,
-                                  runs[run]["trainer"], runs[run]["state"],
-                                  n_args, k, runs[run], per_step)
+        out = graph_rate(dev, launches, card, what, runs[run]["trainer"],
+                         runs[run]["state"], n_args, k, runs[run], per_step)
+        counts[path], rates[path] = out["counts"], out["imgs_s"]
         log(f"    ({time.perf_counter() - t0:.1f} s)")
-    return counts
+    return counts, rates
 
 
 def graph_from_disk(root: Path, data: dict, dev, launches,
@@ -3198,17 +3235,19 @@ def cached_full_width(root: Path, dev, launches, probe, card: str) -> dict:
 
 
 def h2d_copies(trace: Path) -> tuple:
-    """The host-to-device copies in a chrome trace of ``torch.profiler``:
-    their count, their bytes where the trace gives them, the count of
-    kernels the trace holds (none: the profiler saw no device activity)
-    and the count of its events by category."""
-    events = json.loads(trace.read_text())["traceEvents"]
-    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
-              and "HtoD" in e.get("name", "")]
-    sizes = [e.get("args", {}).get("bytes") for e in copies]
-    cats = collections.Counter(e.get("cat") for e in events)
-    return (len(copies), sum(sizes) if None not in sizes else None,
-            cats["kernel"], dict(cats))
+    """The host-to-device copies in a chrome trace of ``torch.profiler``,
+    from its ``utils/profiling.py`` report: their count, their bytes where
+    the trace gives them, the count of kernels the trace holds (none: the
+    profiler saw no device activity) and the count of its events by
+    category."""
+    from denoising_diffusion_deep_fake_tpu_torch.utils.profiling import (
+        analyze_trace)
+
+    report = analyze_trace(trace, nsteps=1)
+    cats = report["events_by_category"]
+    copies = device_report(report).get("memcpy", {}).get(
+        "HtoD", {"count": 0, "bytes": 0})
+    return copies["count"], copies["bytes"], cats.get("kernel", 0), cats
 
 
 class CopiesSent(TorchDispatchMode):
@@ -3238,24 +3277,25 @@ def profiled_cached_epoch(root: Path, data: Path, dev, launches, probe,
     2 epochs) at ``k`` under ``torch.profiler`` from the synchronised end
     of epoch 1 to that of epoch 2: the boundary (the order's copy) and
     epoch 2's 16 steps. Its host-to-device copies by count and bytes."""
-    from torch.profiler import ProfilerActivity, profile
-
     from denoising_diffusion_deep_fake_tpu_torch.config import (
         DenoiserConfig, config_from_dict)
     from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
         fit_denoiser)
+    from denoising_diffusion_deep_fake_tpu_torch.utils.profiling import (
+        TRACE_SUFFIX, trace)
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    traces = root / f"c13c_{k}_trace"
+    tracing = trace(traces, device=dev)
     sent = CopiesSent()
 
     def window(step, states, metrics):
         torch.cuda.synchronize()
         if step == 16:
-            prof.__enter__()
+            tracing.__enter__()
             sent.__enter__()
         elif step == 32:
             sent.__exit__(None, None, None)
-            prof.__exit__(None, None, None)
+            tracing.__exit__(None, None, None)
 
     cfg = config_from_dict(DenoiserConfig, dict(
         input_image_list_path=str(data), batch_size=16, learning_rate=0.02,
@@ -3266,9 +3306,9 @@ def profiled_cached_epoch(root: Path, data: Path, dev, launches, probe,
     probe.reset()
     fit_counted(fit_denoiser, launches, cfg, step_callback=window)
     shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
-    trace = root / f"c13c_{k}.json"
-    prof.export_chrome_trace(str(trace))
-    n, n_bytes, n_kernels, cats = h2d_copies(trace)
+    n, n_bytes, n_kernels, cats = h2d_copies(
+        next(traces.glob(f"*{TRACE_SUFFIX}")))
+    shutil.rmtree(traces)
     check(probe.loads == probe.prefetches == 0,
           f"13c: {probe.loads} host batch loads in the profiled run")
     check(sent.bytes < 1 << 20 and (n_bytes is None or n_bytes < 1 << 20),
@@ -4265,10 +4305,320 @@ def jpeg_frames(root: Path, ckpt: Path, dev, launches, card: str,
     return counts
 
 
+# ------------------- phase 16: color jitter, remat and the CLI's profile
+
+
+JITTER = (0.2, 0.2, 0.2, 0.05)
+FUSED = {"affine_warp_fused": 1, "fused_noise_blend": 1}
+POLICIES = ("none", "dots", "full")
+
+
+def jitter_on_card(dev, card: str) -> None:
+    """16a: ``color_jitter_normalised`` at 448^2 x16 fp32 with injected
+    factors on the card against the CPU, and its time on the card."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops.color import (
+        color_jitter_normalised)
+
+    rng = np.random.default_rng(SEED + 160)
+    b, s, hue = 16, 448, 0.05
+    x = torch.from_numpy(rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32))
+    params = {k: torch.from_numpy(rng.uniform(lo, hi, b).astype(np.float32))
+              for k, lo, hi in (("brightness", 0.8, 1.2),
+                                ("contrast", 0.8, 1.2),
+                                ("saturation", 0.8, 1.2),
+                                ("hue", -hue, hue))}
+    params["apply"] = torch.from_numpy(rng.random(b) < 0.8)
+    want = color_jitter_normalised(x, params, *HALF)
+    xd = x.to(dev)
+    pd = {k: v.to(dev) for k, v in params.items()}
+    got = color_jitter_normalised(xd, pd, *HALF).cpu()
+    diff = (got - want).abs()
+    share = (diff > 1e-5).float().mean().item()
+    worst = diff.max().item()
+    ms = time_ms(lambda: color_jitter_normalised(xd, pd, *HALF), 20)
+    n_bytes = 2 * x.numel() * 4
+    log(f"  16a color_jitter_normalised 448^2 x16 fp32, card against CPU: "
+        f"max |difference| {worst:.3e}, {share:.2e} of the values beyond "
+        f"1e-5 (limits: 1e-3 of them, up to 4 x the largest hue shift "
+        f"+ 1e-4 = {4 * hue + 1e-4:.4f}, where a tie between channels "
+        f"picks another hue sector); {ms:.4f} ms on the card (mean of 20; "
+        f"one pass over its {n_bytes / 1e6:.1f} MB would take "
+        f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms) [{card}]")
+    check(share < 1e-3 and worst <= 4 * hue + 1e-4,
+          f"16a: the jitter on the card differs from the CPU's ({worst}, "
+          f"{share})")
+
+
+def remat_references(dev, launches) -> dict:
+    """16b: 64^2 x2 resnet18 fp32 under cudnn.deterministic: a denoiser
+    step and a deep-fake swap step with each remat policy (jitter on),
+    bit-equal across policies, BN statistics the no-remat step's; a K = 3
+    graph with ``remat: dots`` and jitter on against 3 eager steps; a
+    step with ``warp_method: shear`` and ``hybrid``, card against CPU.
+    Returns the graph's launch counts."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    rng = np.random.default_rng(SEED + 161)
+    small = dict(batch_size=2, encoder_name="resnet18",
+                 compute_dtype="float32", image_size=64,
+                 color_jitter=JITTER)
+    try:
+        for what, make, init, n_args in (
+                ("denoiser", lambda p: make_trainer(
+                    dev, encoder="resnet18", batch=2, size=64,
+                    dtype="float32", remat=p, color_jitter=JITTER),
+                 lambda t: t.init_state(seed=SEED), 1),
+                ("deep-fake swap", lambda p: make_deep_fake(
+                    dev, dict(DENOISE_YML, **SWAP_YML), remat=p,
+                    ema_update_after_step=0, **small),
+                 lambda t: t.init_states(seed=SEED), 2)):
+            batches = [torch.from_numpy(rng.integers(
+                0, 256, (2, 64, 64, 3), np.uint8)).to(dev)
+                for _ in range(n_args)]
+            runs = {}
+            for policy in POLICIES:
+                trainer = make(policy)
+                states = init(trainer)
+                metrics = trainer.train_step(states, *batches)
+                runs[policy] = (trainer, states, {
+                    k: float(v) for k, v in metrics.items()})
+            for policy in ("dots", "full"):
+                bad = states_differ(runs[policy][1], runs["none"][1])
+                check(not bad and runs[policy][2] == runs["none"][2],
+                      f"16b {what}: remat {policy} differs from none: "
+                      f"{bad[:5]}")
+                check(torch.equal(runs[policy][0].generator.get_state(),
+                                  runs["none"][0].generator.get_state()),
+                      f"16b {what}: remat {policy} moved the generator")
+            log(f"  16b {what} step, remat none / dots / full: weights, BN "
+                f"running statistics (updated once), Adam moments and "
+                f"losses bit-equal ({runs['none'][2]})")
+
+        eager_t, graph_t = (make_trainer(
+            dev, encoder="resnet18", batch=2, size=64, dtype="float32",
+            remat="dots", color_jitter=JITTER) for _ in "ab")
+        eager_s, graph_s = (t.init_state(seed=SEED)
+                            for t in (eager_t, graph_t))
+        steps = [[torch.from_numpy(rng.integers(
+            0, 256, (2, 64, 64, 3), np.uint8)).to(dev)] for _ in range(3)]
+        eager = _run_eager(eager_t, eager_s, steps)
+        step = graph_t.make_super_step(3)
+        step(graph_s, *_k_flat(steps))  # captured on its first call
+        bad = states_differ(graph_s, eager_s)
+        # Replay the next group from the same states once more.
+        steps2 = [[torch.from_numpy(rng.integers(
+            0, 256, (2, 64, 64, 3), np.uint8)).to(dev)] for _ in range(3)]
+        eager += _run_eager(eager_t, eager_s, steps2)
+        torch.cuda.synchronize()
+        launches.clear()
+        groups = [step(graph_s, *_k_flat(steps2))]
+        torch.cuda.synchronize()
+        counts = {"graph_remat_jitter_64": dict(launches)}
+        check(not bad, f"16b: the first K = 3 group differs: {bad[:5]}")
+        check(step.captures == 1, f"16b: {step.captures} captures")
+        check_launches(counts["graph_remat_jitter_64"],
+                       {"warp_axis_pass": 6, "fused_noise_blend": 3},
+                       "16b K = 3 remat dots + jitter")
+        _check_same("16b remat dots + jitter", graph_t, graph_s, eager_t,
+                    eager_s, [groups[0]], eager[3:])
+        log("  16b K = 3 graph, remat dots and jitter on: 2 replays "
+            "bit-equal to 6 eager steps (weights, BN buffers, Adam, losses, "
+            "generator)")
+        for method in ("shear", "hybrid"):
+            small_reference(dev, warp_method=method)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    return counts
+
+
+def remat_full_width(dev, launches, card: str, twopass_run: dict) -> tuple:
+    """16c: the denoiser at 448^2 x16, resnet34, bf16, for each remat
+    policy eager (3 + 10 steps and a profile of 3) and at K = 16 (2
+    groups); jitter on against off; the 640^2 x4 route with ``remat:
+    dots``. Returns the launch counts by path and the rows."""
+    counts, rows = {}, {}
+    state = None
+    for policy in POLICIES + ("jitter",):
+        extra = (dict(color_jitter=JITTER) if policy == "jitter"
+                 else dict(remat=policy))
+        trainer = make_trainer(dev, encoder="resnet34", batch=16, size=448,
+                               dtype="bfloat16", **extra)
+        if state is None:
+            state = trainer.init_state(seed=SEED)
+        run = drive(dev, launches, card, single_path(
+            trainer, size=448, batch=16, state=state), warmup=3, steps=10,
+            per_step=FUSED)
+        profile_steps(run, dev, None)
+        counts[f"remat_{policy}_448"] = run["counts"]
+        row = dict(eager_imgs_s=16 / run["step_ms"] * 1e3,
+                   eager_busy_ms=run["busy_ms"], eager_peak_gb=run["peak_gb"],
+                   device_ms=run["device_ms"])
+        if policy != "jitter":
+            graph = graph_rate(dev, launches, card,
+                               f"16c remat {policy} 448^2 x16", trainer,
+                               state, 1, 16, run, FUSED, phase="16c")
+            counts[f"graph_remat_{policy}_448"] = graph["counts"]
+            row.update(graph_imgs_s=graph["imgs_s"],
+                       graph_busy_ms=graph["busy_ms"],
+                       graph_peak_gb=graph["peak_gb"])
+        rows[policy] = row
+        del trainer, run
+        torch.cuda.empty_cache()
+    log("  16c remat at 448^2 x16 resnet34 bf16 (imgs/s, kernels ms a "
+        "step, peak GB; eager, then K = 16):")
+    for policy in POLICIES:
+        r = rows[policy]
+        log(f"    {policy:5s} eager {r['eager_imgs_s']:.1f}, "
+            f"{r['eager_busy_ms']:.3f}, {r['eager_peak_gb']:.2f}; K = 16 "
+            f"{r['graph_imgs_s']:.1f}, {r['graph_busy_ms']:.3f}, "
+            f"{r['graph_peak_gb']:.2f} [{card}]")
+    on, off = rows["jitter"], rows["none"]
+    log(f"  16c color_jitter {list(JITTER)} against off, eager: kernels "
+        f"{on['eager_busy_ms']:.3f} against {off['eager_busy_ms']:.3f} ms a "
+        f"step (the jitter {on['eager_busy_ms'] - off['eager_busy_ms']:.3f} "
+        f"ms); device timeline median {on['device_ms']:.3f} against "
+        f"{off['device_ms']:.3f} ms; {on['eager_imgs_s']:.1f} against "
+        f"{off['eager_imgs_s']:.1f} imgs/s [{card}]")
+    trainer = make_trainer(dev, encoder="resnet34", batch=4, size=640,
+                           dtype="bfloat16", remat="dots")
+    run = drive(dev, launches, card, single_path(trainer, size=640, batch=4),
+                warmup=2, steps=10,
+                per_step={"warp_axis_pass": 2, "fused_noise_blend": 1})
+    counts["remat_dots_640"] = run["counts"]
+    log(f"  16c 640^2 x4 remat dots: {4 / run['step_ms'] * 1e3:.1f} imgs/s, "
+        f"peak {run['peak_gb']:.2f} GB, beside phase 6's "
+        f"{4 / twopass_run['step_ms'] * 1e3:.1f} imgs/s and "
+        f"{twopass_run['peak_gb']:.2f} GB [{card}]")
+    return counts, rows
+
+
+def profile_cli(root: Path, codec_root: Path, dev, card: str) -> dict:
+    """16d: ``main.py profile --report`` in a subprocess on 15c's JPEG
+    manifest (or frames written the same way), 448^2 x16, with
+    ``color_jitter`` and ``remat: dots``: the report parses, names both
+    port kernels of the path with 20 launches each, its categories sum
+    to its busy time within 1%; the trace directory is removed after.
+    Returns the launches the report counts, by wrapper."""
+    root.mkdir(parents=True, exist_ok=True)
+    manifest = codec_root / "jpeg" / "a.txt"
+    if not manifest.exists():
+        from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
+            write_image_manifest)
+
+        manifest = root / "a.txt"
+        write_image_manifest(manifest, write_jpegs(root / "a", smooth_frames(
+            dev, 64, 448, 448, SEED + 150)))
+    config = root / "profile.yml"
+    config.write_text(json.dumps(dict(
+        batch_size=16, learning_rate=0.02, max_epochs=100,
+        cosine_scheduler_max_epoch=100, encoder_name="resnet34",
+        noise_exponential_sampling_lambda=5, mean=[0.5] * 3, std=[0.5] * 3,
+        compute_dtype="bfloat16", image_size=448, seed=SEED,
+        color_jitter=list(JITTER), remat="dots",
+        log_dir=str(root / "runs"), checkpoint_dir=str(root / "ck"))))
+    trace_dir = root / "trace"
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "denoising_diffusion_deep_fake_tpu_torch.main",
+         "profile", "--config", str(config), "--input_list", str(manifest),
+         "--steps", "20", "--trace_dir", str(trace_dir), "--report"],
+        capture_output=True, text=True, timeout=300,
+        cwd=Path(__file__).resolve().parent)
+    took = time.perf_counter() - t0
+    check(out.returncode == 0, f"16d: profile exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    lines = out.stdout.splitlines()
+    trace_bytes = tree_bytes(trace_dir)
+    report = json.loads("\n".join(lines[lines.index("{"):]))
+    shutil.rmtree(trace_dir)
+    shutil.rmtree(root / "ck", ignore_errors=True)
+    check(not trace_dir.exists(), "16d: the trace directory is still there")
+    plane = device_report(report)
+    check(bool(plane), f"16d: no device plane in the report: "
+          f"{report.get('events_by_category')}")
+    port = plane["port_kernels"]
+    launched = {fn: port.get(fn, {}).get("launches", 0)
+                for fn in ("warp_fused_kernel", "noise_blend_f32_kernel")}
+    check(launched == {"warp_fused_kernel": 20, "noise_blend_f32_kernel": 20},
+          f"16d: the report's launches {launched}, not 20 each")
+    busy = plane["ops_busy_ms_per_step"]
+    cats = plane["category_ms_per_step"]
+    total = sum(cats.values())
+    log(f"  16d profile --steps 20 --report (subprocess, {took:.1f} s, "
+        f"trace {trace_bytes / 1e6:.1f} MB): card busy {busy:.3f} ms a step, "
+        f"module wall {plane['module_wall_ms_per_step']:.3f}, gap "
+        f"{plane['in_module_gap_ms_per_step']:.3f}; categories sum "
+        f"{total:.3f} ms ({total / busy - 1:+.2%} of busy); "
+        f"{plane['n_distinct_ops']} distinct ops; port kernels {port}; "
+        f"copies {plane['memcpy']} [{card}]")
+    log("    category shares of busy: " + ", ".join(
+        f"{k} {v / busy:.1%}" for k, v in cats.items()))
+    for name, ms in list(plane["top_ops_ms_per_step"].items())[:8]:
+        log(f"    {ms:8.3f}  {name[:100]}")
+    log("    its 'other': " + "; ".join(
+        f"{name[:70]} {ms:.3f}" for name, ms in
+        plane["top_ops_per_category"].get("other", {}).items()))
+    check(abs(total - busy) <= 0.01 * busy,
+          f"16d: categories sum to {total} ms, busy {busy} ms")
+    return {"affine_warp_fused": launched["warp_fused_kernel"],
+            "fused_noise_blend": launched["noise_blend_f32_kernel"]}
+
+
+def swap_remat_jitter(dev, launches, card: str, swap_run: dict,
+                      graph_rates: dict) -> dict:
+    """16e: the deep-fake pair at 448^2, 16 per identity, swap mode, with
+    jitter on and ``remat: dots``, K = 8, 2 groups; imgs/s beside 12c's
+    swap rate. Returns the launch counts."""
+    trainer = make_deep_fake(dev, dict(DENOISE_YML, **SWAP_YML),
+                             color_jitter=JITTER, remat="dots")
+    states = trainer.init_states(seed=SEED)
+    out = graph_rate(dev, launches, card, "16e deep-fake swap 448^2, 16 per "
+                     "identity, jitter + remat dots", trainer, states, 2, 8,
+                     swap_run, {k: 2 * v for k, v in FUSED.items()},
+                     phase="16e")
+    log(f"  16e {out['imgs_s']:.1f} imgs/s beside 12c's swap K = 8 "
+        f"{graph_rates['graph_deep_fake_swap_448']:.1f} (peak "
+        f"{out['peak_gb']:.2f} GB) [{card}]")
+    return out["counts"]
+
+
+def jitter_remat_profile(root: Path, codec_root: Path, dev, launches,
+                         card: str, runs: dict, graph_rates: dict) -> dict:
+    """Phase 16. Returns the launch counts by path."""
+    t0 = t = time.perf_counter()
+
+    def took(what):
+        nonlocal t
+        log(f"  {what} took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+
+    log("[16a] color jitter on the card: 448^2 x16, card against CPU")
+    jitter_on_card(dev, card)
+    log("[16b] remat and jitter at 64^2 x2: policies bit-equal, a K = 3 "
+        "graph, shear and hybrid")
+    counts = remat_references(dev, launches)
+    took("16a and 16b")
+    log("[16c] remat and jitter at full width")
+    full, _ = remat_full_width(dev, launches, card, runs["twopass"])
+    counts.update(full)
+    took("16c")
+    log("[16d] the CLI's profile --report")
+    counts["profile_cli_448"] = profile_cli(root, codec_root, dev, card)
+    took("16d")
+    log("[16e] deep-fake swap with jitter and remat dots, K = 8")
+    counts["graph_swap_remat_jitter_448"] = swap_remat_jitter(
+        dev, launches, card, runs["swap"], graph_rates)
+    took("16e")
+    log(f"  phase 16 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", type=Path, default=None,
-                        help="write the main path's profiler table here")
+                        help="write the main path's profile report (JSON) "
+                        "here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4428,11 +4778,12 @@ def main() -> int:
         log(f"  12a and 12b took {time.perf_counter() - t12:.1f} s")
         log("[12c] K-step graphs at full width: the denoiser, the 640^2 "
             "route, the balancer (K = 16), the deep-fake trainer (K = 8)")
-        graph_paths.update(graph_full_width(
+        graph_counts, graph_rates = graph_full_width(
             dev, _build.LAUNCHES, card,
             {"denoiser": main_run, "twopass": twopass_run,
              "balancer": balance_run, "denoise": denoise_run,
-             "swap": swap_run}))
+             "swap": swap_run})
+        graph_paths.update(graph_counts)
         log("[12d, 12e] the runners with steps_per_call: fit_denoiser "
             "from 10a's frames, a 64^2 grouped resume")
         graph_paths.update(graph_from_disk(Path(tmp) / "disk", data, dev,
@@ -4457,13 +4808,20 @@ def main() -> int:
             Path(tmp) / "codec", ckpt, dev, _build.LAUNCHES, card,
             main_run["step_ms"], npy_rates, served)
 
+        log("[16] color jitter, remat and the CLI's profile: the trainers' "
+            "last single-device knobs, warp_method shear and hybrid")
+        knob_paths = jitter_remat_profile(
+            Path(tmp) / "knobs", Path(tmp) / "codec", dev, _build.LAUNCHES,
+            card, {"twopass": twopass_run, "swap": swap_run}, graph_rates)
+
     paths = {"denoiser_448": main_run["counts"],
              "twopass_640": twopass_run["counts"],
              "balancer_448": balance_counts,
              "deep_fake_denoise_448": denoise_run["counts"],
              "deep_fake_swap_448": swap_run["counts"],
              "serve_ddim_448": ddim_counts, **loop_paths, **i420_paths,
-             **graph_paths, **cache_paths, **family_paths, **jpeg_paths}
+             **graph_paths, **cache_paths, **family_paths, **jpeg_paths,
+             **knob_paths}
     first_path = {"affine_warp_fused": "denoiser_448",
                   "warp_axis_pass": "twopass_640",
                   "fused_noise_blend": "denoiser_448",

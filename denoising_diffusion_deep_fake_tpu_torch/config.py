@@ -129,6 +129,11 @@ class BaseConfig:
             raise ValueError(
                 "color_jitter must be (brightness, contrast, saturation, "
                 f"hue), got {self.color_jitter!r}")
+        from denoising_diffusion_deep_fake_tpu_torch.ops.color import (
+            ColorJitterConfig)
+
+        ColorJitterConfig(*self.color_jitter,  # range validation
+                          probability=self.color_jitter_p)
 
     @property
     def cosine_t_max(self) -> int:

@@ -60,6 +60,7 @@ from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
 from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
     pack_rgb_batch_to_i420_np,
 )
+from denoising_diffusion_deep_fake_tpu_torch.utils import stragglers
 
 
 def default_decode(path: str) -> np.ndarray:
@@ -108,6 +109,9 @@ def _threaded(produce, depth: int):
     finally:
         stop.set()
         thread.join(timeout=10.0)
+        if thread.is_alive():
+            # Mid decode or upload: one more bounded join at exit.
+            stragglers.adopt(thread)
 
 
 class ImageLoader:

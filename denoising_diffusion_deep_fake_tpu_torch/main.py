@@ -13,16 +13,22 @@
     ... serve CHECKPOINT a|b|both [--port 8000 --transfer rgb|i420 --check]
     ... import CKPT_PATH OUTPUT_DIR
     ... export CHECKPOINT_DIR OUTPUT_PATH [--step N]
+    ... profile --config configs/denoiser.yml --input_list images.txt \\
+        [--steps 20 --trace_dir profile_trace --report]
 
-Port of ``denoising_diffusion_deep_fake_tpu/main.py:44-187`` and
-``:231-318`` (the reference's ``d3f`` click group), with ``argparse`` in
-place of ``click`` and the same subcommand and option names. ``--device``
+Port of ``denoising_diffusion_deep_fake_tpu/main.py:44-318`` (the
+reference's ``d3f`` click group), with ``argparse`` in place of ``click``
+and the same subcommand and option names. ``--device``
 (default ``cuda``) is the port's counterpart of ``JAX_PLATFORMS=cpu``:
 ``--device cpu`` runs the plain PyTorch path. ``import`` and ``export``
 convert files on the host and take no ``--device``; they cover the resnet
 encoder family (the others are ROADMAP A11). ``serve --devices`` other
-than 1 is refused (replicas are ROADMAP A9). Not ported yet: ``profile``
-(A10).
+than 1 is refused (replicas are ROADMAP A9). ``profile`` runs
+``fit_denoiser`` for ``--steps`` steps under a ``torch.profiler`` trace
+(``utils/profiling.py``) and, with ``--report``, prints the trace's
+per-device report as JSON: device busy and idle a step, time by category
+and by kernel, the port's kernels' launches. Its first steps include
+cuDNN's planning and the kernels' build, so read its times as shares.
 """
 
 from __future__ import annotations
@@ -145,6 +151,28 @@ def _export(args):
           f"step {info['global_step']}) -> {args.output_path}")
 
 
+def _profile(args):
+    import json
+
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_denoiser)
+    from denoising_diffusion_deep_fake_tpu_torch.utils.profiling import (
+        analyze_trace_dir, trace)
+
+    cfg = load_config(DenoiserConfig, args.config_path,
+                      overrides={"input_image_list_path": args.input_list})
+    with trace(args.trace_dir, device=args.device) as prof:
+        # One ProfilerStep# window a train step: the report's wall and gap
+        # are per step (the first window holds the set-up).
+        fit_denoiser(cfg, max_steps=args.steps, device=args.device,
+                     step_callback=lambda *_: prof.step())
+    print(f"trace written to {args.trace_dir}")
+    if args.report:
+        summary = analyze_trace_dir(args.trace_dir, nsteps=args.steps)
+        print(json.dumps(summary if summary is not None
+                         else {"error": "no trace file written"}, indent=2))
+
+
 def _frame_options(p) -> None:
     p.add_argument("--width", type=int, default=448)
     p.add_argument("--height", type=int, default=448)
@@ -263,6 +291,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("output_path")
     p.add_argument("--step", type=int, default=None,
                    help="Checkpoint step to export (default: latest).")
+
+    p = command(commands, "profile", _profile, "Capture a torch.profiler "
+                "trace of N denoiser train steps.", steps=False)
+    p.add_argument("--config", dest="config_path", required=True,
+                   help="Denoiser config yaml (the profiling workload).")
+    p.add_argument("--input_list", required=True,
+                   help="images.txt manifest of training images.")
+    p.add_argument("--steps", type=int, default=20,
+                   help="Train steps to capture (the first ones include "
+                   "set-up).")
+    p.add_argument("--trace_dir", default="profile_trace",
+                   help="Output directory of the Chrome-trace JSON.")
+    p.add_argument("--report", action="store_true",
+                   help="Also read the trace and print the per-device "
+                   "report (no viewer needed).")
     return parser
 
 

@@ -1,10 +1,17 @@
 """Batched augmentation on the device: random affine warps + normalisation.
 
-Port of ``denoising_diffusion_deep_fake_tpu/ops/augment.py`` (``:38-118,
-298-338, 341-408``). Kornia ``RandomAffine`` / albumentations
-``ShiftScaleRotate`` semantics: per-sample inverse-affine bilinear
-resampling with a constant-zero border, applied after normalisation, so the
-border is normalised zero.
+Port of ``denoising_diffusion_deep_fake_tpu/ops/augment.py`` (``:38-408``).
+Kornia ``RandomAffine`` / albumentations ``ShiftScaleRotate`` semantics:
+per-sample inverse-affine bilinear resampling with a constant-zero border,
+applied after normalisation, so the border is normalised zero.
+
+The warp methods: ``pallas_fused`` and ``pallas``, the CUDA kernels of the
+LDU-shear warp (``ops/cuda/``); ``gather``, the direct 4-tap bilinear
+warp; ``shear`` and ``hybrid``, the JAX package's XLA layouts of the same
+LDU-shear factorisation (``affine_warp_shear``, ``affine_warp_hybrid``),
+in plain PyTorch here: windowed multiply-accumulates over shifted slices,
+no gathers (``shear``), or a per-sample scale matmul, a block-quantised
+shift and a small residual window (``hybrid``).
 
 Angle convention: positive = counter-clockwise, like
 cv2.getRotationMatrix2D; rotation centre (W/2, H/2) in pixel coordinates.
@@ -14,8 +21,10 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import torch
+import torch.nn.functional as F
 
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.warp_fused import (
     affine_warp_fused,
@@ -104,6 +113,156 @@ def _inverse_affine_coeffs(params: dict[str, torch.Tensor], height: int,
             torch.where(apply, itx, zero), torch.where(apply, ity, zero))
 
 
+def _resample_axis(img: torch.Tensor, alpha: torch.Tensor,
+                   shift: torch.Tensor, taps_lo: int, taps_hi: int,
+                   axis: int) -> torch.Tensor:
+    """1-D linear resample along ``axis`` (2 = x, 1 = y) of NHWC images:
+    ``out[..., t, ...] = img[..., alpha * t + shift, ...]`` (per-sample
+    ``alpha``; ``shift`` varies along the other spatial axis), as a
+    windowed multiply-accumulate over static slices: for each integer tap
+    offset k, the weight ``hat(src - (t + k))`` picks out the two bilinear
+    taps. ``taps_lo``/``taps_hi`` bound ``src - t``; samples outside the
+    image contribute zero (cv2 BORDER_CONSTANT)."""
+    n = img.shape[axis]
+    pad = [0, 0] * (img.dim() - axis)
+    pad[-2:] = [taps_lo, taps_hi + 1]
+    padded = F.pad(img, pad)
+    ts = torch.arange(n, dtype=torch.float32, device=img.device)
+    if axis == 2:
+        # alpha: (B,), shift: (B, H); offset(b, y, x) = src - x.
+        offset = (alpha[:, None, None] - 1.0) * ts + shift[:, :, None]
+    else:
+        # alpha: (B,), shift: (B, W); offset(b, y, x) = src - y.
+        offset = ((alpha[:, None, None] - 1.0) * ts[:, None]
+                  + shift[:, None, :])
+    out = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
+    for k in range(-taps_lo, taps_hi + 1):
+        w = (1.0 - (offset - k).abs()).clamp(0.0, 1.0)
+        out = out + w[..., None] * padded.narrow(axis, taps_lo + k, n)
+    return out
+
+
+def _shear_tap_bounds(height: int, width: int,
+                      cfg: AffineAugmentConfig) -> tuple[int, int]:
+    """Static bound on |src - t| for both shear passes given the config's
+    ranges."""
+    inv_scale = 1.0 / cfg.scale_min          # worst-case magnification
+    tan_t = math.tan(math.radians(cfg.degrees))
+    half = max(height, width) / 2.0
+    # scale term + rotation shear term + translation (+1 slack)
+    bound = (abs(inv_scale - 1.0) * half
+             + inv_scale * tan_t * half
+             + cfg.translate * max(height, width) * inv_scale
+             + 2.0)
+    k = int(math.ceil(bound))
+    return k, k
+
+
+def _ldu_x_pass(coeffs, h: int, device) -> tuple[torch.Tensor, ...]:
+    """The x-pass of the LDU factorisation ``Minv = [[1, 0], [l, 1]] @
+    diag(d1, d2) @ [[1, u], [0, 1]]``: its per-sample scale and per-row
+    shift (B, H)."""
+    i00, i01, i10, i11, itx, ity = coeffs
+    alpha_x = i00 - i01 * i10 / i11           # d1
+    vs = torch.arange(h, dtype=torch.float32, device=device)
+    shift_x = ((i01 / i11)[:, None] * vs[None, :]
+               + (itx - i01 * ity / i11)[:, None])
+    return alpha_x, shift_x
+
+
+def _ldu_y_shift(coeffs, w: int, device) -> torch.Tensor:
+    """The y-pass's per-column shift (B, W); its scale is ``i11``."""
+    _, _, i10, _, _, ity = coeffs
+    xs = torch.arange(w, dtype=torch.float32, device=device)
+    return i10[:, None] * xs[None, :] + ity[:, None]
+
+
+def affine_warp_shear(images: torch.Tensor, params: dict[str, torch.Tensor],
+                      taps: tuple[int, int]) -> torch.Tensor:
+    """The affine warp as two 1-D resamples (JAX ``:173-204``): the LDU
+    shear factorisation of the inverse map, one per-row x-resample then
+    one per-column y-resample, each a windowed-MAC ``_resample_axis``
+    pass of ``taps`` (``_shear_tap_bounds``)."""
+    b, h, w, c = images.shape
+    coeffs = _inverse_affine_coeffs(params, h, w)
+    alpha_x, shift_x = _ldu_x_pass(coeffs, h, images.device)
+    t = _resample_axis(images.to(torch.float32), alpha_x, shift_x,
+                       taps[0], taps[1], axis=2)
+    out = _resample_axis(t, coeffs[3], _ldu_y_shift(coeffs, w, images.device),
+                         taps[0], taps[1], axis=1)
+    return out.to(images.dtype)
+
+
+def _hybrid_axis_pass(img: torch.Tensor, alpha: torch.Tensor,
+                      shift: torch.Tensor, *, block: int = 32, k: int = 12,
+                      pad: int | None = None) -> torch.Tensor:
+    """1-D resample along x, ``out[b, v, x] = img[b, v, alpha_b * x +
+    shift(b, v)]`` (JAX ``:207-268``), in three steps whose cost does not
+    grow with the displacement:
+
+    1. the per-sample scale about the centre as an interpolation matmul
+       with a banded hat matrix;
+    2. the remaining per-row displacement, quantised to its value at the
+       centre of each ``block``-row group, as one slice per (sample,
+       group);
+    3. the in-block residual (bounded by ``k``) as a windowed MAC.
+    """
+    b_, h, w, c = img.shape
+    if h % block:
+        raise ValueError(f"the hybrid warp needs sides divisible by "
+                         f"{block}, got {h}")
+    dev = img.device
+    cx = w / 2.0
+    xs = torch.arange(w, dtype=torch.float32, device=dev)
+
+    # 1) scale about the centre: g[x] = img[alpha (x - cx) + cx]
+    src = alpha[:, None] * (xs[None, :] - cx) + cx          # (B, W_out)
+    weights = (1.0 - (src[:, None, :] - xs[None, :, None]).abs()).clamp(
+        0.0, 1.0)                                           # (B, W_in, W_out)
+    g = torch.einsum("bhuc,buo->bhoc", img, weights)
+
+    # Displacement in g's coordinates: g[x + d] = img[alpha x + shift].
+    d = (shift - (1.0 - alpha[:, None]) * cx) / alpha[:, None]   # (B, H)
+
+    # 2) the block-quantised integer part, one slice per (sample, group).
+    if pad is None:
+        pad = w // 2 + k
+    nb = h // block
+    d_blocks = d.reshape(b_, nb, block)
+    base = torch.round(d_blocks[:, :, block // 2]).to(torch.int64)
+    width = w + 2 * pad + 1
+    blocks = F.pad(g, (0, 0, pad, pad + 1)).reshape(b_, nb, block, width, c)
+    span = w + 2 * k + 1
+    starts = (pad + base - k).clamp(0, width - span)          # (B, nb)
+    index = starts[:, :, None] + torch.arange(span, device=dev)
+    window = torch.gather(blocks, 3, index[:, :, None, :, None].expand(
+        b_, nb, block, span, c))                        # (B, nb, block, span, C)
+    applied = starts - pad + k                                # (B, nb)
+
+    # 3) the residual windowed MAC: r = d - applied, |r| <= k.
+    r = d_blocks - applied[:, :, None]                        # (B, nb, block)
+    out = torch.zeros((b_, nb, block, w, c), dtype=torch.float32,
+                      device=dev)
+    for j in range(2 * k + 1):
+        wgt = (1.0 - (r - (j - k)).abs()).clamp(0.0, 1.0)
+        out = out + wgt[..., None, None] * window[:, :, :, j:j + w, :]
+    return out.reshape(b_, h, w, c)
+
+
+def affine_warp_hybrid(images: torch.Tensor,
+                       params: dict[str, torch.Tensor]) -> torch.Tensor:
+    """The LDU shear warp through ``_hybrid_axis_pass`` (JAX ``:271-295``):
+    the x-pass, then the y-pass on the transposed image; both sides must
+    be multiples of 32."""
+    b, h, w, c = images.shape
+    coeffs = _inverse_affine_coeffs(params, h, w)
+    alpha_x, shift_x = _ldu_x_pass(coeffs, h, images.device)
+    t = _hybrid_axis_pass(images.to(torch.float32), alpha_x, shift_x)
+    out_t = _hybrid_axis_pass(t.transpose(1, 2), coeffs[3],
+                              _ldu_y_shift(coeffs, w, images.device))
+    return out_t.transpose(1, 2).to(images.dtype)
+
+
 def affine_warp(images: torch.Tensor, params: dict[str, torch.Tensor]
                 ) -> torch.Tensor:
     """Per-sample affine warp of an NHWC batch, direct 4-tap bilinear
@@ -174,7 +333,7 @@ def select_warp_method(h: int, w: int) -> str:
       differs from the kernels only in not rounding to bf16.
     * not 32-aligned: ``gather``, the direct bilinear warp. JAX takes its
       XLA ``shear`` layout there when the tap window is at most 64 (100^2,
-      say); the port has no XLA layouts.
+      say); the port's ``shear`` and ``hybrid`` run only when named.
 
     The route does not depend on the device: on a CPU tensor each kernel
     wrapper runs its plain version, which computes the same function.
@@ -206,12 +365,12 @@ def augment_batch(batch_uint8: torch.Tensor, mean, std,
     if method == "pallas_fused":
         return affine_warp_fused(batch_uint8, params, mean=mean,
                                  std=std).to(dtype)
-    if method in ("shear", "hybrid"):
-        raise NotImplementedError(
-            f"warp_method={method!r} is an XLA layout of the LDU-shear warp; "
-            "the port computes that math in its 'pallas' and 'pallas_fused' "
-            "kernels")
     x = normalise_batch(batch_uint8, mean, std)
+    if method == "shear":
+        return affine_warp_shear(x, params,
+                                 _shear_tap_bounds(h, w, cfg)).to(dtype)
+    if method == "hybrid":
+        return affine_warp_hybrid(x, params).to(dtype)
     if method == "pallas":
         return affine_warp_twopass(x, params).to(dtype)
     if method == "gather":

@@ -5,7 +5,8 @@ Port of ``denoising_diffusion_deep_fake_tpu/training/deep_fake.py:64-311``
 ``b``, one per identity. Each step augments both uint8 NHWC batches with
 their own mean and std (albumentations ShiftScaleRotate on the device: the
 CUDA fused warp at 448^2; ``upload_format: i420`` batches are unpacked to
-fp32 RGB first, JAX ``:185-187``), then:
+fp32 RGB first, JAX ``:185-187``) and, with ``color_jitter`` set, jitters
+each with its own statistics (``ops/color.py``, JAX ``:203-214``), then:
 
 * ``denoise`` mode: each model learns to recover its own augmented image
   from a noised copy (the CUDA fp32 noise kernel);
@@ -23,15 +24,21 @@ fp32 RGB first, JAX ``:185-187``), then:
 flip from denoise to swap. ``make_predict_fake`` is the single-pass
 eval-mode forward.
 
-Random streams: the affine params and noise ratios come from the trainer's
-seeded ``torch.Generator``; the noise from the noise kernel's stream keyed
+Each model's gradient forward runs under the ``remat`` policy
+(``training/state.py``'s ``maybe_remat``, JAX ``:150-157``); the shadows'
+forwards do not.
+
+Random streams: the affine params, the jitter factors (a's, then b's,
+drawn only when the jitter is on) and the noise ratios come from the
+trainer's seeded ``torch.Generator``; the noise from the noise kernel's stream keyed
 by ``cfg.seed``, model ``a`` at offset ``2 * step`` and model ``b`` at
 ``2 * step + 1``, with ``step = states["a"].step`` at the start of the
 step, so no two draws of a run share an offset. The JAX trainer splits a
 key folded with the step instead; the two streams differ by design (as in
 ``training/denoiser.py``). ``train_step`` accepts the affine params, the
-ratios and the noise of each identity, so a test can feed both frameworks
-the same numbers; given noise is blended with ``blend_noise``.
+jitter factors, the ratios and the noise of each identity, so a test can
+feed both frameworks the same numbers; given noise is blended with
+``blend_noise``.
 
 ``with_images`` also returns the TensorBoard panels under the JAX tags
 (``:239-287`` there), each the step's own tensor through ``panel_grid_u8``:
@@ -56,6 +63,11 @@ from denoising_diffusion_deep_fake_tpu_torch.device import resolve_device
 from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
     AffineAugmentConfig,
     augment_batch,
+)
+from denoising_diffusion_deep_fake_tpu_torch.ops.color import (
+    ColorJitterConfig,
+    color_jitter_normalised,
+    sample_color_jitter_params,
 )
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.noise_kernel import (
     fused_noise_blend,
@@ -88,8 +100,7 @@ from denoising_diffusion_deep_fake_tpu_torch.training.state import (
 )
 
 IDENTITIES = ("a", "b")
-_UNPORTED = ("data_parallel", "spatial_parallel", "remat", "patchify_stem",
-             "color_jitter")
+_UNPORTED = ("data_parallel", "spatial_parallel", "patchify_stem")
 
 
 def noise_offset(step: int, name: str) -> int:
@@ -113,6 +124,8 @@ class DeepFakeTrainer:
         self.aug = AffineAugmentConfig.shift_scale_rotate(
             shift_limit=cfg.aug_shift_limit, scale_limit=cfg.aug_scale_limit,
             rotate_limit=cfg.aug_rotate_limit, p=cfg.aug_probability)
+        self.jitter = ColorJitterConfig(*cfg.color_jitter,
+                                        probability=cfg.color_jitter_p)
         self.ema_cfg = EmaConfig(beta=cfg.ema_beta,
                                  update_every=cfg.ema_update_every,
                                  update_after_step=cfg.ema_update_after_step)
@@ -169,17 +182,20 @@ class DeepFakeTrainer:
     def train_step(self, states: dict[str, ModelState],
                    batch_a_u8: torch.Tensor, batch_b_u8: torch.Tensor, *,
                    affine_params: dict | None = None,
+                   jitter_params: dict | None = None,
                    ratios: dict | None = None, noise: dict | None = None,
                    with_images: bool = False):
-        """One step of both models in place. ``affine_params``, ``ratios``
-        and ``noise``, when given, map each identity to its draws. Returns
+        """One step of both models in place. ``affine_params``,
+        ``jitter_params`` (used when the jitter is on), ``ratios`` and
+        ``noise``, when given, map each identity to its draws. Returns
         ``lr`` and the losses (device scalars) under the JAX metric names;
         ``with_images``, ``(metrics, panels)`` with the uint8 panels under
         the JAX image tags."""
         scalars = self.step_scalars(states, 0)
         out = self.step_core(states, batch_a_u8, batch_b_u8, scalars,
                              self.generator, affine_params=affine_params,
-                             ratios=ratios, noise=noise,
+                             jitter_params=jitter_params, ratios=ratios,
+                             noise=noise,
                              with_images=with_images)
         self.advance(states, 1)
         metrics = {"lr": scalars["lr"], **(out[0] if with_images else out)}
@@ -217,6 +233,7 @@ class DeepFakeTrainer:
                   batch_a_u8: torch.Tensor, batch_b_u8: torch.Tensor,
                   scalars: dict, generator: torch.Generator, *,
                   affine_params: dict | None = None,
+                  jitter_params: dict | None = None,
                   ratios: dict | None = None, noise: dict | None = None,
                   with_images: bool = False):
         """The update of ``train_step`` with its ``step_scalars`` and draws
@@ -224,15 +241,25 @@ class DeepFakeTrainer:
         losses (and the panels ``with_images``)."""
         cfg = self.cfg
         real = {}
-        for name, batch, mean, std in (
-                ("a", batch_a_u8, cfg.mean_a, cfg.std_a),
-                ("b", batch_b_u8, cfg.mean_b, cfg.std_b)):
+        stats = {"a": (cfg.mean_a, cfg.std_a), "b": (cfg.mean_b, cfg.std_b)}
+        for name, batch in (("a", batch_a_u8), ("b", batch_b_u8)):
             batch = unpack_upload(batch.to(self.device, non_blocking=True),
                                   cfg.upload_format)
             real[name] = augment_batch(
-                batch, mean, std, self.aug, generator=generator,
+                batch, *stats[name], self.aug, generator=generator,
                 params=None if affine_params is None else affine_params[name],
                 method=cfg.warp_method)
+        if self.jitter.enabled:
+            # The real batches of both modes, not the shadows' fakes.
+            for name in IDENTITIES:
+                params = (sample_color_jitter_params(
+                    generator, real[name].shape[0], self.jitter,
+                    device=self.device) if jitter_params is None
+                    else jitter_params[name])
+                real[name] = color_jitter_normalised(
+                    real[name], {k: v.to(self.device)
+                                 for k, v in params.items()},
+                    *stats[name])
 
         lrs = {"a": scalars["lr"], "b": scalars["lr_b"]}
         metrics, panels = {}, {}
@@ -242,7 +269,7 @@ class DeepFakeTrainer:
                                     scalars[f"offset_{name}"], ratios, noise,
                                     generator)
                 loss, pred = train_one_model(states[name], noisy, real[name],
-                                             lrs[name])
+                                             lrs[name], cfg.remat)
                 metrics[f"loss_denoise/train_{name}"] = loss
                 if with_images:
                     panels[f"denoise_1_model_input/{name}"] = (
@@ -263,7 +290,7 @@ class DeepFakeTrainer:
                 noisy = self._noisy(fake, name, scalars[f"offset_{name}"],
                                     ratios, noise, generator)
                 loss, pred = train_one_model(states[name], noisy, real[name],
-                                             lrs[name])
+                                             lrs[name], cfg.remat)
                 metrics[f"loss_swap/train_{name}"] = loss
                 if with_images:
                     panels.update({

@@ -4,8 +4,10 @@ Port of ``denoising_diffusion_deep_fake_tpu/training/denoiser.py:43-158``
 (reference: ``d3f/train_denoiser/lit_module.py``). One train step:
 
     uint8 NHWC batch -> normalise + random affine warp (the CUDA warp kernels
-    at 32-aligned sizes) -> truncated-exponential noise blend (the CUDA
-    noise kernel) -> U-Net forward/backward in the compute dtype ->
+    at 32-aligned sizes) -> color jitter when ``color_jitter`` is set
+    (``ops/color.py``) -> truncated-exponential noise blend (the CUDA
+    noise kernel) -> U-Net forward/backward in the compute dtype, under
+    the ``remat`` policy (``training/state.py``'s ``maybe_remat``) ->
     (MSE + 1 - SSIM) / 2 in fp32 -> Adam with the per-epoch cosine learning
     rate.
 
@@ -14,13 +16,14 @@ W)`` uint8, and ``unpack_upload`` turns it into fp32 RGB in [0, 255] first
 (JAX ``:85-87``); the warp then reads fp32 and normalises it (at 448^2 the
 fused kernel's fp32 input with the normalise folded in).
 
-The affine params and the noise ratios come from the trainer's seeded
-``torch.Generator``; the noise itself from the noise kernel's stream keyed
-by ``cfg.seed`` at offset ``state.step`` (the JAX trainer folds the step
-into a key instead; the two streams differ by design). ``train_step``
-accepts the affine params, the noise ratios and the noise itself, so a test
-can feed both frameworks the same numbers; given noise is blended with
-``blend_noise``. ``with_images`` also returns the TensorBoard panels under
+The affine params, the jitter factors (drawn only when the jitter is on,
+so with it off no draw moves) and the noise ratios come from the
+trainer's seeded ``torch.Generator``, in that order; the noise itself from
+the noise kernel's stream keyed by ``cfg.seed`` at offset ``state.step``
+(the JAX trainer folds the step into a key instead; the two streams differ
+by design). ``train_step`` accepts the affine params, the jitter factors,
+the noise ratios and the noise itself, so a test can feed both frameworks
+the same numbers; given noise is blended with ``blend_noise``. ``with_images`` also returns the TensorBoard panels under
 the JAX tags (``image``, ``image_noisy``, ``image_prediction``; JAX
 ``:139-148``), each a uint8 3x3 grid made on the device by
 ``panel_grid_u8``.
@@ -51,6 +54,11 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
     AffineAugmentConfig,
     augment_batch,
 )
+from denoising_diffusion_deep_fake_tpu_torch.ops.color import (
+    ColorJitterConfig,
+    color_jitter_normalised,
+    sample_color_jitter_params,
+)
 from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.noise_kernel import (
     fused_noise_blend,
 )
@@ -76,8 +84,7 @@ from denoising_diffusion_deep_fake_tpu_torch.training.state import (
     train_one_model,
 )
 
-_UNPORTED = ("data_parallel", "spatial_parallel", "remat", "patchify_stem",
-             "color_jitter")
+_UNPORTED = ("data_parallel", "spatial_parallel", "patchify_stem")
 
 
 class DenoiserTrainer:
@@ -96,6 +103,8 @@ class DenoiserTrainer:
         self.aug = AffineAugmentConfig.random_affine(
             degrees=cfg.aug_degrees, translate=cfg.aug_translate,
             scale_min=cfg.aug_scale_min, scale_max=cfg.aug_scale_max, p=1.0)
+        self.jitter = ColorJitterConfig(*cfg.color_jitter,
+                                        probability=cfg.color_jitter_p)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         if self.device.type == "cuda":
@@ -108,16 +117,20 @@ class DenoiserTrainer:
 
     def train_step(self, state: ModelState, batch_u8: torch.Tensor, *,
                    affine_params: dict | None = None,
+                   jitter_params: dict | None = None,
                    ratios: torch.Tensor | None = None,
                    noise: torch.Tensor | None = None,
                    with_images: bool = False):
         """One update of ``state`` in place from a uint8 batch in the
         config's ``upload_format``; returns ``{"loss", "lr"}`` (the loss as
         a device scalar: reading it waits for the step); ``with_images``,
-        ``(metrics, panels)``."""
+        ``(metrics, panels)``. ``jitter_params`` (from
+        ``sample_color_jitter_params``) take the place of the draw when
+        the jitter is on."""
         scalars = self.step_scalars(state, 0)
         out = self.step_core(state, batch_u8, scalars, self.generator,
-                             affine_params=affine_params, ratios=ratios,
+                             affine_params=affine_params,
+                             jitter_params=jitter_params, ratios=ratios,
                              noise=noise, with_images=with_images)
         self.advance(state, 1)
         metrics = out[0] if with_images else out
@@ -140,6 +153,7 @@ class DenoiserTrainer:
     def step_core(self, state: ModelState, batch_u8: torch.Tensor,
                   scalars: dict, generator: torch.Generator, *,
                   affine_params: dict | None = None,
+                  jitter_params: dict | None = None,
                   ratios: torch.Tensor | None = None,
                   noise: torch.Tensor | None = None,
                   with_images: bool = False):
@@ -153,6 +167,14 @@ class DenoiserTrainer:
         image = augment_batch(batch, cfg.mean, cfg.std, self.aug,
                               generator=generator, params=affine_params,
                               method=cfg.warp_method)
+        if self.jitter.enabled:
+            if jitter_params is None:
+                jitter_params = sample_color_jitter_params(
+                    generator, b, self.jitter, device=self.device)
+            jitter_params = {k: v.to(self.device)
+                             for k, v in jitter_params.items()}
+            image = color_jitter_normalised(image, jitter_params, cfg.mean,
+                                            cfg.std)
         if ratios is None:
             ratios = sample_truncated_exponential(
                 (b, 1, 1, 1), cfg.noise_exponential_sampling_lambda,
@@ -162,7 +184,8 @@ class DenoiserTrainer:
                                       offset=scalars["offset"])
         else:
             noisy = blend_noise(image, noise, ratios.reshape(b, 1, 1, 1))
-        loss, pred = train_one_model(state, noisy, image, scalars["lr"])
+        loss, pred = train_one_model(state, noisy, image, scalars["lr"],
+                                     cfg.remat)
         metrics = {"loss": loss}
         if with_images:
             return metrics, panels(image, noisy, pred)

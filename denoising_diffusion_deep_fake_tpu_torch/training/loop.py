@@ -40,6 +40,7 @@ from denoising_diffusion_deep_fake_tpu_torch.checkpoint import (
     CheckpointManager,
     save_rng_state,
 )
+from denoising_diffusion_deep_fake_tpu_torch.utils import stragglers
 from denoising_diffusion_deep_fake_tpu_torch.utils.logging_scheduler import (
     LoggingScheduler,
 )
@@ -240,6 +241,10 @@ class LoopContext:
                 self.preemption.restore()
             self._stop_event.set()
             self._metric_thread.join(timeout=10.0)
+            if self._metric_thread.is_alive():
+                # Mid fetch: one more bounded join at exit, before
+                # finalization would end it inside native frames.
+                stragglers.adopt(self._metric_thread)
             self.ckpt.wait_until_finished()
             self.tb.flush()
             self.tb.close()

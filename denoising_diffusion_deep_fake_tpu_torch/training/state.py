@@ -13,7 +13,8 @@ train-mode BN writes no running statistics: they move only through
 ``training/deep_fake.py:150-166``): train-mode forward,
 ``mse_ssim_loss``, backward, Adam. It leaves the host counters alone: a
 trainer advances ``step`` (and ``ema_step``) after its step, by one or, after
-a K-step CUDA graph (``training/multi_step.py``), by K.
+a K-step CUDA graph (``training/multi_step.py``), by K. Its forward goes
+through ``maybe_remat`` (the ``remat`` knob, JAX ``:93-111``).
 
 ``graph_objects`` tells the K-step graph which tensors
 a group's graph was captured on, so that it is captured again when any is
@@ -22,13 +23,21 @@ replaced (a restore, ``modify``, the shadows of the denoise -> swap flip).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import functools
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from denoising_diffusion_deep_fake_tpu_torch.models.resnet import (
+    BatchNorm2d,
     freeze_running_stats_,
 )
 from denoising_diffusion_deep_fake_tpu_torch.models.unet import (
@@ -156,18 +165,99 @@ def create_model_state(cfg, dtype: torch.dtype, device: torch.device,
     return state
 
 
+# The ops whose outputs JAX's ``checkpoint_dots`` saves: ``dot_general``
+# and ``conv_general_dilated`` (JAX 0.9's ``dots_saveable``).
+_DOTS = frozenset({torch.ops.aten.convolution.default,
+                   torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _running_stats_frozen(model: nn.Module):
+    """Every ``BatchNorm2d`` of ``model`` writes no running statistics
+    inside; each gets its own ``update_running_stats`` back after (an EMA
+    shadow's stays False)."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    own = [m.__dict__.get("update_running_stats") for m in norms]
+    for m in norms:
+        m.update_running_stats = False
+    try:
+        yield
+    finally:
+        for m, v in zip(norms, own):
+            if v is None:
+                del m.update_running_stats  # the class default again
+            else:
+                m.update_running_stats = v
+
+
+@contextlib.contextmanager
+def _recompute(model: nn.Module, inner):
+    with inner, _running_stats_frozen(model):
+        yield
+
+
+def _remat_contexts(model: nn.Module, policy: str):
+    """``checkpoint``'s ``context_fn``: the forward's context and the
+    recompute's, which keeps the running statistics as the forward left
+    them (the forward wrote them once, as flax's mutated ``batch_stats``
+    come out of a remat forward once)."""
+    if policy == "dots":
+        forward, recompute = create_selective_checkpoint_contexts(
+            _dots_policy)
+    else:
+        forward, recompute = contextlib.nullcontext(), contextlib.nullcontext()
+    return forward, _recompute(model, recompute)
+
+
+def maybe_remat(forward: nn.Module, policy: str):
+    """The gradient-path forward ``forward`` (a module) under the ``remat``
+    policy (JAX ``training/state.py:93-111``, ``jax.checkpoint``):
+
+    * ``none``: ``forward`` itself;
+    * ``full``: saves nothing but the input and recomputes the forward in
+      the backward pass (JAX ``nothing_saveable``);
+    * ``dots``: saves the outputs of convolutions and matmuls and
+      recomputes the rest, batch norm and the elementwise chains (JAX
+      ``checkpoint_dots``), by selective activation checkpointing.
+
+    Non-reentrant ``torch.utils.checkpoint``, which records the autocast
+    state of the forward and recomputes under it. The recompute writes no
+    BN running statistics (``_running_stats_frozen``). The RNG state is not
+    saved (``preserve_rng_state=False``): no module of the resnet U-Nets
+    draws random numbers in its forward, and ``get_rng_state`` inside a
+    CUDA-graph capture (the K-step graph) is not allowed.
+    """
+    if policy == "none":
+        return forward
+    if policy not in ("dots", "full"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    contexts = functools.partial(_remat_contexts, forward, policy)
+
+    def remat_forward(*args):
+        return checkpoint(forward, *args, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=contexts)
+
+    return remat_forward
+
+
 def train_one_model(state: ModelState, noisy: torch.Tensor,
-                    target: torch.Tensor, lr=None
+                    target: torch.Tensor, lr=None, remat: str = "none"
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """One update of ``state``'s tensors in place: ``mse_ssim_loss(
-    model(noisy), target)`` in train mode, backward, Adam at ``lr`` (a
-    float, or an fp32 device tensor; the optimizer's own when None). The
-    host ``step`` is the caller's to advance. Returns the loss as a device
-    scalar and the prediction."""
+    model(noisy), target)`` in train mode, the forward under the ``remat``
+    policy, backward, Adam at ``lr`` (a float, or an fp32 device tensor;
+    the optimizer's own when None). The host ``step`` is the caller's to
+    advance. Returns the loss as a device scalar and the prediction."""
     model, optimizer = state.model, state.optimizer
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    pred = model(noisy)
+    pred = maybe_remat(model, remat)(noisy)
     loss = mse_ssim_loss(pred, target)
     loss.backward()
     if lr is not None:

@@ -807,12 +807,15 @@ def test_noise_device_offset_launch_matches_by_value(cuda, offset):
         nk.fused_noise_blend(x, r, seed=9, offset=at.to(torch.int32))
 
 
-@pytest.mark.parametrize("mode", ["denoiser", "denoiser_i420", "swap"])
+@pytest.mark.parametrize("mode", ["denoiser", "denoiser_i420", "swap",
+                                  "denoiser_remat_jitter"])
 def test_k_step_graph_matches_eager_steps(cuda, mode):
     """Two replays of a K = 3 graph against 6 eager steps, fp32 under
     cudnn.deterministic: every tensor, loss, counter and the generator
     bit-equal, the launches counted per replay; a restored optimizer makes
-    the next call capture a new graph."""
+    the next call capture a new graph. ``denoiser_remat_jitter``: with
+    ``remat: dots`` (the checkpoint's saved-tensor hooks captured) and the
+    color jitter on (its factors drawn on the card inside the graph)."""
     import io
 
     from denoising_diffusion_deep_fake_tpu_torch.config import (
@@ -829,7 +832,9 @@ def test_k_step_graph_matches_eager_steps(cuda, mode):
             cfg = config_from_dict(DenoiserConfig, dict(
                 input_image_list_path="x", batch_size=2,
                 encoder_name="resnet18", compute_dtype="float32",
-                upload_format="i420" if mode.endswith("i420") else "rgb"))
+                upload_format="i420" if mode.endswith("i420") else "rgb",
+                **(dict(remat="dots", color_jitter=(0.2, 0.2, 0.2, 0.05))
+                   if mode.endswith("jitter") else {})))
             t = DenoiserTrainer(cfg, steps_per_epoch=1, image_size=64)
             return t, t.init_state(seed=0), 1
         cfg = config_from_dict(DeepFakeConfig, dict(

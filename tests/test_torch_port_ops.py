@@ -159,10 +159,14 @@ def test_augment_batch_routes_on_cpu():
     # The fused warp is bit-equal to normalise -> two-pass warp.
     torch.testing.assert_close(outs["pallas_fused"], outs["pallas"], rtol=0,
                                atol=0)
+    # The XLA layouts of the same warp, ported as plain PyTorch: another
+    # resampling of the same map (tests/test_torch_port_warp.py holds
+    # them to JAX's).
     for method in ("shear", "hybrid"):
-        with pytest.raises(NotImplementedError):
-            taug.augment_batch(u8, (0.5,) * 3, (0.5,) * 3, cfg,
-                               params=params, method=method)
+        out = taug.augment_batch(u8, (0.5,) * 3, (0.5,) * 3, cfg,
+                                 params=params, method=method)
+        assert out.shape == u8.shape and out.dtype == torch.float32
+        assert torch.isfinite(out).all(), method
 
 
 def _image_pair(seed, shape=(B, S, S, 3)):

@@ -106,13 +106,27 @@ KNOBS = [dict(remat="dots"), dict(steps_per_call=2),
                  else f"{name}-knob{i}")
     for name in TRAINERS for i, knob in enumerate(KNOBS)])
 def test_trainer_refuses_unported_knobs(trainer, knob):
-    """Each knob without its feature in the port is refused. Two have been
+    """Each knob without its feature in the port is refused. Four have been
     ported since, and their cases check that the trainer takes the knob
     and trains: ``knob3``, ``upload_format: i420``, a step on a packed
     batch (its parity with JAX: ``tests/test_torch_port_i420.py``);
     ``knob1``, ``steps_per_call: 2``, one K-step call
-    (``tests/test_torch_port_multi_step.py``)."""
+    (``tests/test_torch_port_multi_step.py``); ``knob0``, ``remat: dots``,
+    and ``knob2``, ``color_jitter``, a step
+    (``tests/test_torch_port_remat.py``,
+    ``tests/test_torch_port_color.py``)."""
     cls, make_cfg = TRAINERS[trainer]
+    if "remat" in knob or "color_jitter" in knob:
+        t = cls(make_cfg(**knob), steps_per_epoch=1, image_size=32,
+                device="cpu")
+        u8 = torch.zeros((2, 32, 32, 3), dtype=torch.uint8)
+        if trainer == "denoiser":
+            losses = [t.train_step(t.init_state(seed=0), u8)["loss"]]
+        else:
+            m = t.train_step(t.init_states(seed=0), u8, u8)
+            losses = [m["loss_denoise/train_a"], m["loss_denoise/train_b"]]
+        assert all(torch.isfinite(v) for v in losses)
+        return
     if knob == dict(steps_per_call=2):
         t = cls(make_cfg(**knob), steps_per_epoch=1, image_size=32,
                 device="cpu")

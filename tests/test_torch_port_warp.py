@@ -1,7 +1,12 @@
 """Plain versions of the port's warp kernels vs the JAX Pallas kernels.
 
 The Pallas kernels run in interpret mode on the CPU, as
-tests/test_warp_fused.py runs them. Both sides get the same inverse-map
+tests/test_warp_fused.py runs them. The XLA layouts ``shear`` and
+``hybrid`` (JAX ``ops/augment.py:121-295``), ported as plain PyTorch, are
+held to JAX's jitted warps within tests/test_augment_shear.py's
+pure-shift tolerance for the shear warp, 1e-4 (XLA contracts the
+windowed MAC's multiply-adds, the port rounds them apart: up to 2e-5),
+and the same for the hybrid warp (its own file's is 1e-3). Both sides get the same inverse-map
 coefficients (computed by JAX), so the comparison sees only the warp: the
 target, met here, is bit equality. It holds because the plain versions
 round where the interpreted kernels do: bf16 tile and hat weights, an
@@ -13,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from denoising_diffusion_deep_fake_tpu.ops import augment as jaug
 from denoising_diffusion_deep_fake_tpu.ops.augment import (
     AffineAugmentConfig,
     _inverse_affine_coeffs,
@@ -24,6 +31,7 @@ from denoising_diffusion_deep_fake_tpu.ops.pallas import warp_kernel as jk
 from denoising_diffusion_deep_fake_tpu.ops.pallas.warp_fused import (
     affine_warp_pallas_fused,
 )
+from denoising_diffusion_deep_fake_tpu_torch.ops import augment as taug
 from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
     select_warp_method,
 )
@@ -326,3 +334,48 @@ def test_auto_route_is_jax_route_or_its_documented_stand_in(hw):
         assert got == want
     else:
         assert got == STAND_INS[want]
+
+
+@pytest.mark.parametrize("method,hw", [
+    ("shear", (40, 40)), ("shear", (32, 48)), ("hybrid", (64, 64)),
+    ("hybrid", (64, 96))])
+def test_xla_layouts_match_jax(method, hw):
+    """The port's ``shear`` and ``hybrid`` warps against JAX's on the same
+    image and params (one sample unwarped), and ``augment_batch`` routing
+    to them."""
+    h, w = hw
+    rng = np.random.default_rng(30)
+    x = rng.standard_normal((B, h, w, 3)).astype(np.float32)
+    params = {k: np.array(v) for k, v in _params(31).items()}
+    params["apply"] = np.array([True, False])
+    cfg = AffineAugmentConfig.random_affine()
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    tp = {k: torch.from_numpy(v) for k, v in params.items()}
+    if method == "shear":
+        taps = jaug._shear_tap_bounds(h, w, cfg)
+        assert taug._shear_tap_bounds(
+            h, w, taug.AffineAugmentConfig.random_affine()) == taps
+        want = jax.jit(jaug.affine_warp_shear, static_argnums=2)(
+            jnp.asarray(x), jp, taps)
+        got = taug.affine_warp_shear(torch.from_numpy(x), tp, taps)
+    else:
+        want = jax.jit(jaug.affine_warp_hybrid)(jnp.asarray(x), jp)
+        got = taug.affine_warp_hybrid(torch.from_numpy(x), tp)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-4)
+    u8 = rng.integers(0, 256, (B, h, w, 3), np.uint8)
+    norm = taug.normalise_batch(torch.from_numpy(u8), *IMAGENET)
+    routed = taug.augment_batch(torch.from_numpy(u8), *IMAGENET,
+                                taug.AffineAugmentConfig.random_affine(),
+                                params=tp, method=method)
+    direct = (taug.affine_warp_shear(norm, tp, taps) if method == "shear"
+              else taug.affine_warp_hybrid(norm, tp))
+    assert torch.equal(routed, direct)
+
+
+def test_hybrid_refuses_sides_off_the_block():
+    x = torch.zeros((1, 40, 64, 3))
+    params = {k: torch.from_numpy(np.array(v))[:1]
+              for k, v in _params(32).items()}
+    with pytest.raises(ValueError, match="32"):
+        taug.affine_warp_hybrid(x, params)
