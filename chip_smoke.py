@@ -210,6 +210,25 @@ Phases, in order; any failure exits non-zero:
    to its busy time within 1%, the trace directory is removed; (e) the
    deep-fake pair at 448^2 in swap mode with jitter and ``remat: dots``
    at K = 8 (2 groups) beside 12c's rate.
+17. the eight other encoder families and the auto warp route below
+   384^2: (a) a 64^2 fp32 denoiser step on the GPU against the CPU (1e-4
+   relative) for vgg11 (conv biases, no BN), vgg16_bn, densenet121,
+   se_resnext50_32x4d, mobilenet_v2, xception, inceptionv4,
+   inceptionresnetv2 and dpn68b; (b) the denoiser at 448^2 x16 bf16
+   (configs/denoiser.yml, only ``encoder_name`` changed) with each of
+   those but vgg11 (3 warm-up and 10 timed steps, a profile of 3 more:
+   imgs/s beside phase 5's resnet34, kernels and idle share a step, peak
+   memory, one fused warp and one fp32 noise launch a step), then one eval
+   forward at 448^2 x16 bf16 of each of the other 20 names; every name's
+   parameter count as the CPU tests pin it; (c) a reference .ckpt of a
+   densenet121 pair in swap mode and of a dpn68b pair in denoise mode,
+   each imported, its 448^2 x16 swap batch bit-equal to the .ckpt's
+   weights loaded straight, exported (every tensor the .ckpt's) and
+   imported again bit-equal; (d) ``hybrid`` (auto at 256^2) against the
+   two-pass kernels at 256^2 x16 and ``shear`` (auto at 100^2) against
+   ``gather`` at 100^2 x16: ms, launches, the outputs' difference. Since
+   the auto route is the JAX package's, the 64^2 paths of phases 10c,
+   12b, 12e, 13a and 16b warp by ``hybrid`` and launch no pass kernel.
 
 Every profile of the script is a ``utils/profiling.py`` trace read by its
 ``analyze_trace``. It prints one JSON line of per-kernel results, then, as its last line,
@@ -1920,8 +1939,7 @@ def resume_equivalence(root: Path, dev, launches) -> dict:
             fit_deep_fake, launches, cfg, resume_from=cfg.checkpoint_dir)
     finally:
         cudnn.deterministic, cudnn.benchmark = saved
-    check_launches(counts, {"warp_axis_pass": 16, "fused_noise_blend": 8},
-                   "the 64^2 run")
+    check_launches(counts, {"fused_noise_blend": 8}, "the 64^2 run")
     bad = states_differ(resumed, whole)
     if bad:
         rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
@@ -2518,8 +2536,8 @@ def _k_flat(group: list) -> list:
 
 
 def _small_trainers(dev) -> dict:
-    """Phase 12b's cases: 64^2 x2 resnet18 fp32 trainers (the two-pass warp
-    route) with an epoch a step, so that the cosine learning rate changes
+    """Phase 12b's cases: 64^2 x2 resnet18 fp32 trainers (the hybrid warp,
+    JAX's route at 64^2, plain PyTorch) with an epoch a step, so that the cosine learning rate changes
     every step; each ``(make, init, batches a step, launches a step)``."""
     small = dict(batch_size=2, encoder_name="resnet18",
                  compute_dtype="float32", image_size=64)
@@ -2532,19 +2550,19 @@ def _small_trainers(dev) -> dict:
         "denoiser": (lambda: epoch_a_step(make_trainer(
             dev, encoder="resnet18", batch=2, size=64, dtype="float32")),
             lambda t: t.init_state(seed=SEED), 1,
-            {"warp_axis_pass": 2, "fused_noise_blend": 1}),
+            {"fused_noise_blend": 1}),
         "balancer": (lambda: make_balancer(dev, **small),
                      lambda t: t.init_state(seed=SEED), 1,
                      {"fused_normalise_noise_blend": 1}),
         "deep_fake_denoise": (lambda: epoch_a_step(make_deep_fake(
             dev, **small)), lambda t: t.init_states(seed=SEED), 2,
-            {"warp_axis_pass": 4, "fused_noise_blend": 2}),
+            {"fused_noise_blend": 2}),
         # ema_update_after_step 2: the decay is 0 for ema_step 0-3 and
         # above 0 from 4, so the second group crosses the warm-up.
         "deep_fake_swap": (lambda: epoch_a_step(make_deep_fake(
             dev, dict(DENOISE_YML, **SWAP_YML), ema_update_after_step=2,
             **small)), lambda t: t.init_states(seed=SEED), 2,
-            {"warp_axis_pass": 4, "fused_noise_blend": 2}),
+            {"fused_noise_blend": 2}),
     }
 
 
@@ -2817,8 +2835,7 @@ def graph_from_disk(root: Path, data: dict, dev, launches,
             fit_deep_fake, launches, cfg, resume_from=cfg.checkpoint_dir)
     finally:
         cudnn.deterministic, cudnn.benchmark = saved
-    check_launches(small_counts, {"warp_axis_pass": 32,
-                                  "fused_noise_blend": 16},
+    check_launches(small_counts, {"fused_noise_blend": 16},
                    "12e the 64^2 grouped run")
     bad = states_differ(resumed, whole)
     check(ctx.global_step == 8 and not bad,
@@ -3033,7 +3050,7 @@ def cached_against_host(root: Path, dev, launches, probe) -> dict:
     small = dict(batch_size=2, encoder_name="resnet18",
                  compute_dtype="float32", image_size=64, max_epochs=2,
                  log_images=False)
-    twopass = {"warp_axis_pass": 2, "fused_noise_blend": 1}
+    hybrid = {"fused_noise_blend": 1}  # 64^2: the hybrid warp, no kernel
     swap_small = dict(SWAP_YML, **small, steps_per_call=2,
                       ema_update_after_step=1)
     counts = {}
@@ -3049,14 +3066,14 @@ def cached_against_host(root: Path, dev, launches, probe) -> dict:
                     steps_per_call=k, data_cache=cache, seed=SEED,
                     log_dir=str(root / f"c_den_{k}_{cache}" / "runs"),
                     checkpoint_dir=str(root / f"c_den_{k}_{cache}" / "ck"))),
-                "denoiser", k, {n: 8 * v for n, v in twopass.items()})
+                "denoiser", k, {n: 8 * v for n, v in hybrid.items()})
             counts[f"cache_fit_denoiser_64_k{k}"] = run["counts"]
         swap = cached_pair(
             probe, launches, "fit_deep_fake swap", fit_deep_fake,
             lambda cache: deep_fake_cfg(
                 frames, root, f"c_swap_{cache}", **swap_small,
                 data_cache=cache),
-            "deep_fake", 2, {n: 16 * v for n, v in twopass.items()})
+            "deep_fake", 2, {n: 16 * v for n, v in hybrid.items()})
         counts["cache_graph_fit_deep_fake_swap_64"] = swap["counts"]
         cfg = deep_fake_cfg(frames, root, "c_swap_resumed", **swap_small,
                             data_cache="device")
@@ -3430,6 +3447,20 @@ PARAM_COUNTS = {
     "resnext101_32x8d": 95_755_699,
     "wide_resnet50_2": 75_847_603,
     "wide_resnet101_2": 133_851_059,
+    # The other families (tests/test_torch_port_encoder_families.py holds
+    # them to tests/test_models.py's pins or JAX's jax.eval_shape).
+    "vgg11": 18_254_323, "vgg11_bn": 18_259_827, "vgg13": 18_438_835,
+    "vgg13_bn": 18_444_723, "vgg16": 23_748_531, "vgg16_bn": 23_756_979,
+    "vgg19": 29_058_227, "vgg19_bn": 29_069_235,
+    "densenet121": 13_607_923, "densenet161": 38_738_611,
+    "densenet169": 21_202_931, "densenet201": 28_580_851,
+    "se_resnet50": 35_052_387, "se_resnet101": 56_291_235,
+    "se_resnet152": 73_786_211, "se_resnext50_32x4d": 34_524_259,
+    "se_resnext101_32x4d": 55_919_779, "senet154": 122_071_779,
+    "mobilenet_v2": 6_629_235, "xception": 28_769_691,
+    "inceptionv4": 48_792_211, "inceptionresnetv2": 62_029_587,
+    "dpn68": 16_951_773, "dpn68b": 16_951_773, "dpn92": 46_951_091,
+    "dpn98": 71_341_875, "dpn107": 98_785_587, "dpn131": 89_707_635,
 }
 # The reference's Lightning counters in the hand-built checkpoint.
 REF_EPOCH, REF_GLOBAL_STEP = 41, 1234
@@ -3443,18 +3474,21 @@ def held_memory_gb() -> float:
     return torch.cuda.memory_allocated() / 1e9
 
 
-def family_full_width(dev, launches, card: str, main_run: dict) -> dict:
-    """Phase 14b: the denoiser at 448^2 x16 bf16 for the three *50 names
-    (3 warm-up and 10 timed steps, a profile of 3 more), then one eval
-    forward at 448^2 x16 bf16 of each deeper name. Returns the launch
-    counts by path."""
+def family_full_width(dev, launches, card: str, main_run: dict,
+                      stepped=FAMILY_STEPPED, forward=FAMILY_FORWARD,
+                      tag: str = "14b") -> dict:
+    """Phases 14b and 17b: the denoiser at 448^2 x16 bf16 for each
+    ``stepped`` name (3 warm-up and 10 timed steps, a profile of 3 more),
+    then one eval forward at 448^2 x16 bf16 of each ``forward`` name; every
+    parameter count against ``PARAM_COUNTS``. Returns the launch counts by
+    path."""
     from denoising_diffusion_deep_fake_tpu_torch.training.state import (
         param_count)
 
     counts = {}
     rows = [f"resnet34 (phase 5) {16 / main_run['step_ms'] * 1e3:.1f} "
             f"imgs/s"]
-    for name in FAMILY_STEPPED:
+    for name in stepped:
         held_gb = held_memory_gb()
         trainer = make_trainer(dev, encoder=name, batch=16, size=448,
                                dtype="bfloat16")
@@ -3477,10 +3511,10 @@ def family_full_width(dev, launches, card: str, main_run: dict) -> dict:
                     f"{held_gb:.2f} GB held before, {n:,} params)")
         del trainer, run
         torch.cuda.empty_cache()
-    log(f"  14b 448^2 x16 bf16 denoiser: {'; '.join(rows)} [{card}]")
+    log(f"  {tag} 448^2 x16 bf16 denoiser: {'; '.join(rows)} [{card}]")
 
     x = torch.rand((16, 448, 448, 3), device=dev) * 2 - 1
-    for name in FAMILY_FORWARD:
+    for name in forward:
         held_gb = held_memory_gb()
         trainer = make_trainer(dev, encoder=name, batch=16, size=448,
                                dtype="bfloat16")
@@ -3496,7 +3530,7 @@ def family_full_width(dev, launches, card: str, main_run: dict) -> dict:
               f"{name}: the eval forward is not finite")
         ms = time_ms(lambda: denoise(state, x), iters=20, warmup=3)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
-        log(f"  14b {name}: {n:,} params, eval forward 448^2 x16 bf16 "
+        log(f"  {tag} {name}: {n:,} params, eval forward 448^2 x16 bf16 "
             f"{ms:.3f} ms (mean of 20 back to back, {16 / ms * 1e3:.1f} "
             f"imgs/s), peak memory {peak_gb:.2f} GB above the "
             f"{held_gb:.2f} GB held before [{card}]")
@@ -4418,7 +4452,7 @@ def remat_references(dev, launches) -> dict:
         check(not bad, f"16b: the first K = 3 group differs: {bad[:5]}")
         check(step.captures == 1, f"16b: {step.captures} captures")
         check_launches(counts["graph_remat_jitter_64"],
-                       {"warp_axis_pass": 6, "fused_noise_blend": 3},
+                       {"fused_noise_blend": 3},
                        "16b K = 3 remat dots + jitter")
         _check_same("16b remat dots + jitter", graph_t, graph_s, eager_t,
                     eager_s, [groups[0]], eager[3:])
@@ -4611,6 +4645,156 @@ def jitter_remat_profile(root: Path, codec_root: Path, dev, launches,
         dev, launches, card, runs["swap"], graph_rates)
     took("16e")
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return counts
+
+
+# ---------------------- phase 17: the eight other families, the warp routes
+
+# 17a: one name a family (vgg11 has conv biases and no BN), GPU vs CPU;
+# 17b steps all but vgg11 and takes one forward of each other name.
+FAMILIES_SMALL = ("vgg11", "vgg16_bn", "densenet121", "se_resnext50_32x4d",
+                  "mobilenet_v2", "xception", "inceptionv4",
+                  "inceptionresnetv2", "dpn68b")
+FAMILIES_STEPPED = FAMILIES_SMALL[1:]
+FAMILIES_FORWARD = tuple(
+    n for n in PARAM_COUNTS if n not in FAMILIES_STEPPED
+    and n not in FAMILY_STEPPED + FAMILY_FORWARD + ("resnet34",))
+
+
+def family_checkpoints(root: Path, data: dict, dev, card: str) -> None:
+    """Phase 17c: a reference .ckpt of a densenet121 pair in swap mode and
+    one of a dpn68b pair in denoise mode, each imported, its 448^2 x16
+    swap batch on the card bit-equal to the .ckpt's weights loaded
+    straight, exported, and imported again bit-equal to the import."""
+    from denoising_diffusion_deep_fake_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from denoising_diffusion_deep_fake_tpu_torch.utils.torch_export import (
+        export_reference_checkpoint)
+    from denoising_diffusion_deep_fake_tpu_torch.utils.torch_import import (
+        import_reference_checkpoint)
+
+    root.mkdir(parents=True)
+    base = {k: list(v) if isinstance(v, tuple) else v
+            for k, v in dict(DENOISE_YML, **SWAP_YML).items()}
+    base.update(data_path_a=str(data["a"]), data_path_b=str(data["b"]))
+    for name, with_ema in (("densenet121", True), ("dpn68b", False)):
+        hparams = dict(base, encoder_name=name,
+                       **({} if with_ema else {"mode": "denoise"}))
+        ckpt = root / f"reference_{name}.ckpt"
+        sd = reference_ckpt(ckpt, name, hparams, with_ema=with_ema)
+        t0 = time.perf_counter()
+        imported = import_reference_checkpoint(
+            ckpt, root / f"imported_{name}").parent
+        import_s = time.perf_counter() - t0
+        prefix = "ema_model_a.ema_model." if with_ema else "model_a."
+        ms = swap_batch_check(imported, sd, prefix, name, dev,
+                              use_ema=with_ema)
+        out = root / f"exported_{name}.ckpt"
+        t0 = time.perf_counter()
+        export_reference_checkpoint(imported, out)
+        export_s = time.perf_counter() - t0
+        exported = torch.load(out, map_location="cpu",
+                              weights_only=False)["state_dict"]
+        want_keys = {k for k in sd if not k.startswith("criterion.")}
+        check(set(exported) == want_keys, f"17c {name}: the exported keys "
+              f"are not the .ckpt's less criterion.*: "
+              f"{sorted(set(exported) ^ want_keys)[:6]}")
+        bad = [k for k, v in sd.items() if k in exported
+               and v.is_floating_point() and not torch.equal(exported[k], v)]
+        check(not bad, f"17c {name}: exported tensors differ from the "
+              f".ckpt's: {bad[:4]}")
+        again = import_reference_checkpoint(out, root / f"again_{name}"
+                                            ).parent
+        parts = ["model"] + (["ema_model"] if with_ema else [])
+        first, second = CheckpointManager(imported), CheckpointManager(again)
+        for ident in "ab":
+            want = first.restore_partial(ident, parts, device="cpu")
+            got = second.restore_partial(ident, parts, device="cpu")
+            for part in parts:
+                diff = [k for k in want[part] if not torch.equal(
+                    got[part][k], want[part][k])]
+                check(got[part].keys() == want[part].keys() and not diff,
+                      f"17c {name} {ident} {part}: export + import differs "
+                      f"from the import at {diff[:4]}")
+        log(f"  17c {name} ({'swap' if with_ema else 'denoise'} mode, "
+            f"{ckpt.stat().st_size / 1e6:.1f} MB .ckpt): imported in "
+            f"{import_s:.2f} s; its 448^2 x16 swap batch ({ms:.1f} ms, "
+            f"first call) bit-equal to the .ckpt's weights loaded straight; "
+            f"exported in {export_s:.2f} s, every tensor the .ckpt's; "
+            f"imported again, every model{' and shadow' if with_ema else ''}"
+            f" tensor bit-equal to the first import [{card}]")
+
+
+def warp_routes(dev, launches, card: str) -> None:
+    """Phase 17d: the auto route's cost at sizes where it now takes JAX's
+    route: ``hybrid`` against the two-pass kernels at 256^2 x16 and
+    ``shear`` against ``gather`` at 100^2 x16 (fp32 out of uint8, 20
+    back-to-back calls each after 3), with the launches of each and the
+    outputs' difference."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
+        AffineAugmentConfig, augment_batch, sample_affine_params,
+        select_warp_method)
+
+    cfg = AffineAugmentConfig.random_affine()
+    for size, route, other in ((256, "hybrid", "pallas"),
+                               (100, "shear", "gather")):
+        check(select_warp_method(size, size, cfg) == route,
+              f"17d: auto at {size}^2 is not {route}")
+        u8 = torch.randint(0, 256, (16, size, size, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(size)
+                           ).to(dev)
+        params = {k: v.to(dev) for k, v in sample_affine_params(
+            16, cfg, generator=torch.Generator().manual_seed(size + 1)
+        ).items()}
+        outs, ms, counts = {}, {}, {}
+        for method in (route, other):
+            def run(method=method):
+                return augment_batch(u8, *HALF, cfg, params=params,
+                                     method=method)
+
+            torch.cuda.synchronize()
+            launches.clear()
+            outs[method] = run()
+            torch.cuda.synchronize()
+            counts[method] = dict(launches)
+            ms[method] = time_ms(run, iters=20, warmup=3)
+        auto = augment_batch(u8, *HALF, cfg, params=params)
+        check(torch.equal(auto, outs[route]), f"17d: auto at {size}^2 is "
+              f"not the {route} output")
+        check(counts[route] == {} and (other != "pallas" or counts[other]
+                                       == {"warp_axis_pass": 2}),
+              f"17d launches at {size}^2: {counts}")
+        check(all(torch.isfinite(o).all().item() for o in outs.values()),
+              f"17d: a route's output at {size}^2 is not finite")
+        diff = (outs[route] - outs[other]).abs()
+        log(f"  17d {size}^2 x16 uint8 -> fp32: {route} (auto) "
+            f"{ms[route]:.4f} ms, {other} {ms[other]:.4f} ms "
+            f"({ms[route] / ms[other]:.2f}x); launches {counts}; outputs "
+            f"differ by max {diff.max().item():.4f}, mean "
+            f"{diff.mean().item():.2e} [{card}]")
+
+
+def other_families(root: Path, data: dict, dev, launches, card: str,
+                   main_run: dict) -> dict:
+    """Phase 17: 17a one name a family's 64^2 fp32 step on the GPU against
+    the CPU, 17b the stepped names' full-width rates and every other
+    name's forward, 17c reference checkpoints of two families in and out,
+    17d the warp routes. Returns the launch counts by path."""
+    t0 = time.perf_counter()
+    log("[17a] one name a family: 64^2 fp32 steps, GPU vs CPU")
+    for name in FAMILIES_SMALL:
+        small_reference(dev, encoder=name)
+    log(f"    ({time.perf_counter() - t0:.1f} s)")
+    log("[17b] the families at full width: 448^2 x16 bf16")
+    counts = family_full_width(dev, launches, card, main_run,
+                               stepped=FAMILIES_STEPPED,
+                               forward=FAMILIES_FORWARD, tag="17b")
+    log(f"    ({time.perf_counter() - t0:.1f} s)")
+    log("[17c] densenet121 and dpn68b .ckpt files in and out")
+    family_checkpoints(root, data, dev, card)
+    log("[17d] the auto warp route below 384^2: hybrid and shear")
+    warp_routes(dev, launches, card)
+    log(f"  phase 17 took {time.perf_counter() - t0:.1f} s [{card}]")
     return counts
 
 
@@ -4814,6 +4998,12 @@ def main() -> int:
             Path(tmp) / "knobs", Path(tmp) / "codec", dev, _build.LAUNCHES,
             card, {"twopass": twopass_run, "swap": swap_run}, graph_rates)
 
+        log("[17] the eight other encoder families (vgg, densenet, senet, "
+            "mobilenet_v2, xception, inceptionv4, inceptionresnetv2, dpn) "
+            "and the auto warp route below 384^2")
+        other_paths = other_families(Path(tmp) / "families", data, dev,
+                                     _build.LAUNCHES, card, main_run)
+
     paths = {"denoiser_448": main_run["counts"],
              "twopass_640": twopass_run["counts"],
              "balancer_448": balance_counts,
@@ -4821,7 +5011,7 @@ def main() -> int:
              "deep_fake_swap_448": swap_run["counts"],
              "serve_ddim_448": ddim_counts, **loop_paths, **i420_paths,
              **graph_paths, **cache_paths, **family_paths, **jpeg_paths,
-             **knob_paths}
+             **knob_paths, **other_paths}
     first_path = {"affine_warp_fused": "denoiser_448",
                   "warp_axis_pass": "twopass_640",
                   "fused_noise_blend": "denoiser_448",

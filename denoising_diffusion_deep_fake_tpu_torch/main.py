@@ -21,8 +21,8 @@ reference's ``d3f`` click group), with ``argparse`` in place of ``click``
 and the same subcommand and option names. ``--device``
 (default ``cuda``) is the port's counterpart of ``JAX_PLATFORMS=cpu``:
 ``--device cpu`` runs the plain PyTorch path. ``import`` and ``export``
-convert files on the host and take no ``--device``; they cover the resnet
-encoder family (the others are ROADMAP A11). ``serve --devices`` other
+convert files on the host and take no ``--device``; they cover every
+encoder family but EfficientNet's (ROADMAP A11b). ``serve --devices`` other
 than 1 is refused (replicas are ROADMAP A9). ``profile`` runs
 ``fit_denoiser`` for ``--steps`` steps under a ``torch.profiler`` trace
 (``utils/profiling.py``) and, with ``--report``, prints the trace's

@@ -24,8 +24,9 @@ its own statistics move only through the EMA blend, as the JAX package
 discards the mutated ``batch_stats`` of its shadow forward
 (``training/deep_fake.py:145-148``).
 
-The other encoder families (VGG, DenseNet, EfficientNet, SE-Net, ...) are
-not ported yet (ROADMAP A11).
+The eight other families but EfficientNet (ROADMAP A11b) are their own
+modules beside this one (``models/unet.py``'s ``make_encoder``); they
+build on this module's ``Conv2d`` and ``BatchNorm2d``.
 """
 
 from __future__ import annotations
@@ -175,13 +176,13 @@ class Bottleneck(nn.Module):
 class ResNetEncoder(nn.Module):
     """Feature-pyramid ResNet encoder (smp ``get_stages`` semantics)."""
 
+    conv_init = "fan_out"
+
     def __init__(self, encoder_name: str = "resnet34", in_channels: int = 3):
         super().__init__()
         if encoder_name not in RESNET_SPECS:
-            raise NotImplementedError(
-                f"encoder {encoder_name!r} is not ported yet (ROADMAP A11: "
-                f"the other encoder families); the port has "
-                f"{sorted(RESNET_SPECS)}")
+            raise ValueError(f"{encoder_name!r} is not a resnet-family name "
+                             f"{sorted(RESNET_SPECS)}")
         self.spec = spec = RESNET_SPECS[encoder_name]
         self.in_channels = in_channels
         self.conv1 = Conv2d(in_channels, 64, 7, 2, 3, bias=False)

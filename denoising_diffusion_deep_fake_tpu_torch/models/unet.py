@@ -1,9 +1,12 @@
-"""U-Net with smp topology: ResNet encoder + (256, 128, 64, 32, 16) decoder.
+"""U-Net with smp topology: any of nine encoder families + the (256, 128,
+64, 32, 16) decoder.
 
-The encoder is any of the resnet family's nine names
-(``models/resnet.py``, ``RESNET_SPECS``); the decoder is wired from its
-``out_channels``, so a Bottleneck encoder's 2048-channel head feeds the
-first decoder block as smp wires it.
+``make_encoder`` mirrors the JAX package's (``models/unet.py:66-119``):
+the resnet family (``models/resnet.py``), vgg, densenet, senet,
+mobilenet_v2, xception, inceptionv4, inceptionresnetv2 and dpn, every name
+but EfficientNet's (ROADMAP A11b). The decoder is wired from the encoder's
+``out_channels``; for the vgg names smp's ``CenterBlock`` (two Conv2dReLU
+at the head's width) runs before it (JAX ``unet.py:186-193``).
 
 Port of ``denoising_diffusion_deep_fake_tpu/models/unet.py:122-202,
 254-266`` (``segmentation_models_pytorch.Unet(encoder_name=...,
@@ -17,28 +20,101 @@ Inside, it works on the NCHW view of the NHWC batch, which is
 trainer's ``init_state`` on the GPU) cuDNN runs NHWC convolutions and no
 transpose is made.
 
-Init parity with smp's ``initialize()`` and torchvision: encoder convs
-He-normal fan-out, decoder convs He-uniform fan-in, head xavier-uniform,
-biases zero, BN ones/zeros, drawn from an explicit ``torch.Generator``.
-A grouped 3x3 (ResNeXt) takes the fan-out of its whole weight, out
-channels x 9, as torchvision's ``kaiming_normal_`` and flax's
-``variance_scaling`` both count it.
+Init parity with smp's ``initialize()`` and each encoder's own
+(``init_unet_``): the encoder's convs by its family's ``conv_init`` —
+He-normal fan-out (resnet, vgg, mobilenet_v2, xception: a grouped or
+depthwise conv takes the fan-out of its whole weight, out channels x k x
+k, as torchvision's ``kaiming_normal_`` and flax's ``variance_scaling``
+both count it), He-normal fan-in (densenet), or torch's defaults (senet,
+inceptionv4, inceptionresnetv2, dpn: kaiming-uniform(a=sqrt(5)) weights,
+uniform(+-1/sqrt(fan_in)) biases); decoder convs He-uniform fan-in, head
+xavier-uniform, other biases zero, BN ones/zeros, drawn from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from denoising_diffusion_deep_fake_tpu_torch.models.densenet import (
+    DENSENET_SPECS,
+    DenseNetEncoder,
+)
+from denoising_diffusion_deep_fake_tpu_torch.models.dpn import (
+    DPN_SPECS,
+    DPNEncoder,
+)
+from denoising_diffusion_deep_fake_tpu_torch.models.inceptionresnetv2 import (
+    InceptionResNetV2Encoder,
+)
+from denoising_diffusion_deep_fake_tpu_torch.models.inceptionv4 import (
+    InceptionV4Encoder,
+)
+from denoising_diffusion_deep_fake_tpu_torch.models.mobilenet import (
+    MobileNetV2Encoder,
+)
 from denoising_diffusion_deep_fake_tpu_torch.models.resnet import (
+    RESNET_SPECS,
     BatchNorm2d,
     Conv2d,
     ResNetEncoder,
 )
+from denoising_diffusion_deep_fake_tpu_torch.models.senet import (
+    SENET_SPECS,
+    SENetEncoder,
+)
+from denoising_diffusion_deep_fake_tpu_torch.models.vgg import (
+    VGG_SPECS,
+    VGGEncoder,
+)
+from denoising_diffusion_deep_fake_tpu_torch.models.xception import (
+    XceptionEncoder,
+)
 
 
 DECODER_CHANNELS = (256, 128, 64, 32, 16)
+# The JAX package's EfficientNet names (models/efficientnet.py), whose
+# stochastic depth is ROADMAP A11b.
+EFFICIENTNET_NAMES = tuple(f"efficientnet-b{i}" for i in range(8))
+# Each family's names (its spec table where it has one) and encoder, in
+# the JAX package's dispatch order.
+ENCODER_FAMILIES = (
+    (RESNET_SPECS, ResNetEncoder),
+    (VGG_SPECS, VGGEncoder),
+    (DENSENET_SPECS, DenseNetEncoder),
+    (SENET_SPECS, SENetEncoder),
+    (("mobilenet_v2",), MobileNetV2Encoder),
+    (("xception",), XceptionEncoder),
+    (("inceptionv4",), InceptionV4Encoder),
+    (("inceptionresnetv2",), InceptionResNetV2Encoder),
+    (DPN_SPECS, DPNEncoder),
+)
+
+
+def encoder_names() -> list[str]:
+    """Every encoder name the port builds."""
+    return [n for names, _ in ENCODER_FAMILIES for n in names]
+
+
+def make_encoder(encoder_name: str, in_channels: int = 3) -> nn.Module:
+    """The encoder of ``encoder_name``: a module whose forward returns the
+    six-level pyramid at strides (1, 2, 4, 8, 16, 32), channels
+    ``out_channels``, and whose ``conv_init`` names its family's
+    initializer. EfficientNet names raise ``NotImplementedError`` (ROADMAP
+    A11b), unknown names ``ValueError``."""
+    for names, encoder in ENCODER_FAMILIES:
+        if encoder_name in names:
+            return encoder(encoder_name, in_channels)
+    if encoder_name in EFFICIENTNET_NAMES:
+        raise NotImplementedError(
+            f"encoder {encoder_name!r} is not ported yet (ROADMAP A11b: "
+            "EfficientNet's stochastic depth)")
+    raise ValueError(f"unsupported encoder_name {encoder_name!r}; "
+                     f"available: {encoder_names()}")
 
 
 class Conv2dReLU(nn.Sequential):
@@ -69,18 +145,25 @@ class DecoderBlock(nn.Module):
 
 
 class UnetDecoder(nn.Module):
-    def __init__(self, encoder_channels, decoder_channels):
+    """smp's UnetDecoder; ``center`` adds its CenterBlock, two Conv2dReLU
+    at the head's width (smp's Unet sets it for the vgg encoders)."""
+
+    def __init__(self, encoder_channels, decoder_channels,
+                 center: bool = False):
         super().__init__()
         channels = tuple(encoder_channels[1:])[::-1]     # deepest first
         in_channels = (channels[0],) + tuple(decoder_channels[:-1])
         skip_channels = channels[1:] + (0,)
+        self.center = (nn.Sequential(Conv2dReLU(channels[0], channels[0]),
+                                     Conv2dReLU(channels[0], channels[0]))
+                       if center else None)
         self.blocks = nn.ModuleList(
             DecoderBlock(i, s, o) for i, s, o in
             zip(in_channels, skip_channels, decoder_channels))
 
     def forward(self, features: list[torch.Tensor]) -> torch.Tensor:
         head, skips = features[-1], features[1:-1][::-1]
-        y = head
+        y = head if self.center is None else self.center(head)
         for i, block in enumerate(self.blocks):
             y = block(y, skips[i] if i < len(skips) else None)
         return y
@@ -94,9 +177,11 @@ class Unet(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.encoder = ResNetEncoder(encoder_name, in_channels)
+        self.encoder_name = encoder_name
+        self.encoder = make_encoder(encoder_name, in_channels)
         self.decoder = UnetDecoder(self.encoder.out_channels,
-                                   DECODER_CHANNELS)
+                                   DECODER_CHANNELS,
+                                   center=encoder_name.startswith("vgg"))
         self.segmentation_head = nn.Sequential(
             Conv2d(DECODER_CHANNELS[-1], classes, 3, padding=1, bias=True))
 
@@ -106,16 +191,37 @@ class Unet(nn.Module):
         return y.permute(0, 2, 3, 1).to(torch.float32)
 
 
+def _init_encoder_conv_(conv: Conv2d, kind: str,
+                        generator: torch.Generator) -> None:
+    """One encoder conv by its family's ``conv_init``: "fan_out" or
+    "fan_in" He-normal (biases zero), or "torch", torch's own
+    ``reset_parameters`` (kaiming-uniform(a=sqrt(5)) weights,
+    uniform(+-1/sqrt(fan_in)) biases)."""
+    if kind == "torch":
+        nn.init.kaiming_uniform_(conv.weight, a=math.sqrt(5),
+                                 generator=generator)
+        if conv.bias is not None:
+            fan_in, _ = nn.init._calculate_fan_in_and_fan_out(conv.weight)
+            bound = 1.0 / math.sqrt(fan_in)
+            nn.init.uniform_(conv.bias, -bound, bound, generator=generator)
+        return
+    nn.init.kaiming_normal_(conv.weight, mode=kind, nonlinearity="relu",
+                            generator=generator)
+    if conv.bias is not None:
+        conv.bias.zero_()
+
+
 @torch.no_grad()
 def init_unet_(model: Unet, generator: torch.Generator) -> Unet:
-    """smp/torchvision initialisation, drawn from ``generator``."""
+    """smp's and the encoder family's initialisation, drawn from
+    ``generator`` in module order."""
+    kind = model.encoder.conv_init
     for name, module in model.named_modules():
         if isinstance(module, Conv2d):
             if name.startswith("encoder"):
-                nn.init.kaiming_normal_(module.weight, mode="fan_out",
-                                        nonlinearity="relu",
-                                        generator=generator)
-            elif name.startswith("decoder"):
+                _init_encoder_conv_(module, kind, generator)
+                continue
+            if name.startswith("decoder"):
                 nn.init.kaiming_uniform_(module.weight, mode="fan_in",
                                          nonlinearity="relu",
                                          generator=generator)
@@ -138,3 +244,12 @@ def create_unet(encoder_name: str = "resnet34", *, in_channels: int = 3,
     """
     return Unet(encoder_name=encoder_name, in_channels=in_channels,
                 classes=classes, dtype=dtype)
+
+
+def unet_shapes(encoder_name: str) -> dict[str, torch.Size]:
+    """The U-Net's state_dict keys and shapes, built on the meta device (no
+    memory, nothing drawn); a name the port lacks raises as
+    ``make_encoder`` does."""
+    with torch.device("meta"):
+        model = create_unet(encoder_name)
+    return {k: v.shape for k, v in model.state_dict().items()}

@@ -321,27 +321,28 @@ def _scaled_stats(mean, std, device: torch.device
     return scaled(mean), scaled(std)
 
 
-def select_warp_method(h: int, w: int) -> str:
-    """Resolve ``method="auto"`` for an HxW batch (augment.py:341-366 with
-    "tpu" read as "cuda").
+def select_warp_method(h: int, w: int, cfg: AffineAugmentConfig) -> str:
+    """Resolve ``method="auto"`` for an HxW batch: the JAX package's table
+    (augment.py:341-366 on one device, "tpu" read as "cuda").
 
     * 32-aligned, 384^2 <= size <= 512^2: ``pallas_fused``, the fused warp
-      kernel with the uint8 normalise folded in (the 448^2 main path).
-    * every other 32-aligned size: ``pallas``, the two-pass warp kernel.
-      Above 512^2 that is the JAX routing; below 384^2 it stands in for the
-      JAX ``hybrid`` route, an XLA layout of the same LDU-shear math that
-      differs from the kernels only in not rounding to bf16.
-    * not 32-aligned: ``gather``, the direct bilinear warp. JAX takes its
-      XLA ``shear`` layout there when the tap window is at most 64 (100^2,
-      say); the port's ``shear`` and ``hybrid`` run only when named.
+      kernel with the uint8 normalise folded in (the 448^2 main path);
+    * 32-aligned above 512^2: ``pallas``, the two-pass warp kernels;
+    * other 32-aligned sizes: ``hybrid``, the scale matmul, block roll and
+      residual MAC in plain PyTorch;
+    * not 32-aligned with a tap window (``_shear_tap_bounds`` of ``cfg``)
+      of at most 64: ``shear``, the windowed-MAC passes;
+    * otherwise ``gather``, the direct bilinear warp.
 
     The route does not depend on the device: on a CPU tensor each kernel
     wrapper runs its plain version, which computes the same function.
     """
+    if h % 32 == 0 and w % 32 == 0 and min(h, w) >= 384:
+        return "pallas_fused" if max(h, w) <= 512 else "pallas"
     if h % 32 == 0 and w % 32 == 0:
-        if min(h, w) >= 384 and max(h, w) <= 512:
-            return "pallas_fused"
-        return "pallas"
+        return "hybrid"
+    if _shear_tap_bounds(h, w, cfg)[0] <= 64:
+        return "shear"
     return "gather"
 
 
@@ -361,7 +362,7 @@ def augment_batch(batch_uint8: torch.Tensor, mean, std,
         params = sample_affine_params(b, cfg, generator=generator,
                                       device=batch_uint8.device)
     if method == "auto":
-        method = select_warp_method(h, w)
+        method = select_warp_method(h, w, cfg)
     if method == "pallas_fused":
         return affine_warp_fused(batch_uint8, params, mean=mean,
                                  std=std).to(dtype)

@@ -8,11 +8,12 @@ Port of ``denoising_diffusion_deep_fake_tpu/utils/torch_export.py:64-122``
 running the reference, whose Lightning module loads ``state_dict`` keys of
 smp's Unet under ``model_{a,b}.`` and ``ema_model_{a,b}.ema_model.``.
 
-The port's U-Net has smp's keys, so a model's export is its state_dict with
+The port's U-Net has smp's keys in every family it builds (all but
+EfficientNet's, ROADMAP A11b), so a model's export is its state_dict with
 BN's ``num_batches_tracked`` put back as int64 zero scalars after each
-``running_mean`` (the reference's strict load expects them). The other
-encoder families, and JAX's probe-inversion exporter that needs their
-templates (``:125-241``), wait for ROADMAP A11.
+``running_mean`` (the reference's strict load expects them). JAX's
+probe inversion (``:125-241``) is the port's way in from flax weights,
+``utils/jax_weights.py``; a file needs none.
 
 Like the import, this is a conversion of files on the host: CPU tensors
 in, a ``.ckpt`` out, no launch.
@@ -31,9 +32,7 @@ from denoising_diffusion_deep_fake_tpu_torch.config import (
     config_from_dict,
 )
 from denoising_diffusion_deep_fake_tpu_torch.inference import IDENTITIES
-from denoising_diffusion_deep_fake_tpu_torch.utils.torch_import import (
-    unet_shapes,
-)
+from denoising_diffusion_deep_fake_tpu_torch.models.unet import unet_shapes
 
 
 def export_unet_state_dict(state_dict: dict, encoder_name: str
@@ -42,7 +41,7 @@ def export_unet_state_dict(state_dict: dict, encoder_name: str
     contiguous CPU tensors in the port's key order, with a
     ``num_batches_tracked`` int64 zero after each BN's ``running_mean``.
     The keys must be those of the port's ``encoder_name`` U-Net; an
-    encoder the port lacks raises ``NotImplementedError`` naming A11."""
+    EfficientNet encoder raises ``NotImplementedError`` naming A11b."""
     template = unet_shapes(encoder_name)
     if set(state_dict) != set(template):
         raise ValueError(

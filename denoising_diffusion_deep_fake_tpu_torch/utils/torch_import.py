@@ -1,7 +1,7 @@
 """Import reference (Lightning) checkpoints into the port.
 
 Port of ``denoising_diffusion_deep_fake_tpu/utils/torch_import.py:440-535``
-for the resnet encoder family. The reference trains
+for every encoder family but EfficientNet's. The reference trains
 ``segmentation_models_pytorch.Unet`` models inside a Lightning module, so
 its users hold ``.ckpt`` files: ``torch.save`` of ``{"state_dict",
 "hyper_parameters", "epoch", "global_step", ...}`` whose state_dict keys
@@ -15,8 +15,7 @@ mapping is the identity on keys: BN's ``num_batches_tracked`` is dropped
 (the port's ``BatchNorm2d`` has none) and every other key must be one of the
 port's U-Net of the checkpoint's ``encoder_name``, at its shape. A key that
 is not raises and names the keys, as JAX's "unmapped torch keys" does; an
-encoder of another family raises ``NotImplementedError`` naming ROADMAP
-A11.
+EfficientNet encoder raises ``NotImplementedError`` naming ROADMAP A11b.
 
 ``import_reference_checkpoint`` is a file conversion on the host, as
 JAX's is: it reads and writes CPU tensors, launches nothing and so takes no
@@ -43,19 +42,14 @@ from denoising_diffusion_deep_fake_tpu_torch.inference import IDENTITIES
 from denoising_diffusion_deep_fake_tpu_torch.models.resnet import (
     freeze_running_stats_,
 )
-from denoising_diffusion_deep_fake_tpu_torch.models.unet import create_unet
+from denoising_diffusion_deep_fake_tpu_torch.models.unet import (
+    create_unet,
+    unet_shapes,
+)
 from denoising_diffusion_deep_fake_tpu_torch.training.optim import make_adam
 from denoising_diffusion_deep_fake_tpu_torch.training.state import (
     ModelState,
 )
-
-def unet_shapes(encoder_name: str) -> dict[str, torch.Size]:
-    """The port's U-Net state_dict keys and shapes, built on the meta
-    device; an encoder the port lacks raises naming ROADMAP A11."""
-    with torch.device("meta"):
-        model = create_unet(encoder_name)
-    return {k: v.shape for k, v in model.state_dict().items()}
-
 
 def _listed(keys) -> str:
     keys = sorted(keys)

@@ -296,7 +296,7 @@ def test_import_refusals(tmp_path, case):
                               if case == "unmapped key" else None)
     ref = torch.load(ckpt, weights_only=False)
     if case == "another family":
-        ref["hyper_parameters"]["encoder_name"] = "vgg16"
+        ref["hyper_parameters"]["encoder_name"] = "efficientnet-b0"
         error, match = NotImplementedError, "A11"
     elif case == "unmapped key":
         error, match = ValueError, r"unmapped torch keys: \['encoder.bogus"
@@ -317,7 +317,9 @@ def test_export_refusals(tmp_path, case):
     state = create_model_state(cfg, torch.float32, torch.device("cpu"),
                                seed=0)
     states = state if case == "single state" else {"a": state, "b": state}
-    hparams = dict(encoder_name="vgg16" if case == "vgg" else "resnet18",
+    # "vgg": the one family still unported, EfficientNet (ROADMAP A11b).
+    hparams = dict(encoder_name="efficientnet-b0" if case == "vgg"
+                   else "resnet18",
                    patchify_stem=2 if case == "patchify" else 1)
     manager.save(3, states, hparams)
     error, match = {"single state": (ValueError, "two-identity"),

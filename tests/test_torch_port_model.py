@@ -136,7 +136,7 @@ def test_bf16_forward_casts_and_returns_fp32(models):
 
 
 def test_unported_encoders_raise():
-    # The resnet family is ported (tests/test_torch_port_resnet_family.py);
-    # the other encoder families are ROADMAP A11.
+    # Nine encoder families are ported (tests/test_torch_port_resnet_family.py,
+    # tests/test_torch_port_encoder_*.py); EfficientNet is ROADMAP A11b.
     with pytest.raises(NotImplementedError, match="A11"):
-        create_unet("vgg16")
+        create_unet("efficientnet-b0")

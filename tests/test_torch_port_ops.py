@@ -138,10 +138,11 @@ def test_normalise_batch_matches_jax_exactly():
 
 @pytest.mark.parametrize("hw,method", [
     ((448, 448), "pallas_fused"), ((384, 512), "pallas_fused"),
-    ((640, 640), "pallas"), ((64, 64), "pallas"), ((256, 256), "pallas"),
-    ((60, 64), "gather"), ((448, 440), "gather")])
+    ((640, 640), "pallas"), ((64, 64), "hybrid"), ((256, 256), "hybrid"),
+    ((60, 64), "shear"), ((448, 440), "gather")])
 def test_select_warp_method(hw, method):
-    assert taug.select_warp_method(*hw) == method
+    cfg = taug.AffineAugmentConfig.random_affine()
+    assert taug.select_warp_method(*hw, cfg) == method
 
 
 def test_augment_batch_routes_on_cpu():

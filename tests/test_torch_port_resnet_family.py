@@ -117,8 +117,9 @@ def test_param_count_equals_jax(name):
 
 
 def test_unknown_encoder_names_roadmap_a11():
+    # Every family but EfficientNet is ported; its names name ROADMAP A11b.
     with pytest.raises(NotImplementedError, match="A11"):
-        create_unet("vgg16")
+        create_unet("efficientnet-b0")
 
 
 @pytest.fixture

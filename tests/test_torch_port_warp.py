@@ -315,25 +315,81 @@ def test_fused_wrapper_checks_raise_before_any_launch():
     assert dict(LAUNCHES) == before
 
 
-# Where the port's auto route differs from JAX's on one TPU, it takes a
-# documented stand-in (ops/augment.py select_warp_method, README): the
-# bf16-rounding pass kernels for the XLA "hybrid" layout of the same shear
-# math, the direct bilinear warp for the XLA "shear" layout.
-STAND_INS = {"hybrid": "pallas", "shear": "gather"}
+def _jax_route(method, u8, params, cfg):
+    """JAX's warp of ``u8`` on ``params`` through one named route, as its
+    ``augment_batch`` takes it (the Pallas kernels in interpret mode)."""
+    h, w = u8.shape[1:3]
+    if method == "pallas_fused":
+        return affine_warp_pallas_fused(jnp.asarray(u8), params,
+                                        mean=IMAGENET[0], std=IMAGENET[1],
+                                        interpret=True)
+    x = jaug.normalise_batch(jnp.asarray(u8), *IMAGENET)
+    if method == "pallas":
+        return jk.affine_warp_pallas(x, params, interpret=True)
+    if method == "shear":
+        return jaug.affine_warp_shear(x, params,
+                                      jaug._shear_tap_bounds(h, w, cfg))
+    if method == "hybrid":
+        return jaug.affine_warp_hybrid(x, params)
+    return jaug.affine_warp(x, params)
+
+
+# The size at which each route's output is held against JAX's (the JAX
+# kernels run interpreted: a few seconds a size).
+OUTPUT_AT = {(64, 64): "hybrid", (384, 384): "pallas_fused",
+             (448, 544): "pallas", (100, 100): "shear"}
 
 
 @pytest.mark.parametrize("hw", [(64, 64), (256, 256), (384, 384),
                                 (448, 448), (512, 512), (640, 640),
                                 (448, 544), (100, 100)])
-def test_auto_route_is_jax_route_or_its_documented_stand_in(hw):
+def test_auto_route_is_jax_route(hw):
+    """``method="auto"`` takes JAX's route on one device at every size (the
+    fused kernel at 384-512^2, the two-pass kernels above, ``hybrid`` for
+    other 32-aligned sizes, ``shear`` for a tap window of at most 64), and,
+    once a route, its output is JAX's on the same batch and params."""
     h, w = hw
-    want = jax_select_warp_method(h, w, AffineAugmentConfig.random_affine(),
-                                  backend="tpu", n_devices=1)
-    got = select_warp_method(h, w)
-    if h % 32 == 0 and w % 32 == 0 and min(h, w) >= 384:
-        assert got == want
+    cfg = AffineAugmentConfig.random_affine()
+    want = jax_select_warp_method(h, w, cfg, backend="tpu", n_devices=1)
+    got = select_warp_method(h, w, taug.AffineAugmentConfig.random_affine())
+    assert got == want
+    if hw not in OUTPUT_AT:
+        return
+    assert OUTPUT_AT[hw] == want
+    u8 = np.random.default_rng(33).integers(0, 256, (1, h, w, 3), np.uint8)
+    params = {k: v[:1] for k, v in _params(34).items()}
+    ref = np.asarray(_jax_route(want, u8, params, cfg))
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in params.items()}
+    u8_t = torch.from_numpy(u8)
+    out = taug.augment_batch(u8_t, *IMAGENET,
+                             taug.AffineAugmentConfig.random_affine(),
+                             params=tp)
+    norm = taug.normalise_batch(u8_t, *IMAGENET)
+    if want in ("pallas_fused", "pallas"):
+        # The kernels round their tile, hat weights and intermediate to
+        # bf16, so an ulp of cos/sin between the frameworks' coefficients,
+        # or of an fp32 sum that XLA orders otherwise, can move an output
+        # by one bf16 step of its magnitude: on JAX's coefficients, at
+        # most that step on under 5% of the outputs (bit for bit at 64^2
+        # above).
+        coeffs = _coeffs(params, h, w)
+        if want == "pallas_fused":
+            assert torch.equal(out, pf.affine_warp_fused(
+                u8_t, tp, mean=IMAGENET[0], std=IMAGENET[1]))
+            got = pf.affine_warp_fused_coeffs(u8_t, coeffs, mean=IMAGENET[0],
+                                              std=IMAGENET[1])
+        else:
+            assert torch.equal(out, pk.affine_warp_twopass(norm, tp))
+            got = pk.affine_warp_twopass_coeffs(norm, coeffs)
+        diff = np.abs(got.numpy() - ref)
+        assert diff.max() <= 2.0 ** -7 * np.abs(ref).max()
+        assert (diff > 0).mean() < 0.05
     else:
-        assert got == STAND_INS[want]
+        direct = (taug.affine_warp_hybrid(norm, tp) if want == "hybrid"
+                  else taug.affine_warp_shear(norm, tp, taug._shear_tap_bounds(
+                      h, w, taug.AffineAugmentConfig.random_affine())))
+        assert torch.equal(out, direct)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("method,hw", [
