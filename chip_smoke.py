@@ -229,6 +229,27 @@ Phases, in order; any failure exits non-zero:
    ``gather`` at 100^2 x16: ms, launches, the outputs' difference. Since
    the auto route is the JAX package's, the 64^2 paths of phases 10c,
    12b, 12e, 13a and 16b warp by ``hybrid`` and launch no pass kernel.
+18. EfficientNet-b0..b7 with stochastic depth, and the patchified U-Net:
+   (a) 64^2 fp32 denoiser steps on the GPU against the CPU (1e-4
+   relative): efficientnet-b0 with the same drop masks given to both,
+   resnet18 with ``patchify_stem: 2``; (b) at 64^2 x2 efficientnet-b0,
+   fp32, ``remat: dots``, the masks drawn from each trainer's generator,
+   under ``cudnn.deterministic``: 2 replays of a K = 3 graph bit-equal to
+   6 eager steps for the denoiser, the balancer and the deep-fake swap
+   pair (12b's check); (c) the denoiser at 448^2 x16 bf16 with
+   efficientnet-b0, b4 and b7 and resnet34 with ``patchify_stem: 2`` (3 +
+   10 steps, a profile of 3 with cuDNN's layout conversions counted, peak
+   memory, one fused warp and one fp32 noise launch a step), b0 and the
+   patchified resnet34 at K = 16, beside phase 5's rate; (d) one eval
+   forward at 448^2 x16 bf16 of each of the eight names, their parameter
+   counts, and a reference
+   .ckpt of an efficientnet-b4 pair in swap mode imported, its swap
+   batch bit-equal to its weights loaded straight, exported and imported
+   again bit-equal; (e) the balancer at 448^2 x12 with efficientnet-b0 (3
+   + 10 steps, one uint8 noise launch a step, a profile); (f) a
+   measurement: a 448^2 x8 single-pass frame of 8d's model against its
+   batch slot, with cuDNN's default and with ``cudnn.deterministic`` set
+   only there, and the batch's time in each.
 
 Every profile of the script is a ``utils/profiling.py`` trace read by its
 ``analyze_trace``. It prints one JSON line of per-kernel results, then, as its last line,
@@ -747,10 +768,14 @@ def make_trainer(device, *, encoder: str, batch: int, size: int,
 
 def small_reference(dev, upload_format: str = "rgb",
                     encoder: str = "resnet18",
-                    warp_method: str = "pallas_fused") -> None:
+                    warp_method: str = "pallas_fused", **overrides) -> None:
     """Phase 4 (11b with ``upload_format="i420"``, 14a with a Bottleneck
-    ``encoder``, 16b with ``warp_method`` shear and hybrid): a 64^2 fp32
-    step on the GPU against the CPU plain path."""
+    ``encoder``, 16b with ``warp_method`` shear and hybrid, 18a with
+    EfficientNet's stochastic depth or ``patchify_stem`` in
+    ``overrides``): a 64^2 fp32 step on the GPU against the CPU plain
+    path, an encoder that drops blocks given the same masks on both."""
+    from denoising_diffusion_deep_fake_tpu_torch.models.unet import (
+        drop_keep_probs)
     from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
         AffineAugmentConfig, sample_affine_params)
     from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
@@ -771,19 +796,28 @@ def small_reference(dev, upload_format: str = "rgb",
     ratios = torch.from_numpy(rng.uniform(0, 0.5, b).astype(np.float32))
     noise = torch.from_numpy(rng.standard_normal((b, s, s, 3)).astype(
         np.float32))
+    keep = np.asarray(drop_keep_probs(encoder))
+    masks = (torch.from_numpy(rng.random((len(keep), b)) < keep[:, None])
+             if len(keep) else None)
     losses = {}
     for name, device in (("cpu", "cpu"), ("cuda", dev)):
         trainer = make_trainer(device, encoder=encoder, batch=b, size=s,
                                dtype="float32", warp_method=warp_method,
-                               upload_format=upload_format)
+                               upload_format=upload_format, **overrides)
         state = trainer.init_state(seed=7)
         on = torch.device(device)
         m = trainer.train_step(
             state, u8, affine_params={k: v.to(on) for k, v in params.items()},
-            ratios=ratios.to(on), noise=noise.to(on))
+            ratios=ratios.to(on), noise=noise.to(on),
+            drop_masks=None if masks is None else masks.to(on))
         losses[name] = float(m["loss"])
     rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-    log(f"  64^2 fp32 {encoder} {upload_format} {warp_method} step loss: "
+    extra = "".join(f" {k}={v}" for k, v in overrides.items())
+    if masks is not None:
+        extra += (f" drop masks {tuple(masks.shape)} "
+                  f"({int((~masks).sum())} blocks x samples dropped)")
+    log(f"  64^2 fp32 {encoder}{extra} {upload_format} {warp_method} step "
+        f"loss: "
         f"cuda {losses['cuda']:.7f}, cpu {losses['cpu']:.7f}, relative "
         f"difference {rel:.2e} (limit 1e-4: "
         "cuDNN and the CPU sum convolutions in other orders)")
@@ -914,6 +948,7 @@ def profile_steps(run: dict, dev, path: Path | None) -> dict:
                    "ms_per_step", 0.0)
                for fn in sorted({f for k in KERNELS.values() for f in k[2:]})}
     run["busy_ms"] = busy_ms
+    run["plane"] = plane
     run["categories"] = plane.get("category_ms_per_step", {})
     if busy_ms > 0:
         share = busy_ms / run["step_ms"]
@@ -3461,6 +3496,12 @@ PARAM_COUNTS = {
     "inceptionv4": 48_792_211, "inceptionresnetv2": 62_029_587,
     "dpn68": 16_951_773, "dpn68b": 16_951_773, "dpn92": 46_951_091,
     "dpn98": 71_341_875, "dpn107": 98_785_587, "dpn131": 89_707_635,
+    # EfficientNet (tests/test_torch_port_efficientnet.py: the pins of
+    # tests/test_models.py for b0, b4, b7, jax.eval_shape for the rest).
+    "efficientnet-b0": 5_839_599, "efficientnet-b1": 8_345_235,
+    "efficientnet-b2": 9_548_149, "efficientnet-b3": 12_566_427,
+    "efficientnet-b4": 19_419_579, "efficientnet-b5": 30_163_619,
+    "efficientnet-b6": 42_493_771, "efficientnet-b7": 65_452_099,
 }
 # The reference's Lightning counters in the hand-built checkpoint.
 REF_EPOCH, REF_GLOBAL_STEP = 41, 1234
@@ -3489,29 +3530,13 @@ def family_full_width(dev, launches, card: str, main_run: dict,
     rows = [f"resnet34 (phase 5) {16 / main_run['step_ms'] * 1e3:.1f} "
             f"imgs/s"]
     for name in stepped:
-        held_gb = held_memory_gb()
-        trainer = make_trainer(dev, encoder=name, batch=16, size=448,
-                               dtype="bfloat16")
-        run = drive(dev, launches, card, single_path(trainer, size=448,
-                                                     batch=16),
-                    warmup=3, steps=10,
-                    per_step={"affine_warp_fused": 1,
-                              "fused_noise_blend": 1})
-        n = param_count(run["state"].model)
-        check(n == PARAM_COUNTS[name], f"{name} has {n} parameters, not "
-              f"{PARAM_COUNTS[name]}")
-        profile_steps(run, dev, None)
+        run, row = stepped_full_width(dev, launches, card, name)
         counts[f"family_{name}_448"] = run["counts"]
-        idle = (f"idle {1 - run['busy_ms'] / run['step_ms']:.1%}"
-                if run["busy_ms"] > 0 else "idle not measured")
-        rows.append(f"{name} {16 / run['step_ms'] * 1e3:.1f} imgs/s "
-                    f"({run['step_ms']:.3f} ms a step, kernels "
-                    f"{run['busy_ms']:.3f} ms, {idle}, peak "
-                    f"{run['peak_gb'] - held_gb:.2f} GB above the "
-                    f"{held_gb:.2f} GB held before, {n:,} params)")
-        del trainer, run
+        rows.append(row)
+        del run
         torch.cuda.empty_cache()
-    log(f"  {tag} 448^2 x16 bf16 denoiser: {'; '.join(rows)} [{card}]")
+    if stepped:
+        log(f"  {tag} 448^2 x16 bf16 denoiser: {'; '.join(rows)} [{card}]")
 
     x = torch.rand((16, 448, 448, 3), device=dev) * 2 - 1
     for name in forward:
@@ -3537,6 +3562,39 @@ def family_full_width(dev, launches, card: str, main_run: dict,
         del trainer, state, out
         torch.cuda.empty_cache()
     return counts
+
+
+def stepped_full_width(dev, launches, card: str, name: str, **overrides
+                       ) -> tuple[dict, str]:
+    """One name of phases 14b, 17b and 18c: the denoiser at 448^2 x16
+    bf16 (``overrides`` on ``make_trainer``'s config), 3 warm-up and 10
+    timed steps, one fused warp and one fp32 noise launch a step, a
+    profile of 3 more; the parameter count against ``PARAM_COUNTS``
+    (unpatchified). Returns the run and its report row."""
+    from denoising_diffusion_deep_fake_tpu_torch.training.state import (
+        param_count)
+
+    held_gb = held_memory_gb()
+    trainer = make_trainer(dev, encoder=name, batch=16, size=448,
+                           dtype="bfloat16", **overrides)
+    run = drive(dev, launches, card, single_path(trainer, size=448,
+                                                 batch=16),
+                warmup=3, steps=10,
+                per_step={"affine_warp_fused": 1, "fused_noise_blend": 1})
+    n = param_count(run["state"].model)
+    if not overrides:
+        check(n == PARAM_COUNTS[name], f"{name} has {n} parameters, not "
+              f"{PARAM_COUNTS[name]}")
+    profile_steps(run, dev, None)
+    idle = (f"idle {1 - run['busy_ms'] / run['step_ms']:.1%}"
+            if run["busy_ms"] > 0 else "idle not measured")
+    label = name + "".join(f" {k}={v}" for k, v in overrides.items())
+    row = (f"{label} {16 / run['step_ms'] * 1e3:.1f} imgs/s "
+           f"({run['step_ms']:.3f} ms a step, kernels "
+           f"{run['busy_ms']:.3f} ms, {idle}, peak "
+           f"{run['peak_gb'] - held_gb:.2f} GB above the "
+           f"{held_gb:.2f} GB held before, {n:,} params)")
+    return run, row
 
 
 def reference_ckpt(path: Path, encoder: str, hparams: dict, *,
@@ -4658,12 +4716,16 @@ FAMILIES_SMALL = ("vgg11", "vgg16_bn", "densenet121", "se_resnext50_32x4d",
 FAMILIES_STEPPED = FAMILIES_SMALL[1:]
 FAMILIES_FORWARD = tuple(
     n for n in PARAM_COUNTS if n not in FAMILIES_STEPPED
-    and n not in FAMILY_STEPPED + FAMILY_FORWARD + ("resnet34",))
+    and n not in FAMILY_STEPPED + FAMILY_FORWARD + ("resnet34",)
+    and not n.startswith("efficientnet"))
 
 
-def family_checkpoints(root: Path, data: dict, dev, card: str) -> None:
-    """Phase 17c: a reference .ckpt of a densenet121 pair in swap mode and
-    one of a dpn68b pair in denoise mode, each imported, its 448^2 x16
+def family_checkpoints(root: Path, data: dict, dev, card: str,
+                       cases=(("densenet121", True), ("dpn68b", False)),
+                       tag: str = "17c") -> None:
+    """Phase 17c (18d): a reference .ckpt of a densenet121 pair in swap
+    mode and one of a dpn68b pair in denoise mode (each of ``cases``, a
+    name and whether it has shadows), each imported, its 448^2 x16
     swap batch on the card bit-equal to the .ckpt's weights loaded
     straight, exported, and imported again bit-equal to the import."""
     from denoising_diffusion_deep_fake_tpu_torch.checkpoint import (
@@ -4673,11 +4735,11 @@ def family_checkpoints(root: Path, data: dict, dev, card: str) -> None:
     from denoising_diffusion_deep_fake_tpu_torch.utils.torch_import import (
         import_reference_checkpoint)
 
-    root.mkdir(parents=True)
+    root.mkdir(parents=True, exist_ok=True)
     base = {k: list(v) if isinstance(v, tuple) else v
             for k, v in dict(DENOISE_YML, **SWAP_YML).items()}
     base.update(data_path_a=str(data["a"]), data_path_b=str(data["b"]))
-    for name, with_ema in (("densenet121", True), ("dpn68b", False)):
+    for name, with_ema in cases:
         hparams = dict(base, encoder_name=name,
                        **({} if with_ema else {"mode": "denoise"}))
         ckpt = root / f"reference_{name}.ckpt"
@@ -4696,12 +4758,12 @@ def family_checkpoints(root: Path, data: dict, dev, card: str) -> None:
         exported = torch.load(out, map_location="cpu",
                               weights_only=False)["state_dict"]
         want_keys = {k for k in sd if not k.startswith("criterion.")}
-        check(set(exported) == want_keys, f"17c {name}: the exported keys "
+        check(set(exported) == want_keys, f"{tag} {name}: the exported keys "
               f"are not the .ckpt's less criterion.*: "
               f"{sorted(set(exported) ^ want_keys)[:6]}")
         bad = [k for k, v in sd.items() if k in exported
                and v.is_floating_point() and not torch.equal(exported[k], v)]
-        check(not bad, f"17c {name}: exported tensors differ from the "
+        check(not bad, f"{tag} {name}: exported tensors differ from the "
               f".ckpt's: {bad[:4]}")
         again = import_reference_checkpoint(out, root / f"again_{name}"
                                             ).parent
@@ -4714,9 +4776,9 @@ def family_checkpoints(root: Path, data: dict, dev, card: str) -> None:
                 diff = [k for k in want[part] if not torch.equal(
                     got[part][k], want[part][k])]
                 check(got[part].keys() == want[part].keys() and not diff,
-                      f"17c {name} {ident} {part}: export + import differs "
+                      f"{tag} {name} {ident} {part}: export + import differs "
                       f"from the import at {diff[:4]}")
-        log(f"  17c {name} ({'swap' if with_ema else 'denoise'} mode, "
+        log(f"  {tag} {name} ({'swap' if with_ema else 'denoise'} mode, "
             f"{ckpt.stat().st_size / 1e6:.1f} MB .ckpt): imported in "
             f"{import_s:.2f} s; its 448^2 x16 swap batch ({ms:.1f} ms, "
             f"first call) bit-equal to the .ckpt's weights loaded straight; "
@@ -4795,6 +4857,254 @@ def other_families(root: Path, data: dict, dev, launches, card: str,
     log("[17d] the auto warp route below 384^2: hybrid and shear")
     warp_routes(dev, launches, card)
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return counts
+
+
+# --------- phase 18: EfficientNet with stochastic depth, the patchified U-Net
+
+EFFICIENTNET_STEPPED = ("efficientnet-b0", "efficientnet-b4",
+                        "efficientnet-b7")
+B0 = "efficientnet-b0"
+
+
+def _drop_trainers(dev) -> dict:
+    """Phase 18b's cases: 64^2 x2 efficientnet-b0 fp32 trainers with
+    ``remat: dots`` (the balancer has no remat) and an epoch a step, as
+    12b's; each ``(make, init, batches a step, launches a step, its
+    module)``."""
+    small = dict(batch_size=2, encoder_name=B0, compute_dtype="float32",
+                 image_size=64, remat="dots")
+
+    def epoch_a_step(trainer):
+        trainer.steps_per_epoch = 1
+        return trainer
+
+    return {
+        "denoiser": (lambda: epoch_a_step(make_trainer(
+            dev, encoder=B0, batch=2, size=64, dtype="float32",
+            remat="dots")), lambda t: t.init_state(seed=SEED), 1,
+            {"fused_noise_blend": 1}, "denoiser"),
+        "balancer": (lambda: make_balancer(dev, **small),
+                     lambda t: t.init_state(seed=SEED), 1,
+                     {"fused_normalise_noise_blend": 1}, "balance"),
+        "deep_fake_swap": (lambda: epoch_a_step(make_deep_fake(
+            dev, dict(DENOISE_YML, **SWAP_YML), ema_update_after_step=2,
+            **small)), lambda t: t.init_states(seed=SEED), 2,
+            {"fused_noise_blend": 2}, "deep_fake"),
+    }
+
+
+@contextlib.contextmanager
+def drawn_masks(module: str, out: list):
+    """Records every ``draw_drop_masks`` of a trainer module."""
+    import importlib
+
+    mod = importlib.import_module(
+        f"denoising_diffusion_deep_fake_tpu_torch.training.{module}")
+    draw = mod.draw_drop_masks
+
+    def record(*args):
+        out.append(draw(*args))
+        return out[-1]
+
+    mod.draw_drop_masks = record
+    try:
+        yield out
+    finally:
+        mod.draw_drop_masks = draw
+
+
+def drop_graphs(dev, launches) -> dict:
+    """Phase 18b: at 64^2 x2, efficientnet-b0 (stochastic depth on, the
+    masks drawn from each trainer's generator), fp32, ``remat: dots``,
+    under cudnn.deterministic: 2 replays of a K = 3 graph against 6 eager
+    steps, for the denoiser, the balancer and the deep-fake swap pair:
+    every tensor, counter, loss and the generator bit-equal (12b's
+    check). Returns the launch counts of the replays by path."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    rng = np.random.default_rng(SEED + 43)
+    counts = {}
+    try:
+        for what, (make, init, n_args, per_step, module) in _drop_trainers(
+                dev).items():
+            eager_t, graph_t = make(), make()
+            eager_s, graph_s = init(eager_t), init(graph_t)
+            check(eager_t.drop_keep is not None
+                  and eager_t.generator is not None,
+                  f"18b {what}: no drop masks to draw")
+            steps = [[torch.from_numpy(rng.integers(
+                0, 256, (2, 64, 64, 3), np.uint8)).to(dev)
+                for _ in range(n_args)] for _ in range(6)]
+            with drawn_masks(module, []) as masks:
+                eager = _run_eager(eager_t, eager_s, steps)
+            dropped = sum(int((~m).sum()) for m in masks)
+            check(len(masks) == 6 * n_args and dropped > 0,
+                  f"18b {what}: {len(masks)} mask draws, {dropped} drops")
+            step = graph_t.make_super_step(3)
+            torch.cuda.synchronize()
+            launches.clear()
+            groups = [step(graph_s, *_k_flat(steps[i:i + 3]))
+                      for i in (0, 3)]
+            torch.cuda.synchronize()
+            counts[f"graph_{what}_efficientnet_64"] = dict(launches)
+            check_launches(counts[f"graph_{what}_efficientnet_64"],
+                           {k: 6 * v for k, v in per_step.items()},
+                           f"18b {what}")
+            check(step.captures == 1, f"{what}: {step.captures} captures")
+            _check_same(f"18b {what}", graph_t, graph_s, eager_t, eager_s,
+                        groups, eager)
+            log(f"  {what}: efficientnet-b0 with stochastic depth "
+                f"({len(masks)} draws of {tuple(masks[0].shape)} masks in "
+                f"the eager steps, {dropped} block x sample drops), remat "
+                "dots: 2 replays of K = 3 bit-equal to 6 eager steps "
+                "(weights, BN buffers, Adam, losses, counters, generator); "
+                f"launches {counts[f'graph_{what}_efficientnet_64']}")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    return counts
+
+
+def efficientnet_full_width(dev, launches, card: str, main_run: dict
+                            ) -> dict:
+    """Phase 18c: the denoiser at 448^2 x16 bf16 eager with
+    efficientnet-b0, b4 and b7 (stochastic depth on) and resnet34 with
+    ``patchify_stem: 2`` (3 warm-up and 10 timed steps, one fused warp
+    and one fp32 noise launch a step, a profile of 3 more with its cuDNN
+    layout conversions, peak memory), and b0 and the patchified resnet34
+    at K = 16, beside phase 5's rate. Returns the launch counts by path."""
+    counts = {}
+    rows = [f"resnet34 (phase 5) {16 / main_run['step_ms'] * 1e3:.1f} "
+            f"imgs/s"]
+    cases = [(name, {}) for name in EFFICIENTNET_STEPPED]
+    cases.append(("resnet34", {"patchify_stem": 2}))
+    for name, overrides in cases:
+        run, row = stepped_full_width(dev, launches, card, name,
+                                      **overrides)
+        plane = run.get("plane", {})
+        layout = plane.get("layout_conversions")
+        row += (f", cuDNN layout conversions {layout['per_step']:.1f} a "
+                f"step ({layout['ms_per_step']:.3f} ms)" if layout
+                else ", layout conversions not measured")
+        key = (f"{name.replace('-', '_')}_448" if not overrides
+               else f"patchify2_{name}_448")
+        counts[key] = run["counts"]
+        rows.append(row)
+        if name == B0:
+            check(run["trainer"].drop_keep is not None,
+                  "efficientnet-b0 trains without stochastic depth")
+        if name == B0 or overrides:
+            # Eager, both are host-bound: their K = 16 graph's rate.
+            label = name + "".join(f" {k}={v}" for k, v in overrides.items())
+            graph = graph_rate(
+                dev, launches, card, f"{label} denoiser", run["trainer"],
+                run["state"], 1, 16, run,
+                {"affine_warp_fused": 1, "fused_noise_blend": 1},
+                phase="18c")
+            counts[f"graph_{key}"] = graph["counts"]
+            rows.append(f"{label} K = 16 {graph['imgs_s']:.1f} imgs/s "
+                        f"(kernels {graph['busy_ms']:.3f} ms a step)")
+        del run
+        torch.cuda.empty_cache()
+    log(f"  18c 448^2 x16 bf16 denoiser: {'; '.join(rows)} [{card}]")
+    return counts
+
+
+def batch_slot_check(ckpt: Path, dev, card: str) -> None:
+    """Phase 18f, a measurement: does ``cudnn.deterministic`` (set only
+    here) make a 448^2 single-pass frame's bits independent of its slot in
+    a batch of 8, on 8d's weights (model a)? Eight frames are swapped in
+    order, rolled by 3 and with frame 0 among 7 others in slot 5, under
+    cuDNN's default and deterministic modes; the frames' largest LSB
+    difference and the ms a batch (CUDA events, mean of 20) of each."""
+    from denoising_diffusion_deep_fake_tpu_torch.inference import (
+        load_swap_model, make_device_pipeline)
+
+    pipe = make_device_pipeline(load_swap_model(ckpt, "a", device=dev))
+    rng = np.random.default_rng(SEED + 44)
+    frames = torch.from_numpy(rng.integers(
+        0, 256, (15, 448, 448, 3), np.uint8)).to(dev)
+    base = frames[:8]
+    rolled = torch.roll(base, 3, dims=0)
+    mixed = torch.cat([frames[8:13], base[:1], frames[13:15]])
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    rows = []
+    try:
+        for deterministic in (False, True):
+            cudnn.deterministic = deterministic
+            a = pipe(base, 0)
+            b = torch.roll(pipe(rolled, 0), -3, dims=0)
+            c = pipe(mixed, 0)[5]
+            again = pipe(base, 0)
+            diff_roll = (a.int() - b.int()).abs()
+            diff_mix = (a[0].int() - c.int()).abs()
+            frames_moved = int((diff_roll.flatten(1).amax(1) > 0).sum())
+            ms = time_ms(lambda: pipe(base, 0), iters=20, warmup=3)
+            rows.append(
+                f"deterministic={deterministic}: rolled by 3, "
+                f"{frames_moved}/8 frames differ, max "
+                f"{int(diff_roll.max())} LSB ({int((diff_roll > 0).sum())} "
+                f"values); frame 0 in slot 5 among others max "
+                f"{int(diff_mix.max())} LSB; the same batch again "
+                f"{'bit-equal' if torch.equal(a, again) else 'DIFFERS'}; "
+                f"{ms:.3f} ms a batch of 8")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    log(f"  18f batch slot, 448^2 x8 single-pass, 8d's model a, bf16: "
+        f"{'; '.join(rows)} [{card}]")
+
+
+def efficientnet_and_patchify(root: Path, data: dict, dev, launches,
+                              card: str, main_run: dict, ckpt: Path
+                              ) -> dict:
+    """Phase 18: 18a 64^2 fp32 steps on the GPU against the CPU
+    (efficientnet-b0 with injected drop masks, resnet18 patchified), 18b
+    K-step graphs against eager steps with drop on, 18c full-width
+    rates, 18d the eight names' eval forwards and a b4 .ckpt round trip,
+    18e the balancer with b0, 18f the batch-slot measurement on ``ckpt``
+    (8d's states). Returns the launch counts by path."""
+    from denoising_diffusion_deep_fake_tpu_torch.models.unet import (
+        EFFICIENTNET_NAMES)
+
+    t0 = time.perf_counter()
+    log("[18a] 64^2 fp32 steps, GPU vs CPU: efficientnet-b0 with drop "
+        "masks, resnet18 with patchify_stem 2")
+    small_reference(dev, encoder=B0)
+    small_reference(dev, encoder="resnet18", patchify_stem=2)
+    log("[18b] K = 3 graphs against eager steps with stochastic depth: "
+        "64^2 x2 efficientnet-b0, remat dots")
+    counts = drop_graphs(dev, launches)
+    log(f"    ({time.perf_counter() - t0:.1f} s)")
+    log("[18c] 448^2 x16 bf16 denoiser: efficientnet-b0/b4/b7, b0 at K = "
+        "16, resnet34 patchify_stem 2")
+    counts.update(efficientnet_full_width(dev, launches, card, main_run))
+    log(f"    ({time.perf_counter() - t0:.1f} s)")
+    log("[18d] eval forwards of the eight names at 448^2 x16 bf16; an "
+        "efficientnet-b4 .ckpt in and out")
+    family_full_width(dev, launches, card, main_run, stepped=(),
+                      forward=EFFICIENTNET_NAMES, tag="18d")
+    family_checkpoints(root, data, dev, card,
+                       cases=(("efficientnet-b4", True),), tag="18d")
+    log(f"    ({time.perf_counter() - t0:.1f} s)")
+    log("[18e] balancer: 448^2 x12 efficientnet-b0")
+    run = drive(dev, launches, card, single_path(
+        make_balancer(dev, encoder_name=B0), size=448, batch=12),
+        warmup=3, steps=10, per_step={"fused_normalise_noise_blend": 1})
+    check(run["trainer"].generator is not None,
+          "the efficientnet-b0 balancer draws no drop masks")
+    profile_steps(run, dev, None)
+    counts["balancer_efficientnet_b0_448"] = run["counts"]
+    log(f"  18e balancer efficientnet-b0 448^2 x12: "
+        f"{12 / run['step_ms'] * 1e3:.1f} imgs/s, peak "
+        f"{run['peak_gb']:.2f} GB [{card}]")
+    del run
+    torch.cuda.empty_cache()
+    log("[18f] a served frame's bits against its batch slot, cuDNN default "
+        "and deterministic")
+    batch_slot_check(ckpt, dev, card)
+    log(f"  phase 18 took {time.perf_counter() - t0:.1f} s [{card}]")
     return counts
 
 
@@ -5004,6 +5314,12 @@ def main() -> int:
         other_paths = other_families(Path(tmp) / "families", data, dev,
                                      _build.LAUNCHES, card, main_run)
 
+        log("[18] EfficientNet-b0..b7 with stochastic depth and the "
+            "patchified U-Net")
+        efficientnet_paths = efficientnet_and_patchify(
+            Path(tmp) / "efficientnet", data, dev, _build.LAUNCHES, card,
+            main_run, ckpt)
+
     paths = {"denoiser_448": main_run["counts"],
              "twopass_640": twopass_run["counts"],
              "balancer_448": balance_counts,
@@ -5011,7 +5327,7 @@ def main() -> int:
              "deep_fake_swap_448": swap_run["counts"],
              "serve_ddim_448": ddim_counts, **loop_paths, **i420_paths,
              **graph_paths, **cache_paths, **family_paths, **jpeg_paths,
-             **knob_paths, **other_paths}
+             **knob_paths, **other_paths, **efficientnet_paths}
     first_path = {"affine_warp_fused": "denoiser_448",
                   "warp_axis_pass": "twopass_640",
                   "fused_noise_blend": "denoiser_448",

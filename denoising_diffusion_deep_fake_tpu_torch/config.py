@@ -125,6 +125,12 @@ class BaseConfig:
                 "grace window (see config field note)", stacklevel=2)
         if self.patchify_stem < 1:
             raise ValueError("patchify_stem must be >= 1")
+        if (self.patchify_stem > 1 and self.image_size is not None
+                and self.image_size % (32 * self.patchify_stem)):
+            raise ValueError(
+                f"patchify_stem={self.patchify_stem} needs image_size "
+                f"divisible by {32 * self.patchify_stem} "
+                f"(got {self.image_size})")
         if len(tuple(self.color_jitter)) != 4:
             raise ValueError(
                 "color_jitter must be (brightness, contrast, saturation, "

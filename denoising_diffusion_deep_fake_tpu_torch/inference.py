@@ -117,7 +117,8 @@ def load_swap_model(checkpoint_path, model_a_or_b: str, *,
                                          device=device)[part]
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.float32)
-    model = create_unet(cfg.encoder_name, dtype=dtype).to(device)
+    model = create_unet(cfg.encoder_name, dtype=dtype,
+                        patchify=cfg.patchify_stem).to(device)
     model.load_state_dict(state_dict)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)

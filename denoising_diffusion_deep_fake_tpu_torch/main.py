@@ -22,7 +22,8 @@ and the same subcommand and option names. ``--device``
 (default ``cuda``) is the port's counterpart of ``JAX_PLATFORMS=cpu``:
 ``--device cpu`` runs the plain PyTorch path. ``import`` and ``export``
 convert files on the host and take no ``--device``; they cover every
-encoder family but EfficientNet's (ROADMAP A11b). ``serve --devices`` other
+encoder family (a ``patchify_stem`` checkpoint is not exported: the
+reference has no such model). ``serve --devices`` other
 than 1 is refused (replicas are ROADMAP A9). ``profile`` runs
 ``fit_denoiser`` for ``--steps`` steps under a ``torch.profiler`` trace
 (``utils/profiling.py``) and, with ``--report``, prints the trace's

@@ -24,9 +24,9 @@ its own statistics move only through the EMA blend, as the JAX package
 discards the mutated ``batch_stats`` of its shadow forward
 (``training/deep_fake.py:145-148``).
 
-The eight other families but EfficientNet (ROADMAP A11b) are their own
-modules beside this one (``models/unet.py``'s ``make_encoder``); they
-build on this module's ``Conv2d`` and ``BatchNorm2d``.
+The nine other families are their own modules beside this one
+(``models/unet.py``'s ``make_encoder``); they build on this module's
+``Conv2d`` and ``BatchNorm2d``.
 """
 
 from __future__ import annotations

@@ -1,12 +1,19 @@
-"""U-Net with smp topology: any of nine encoder families + the (256, 128,
-64, 32, 16) decoder.
+"""U-Net with smp topology: any of ten encoder families + the (256, 128,
+64, 32, 16) decoder, and the opt-in patchified U-Net.
 
 ``make_encoder`` mirrors the JAX package's (``models/unet.py:66-119``):
 the resnet family (``models/resnet.py``), vgg, densenet, senet,
-mobilenet_v2, xception, inceptionv4, inceptionresnetv2 and dpn, every name
-but EfficientNet's (ROADMAP A11b). The decoder is wired from the encoder's
-``out_channels``; for the vgg names smp's ``CenterBlock`` (two Conv2dReLU
-at the head's width) runs before it (JAX ``unet.py:186-193``).
+EfficientNet, mobilenet_v2, xception, inceptionv4, inceptionresnetv2 and
+dpn, every name the JAX package builds. The decoder is wired from the
+encoder's ``out_channels``; for the vgg names smp's ``CenterBlock`` (two
+Conv2dReLU at the head's width) runs before it (JAX ``unet.py:186-193``).
+EfficientNet's stochastic depth takes its masks as an argument of
+``Unet.forward`` (``models/efficientnet.py``); the model draws nothing.
+
+``PatchifiedUnet`` (JAX ``unet.py:205-266``, ``patchify_stem: p``) runs
+the whole U-Net at H/p x W/p on the p x p pixel-unshuffled input and
+shuffles the head back; its channel order is JAX's NHWC one,
+``(py * p + px) * C + c``.
 
 Port of ``denoising_diffusion_deep_fake_tpu/models/unet.py:122-202,
 254-266`` (``segmentation_models_pytorch.Unet(encoder_name=...,
@@ -48,6 +55,11 @@ from denoising_diffusion_deep_fake_tpu_torch.models.dpn import (
     DPN_SPECS,
     DPNEncoder,
 )
+from denoising_diffusion_deep_fake_tpu_torch.models.efficientnet import (
+    EFFICIENTNET_SPECS,
+    EfficientNetEncoder,
+    drop_blocks,
+)
 from denoising_diffusion_deep_fake_tpu_torch.models.inceptionresnetv2 import (
     InceptionResNetV2Encoder,
 )
@@ -77,9 +89,9 @@ from denoising_diffusion_deep_fake_tpu_torch.models.xception import (
 
 
 DECODER_CHANNELS = (256, 128, 64, 32, 16)
-# The JAX package's EfficientNet names (models/efficientnet.py), whose
-# stochastic depth is ROADMAP A11b.
-EFFICIENTNET_NAMES = tuple(f"efficientnet-b{i}" for i in range(8))
+# The EfficientNet names (models/efficientnet.py), the one family whose
+# forward drops blocks at random.
+EFFICIENTNET_NAMES = tuple(EFFICIENTNET_SPECS)
 # Each family's names (its spec table where it has one) and encoder, in
 # the JAX package's dispatch order.
 ENCODER_FAMILIES = (
@@ -87,6 +99,7 @@ ENCODER_FAMILIES = (
     (VGG_SPECS, VGGEncoder),
     (DENSENET_SPECS, DenseNetEncoder),
     (SENET_SPECS, SENetEncoder),
+    (EFFICIENTNET_SPECS, EfficientNetEncoder),
     (("mobilenet_v2",), MobileNetV2Encoder),
     (("xception",), XceptionEncoder),
     (("inceptionv4",), InceptionV4Encoder),
@@ -104,15 +117,10 @@ def make_encoder(encoder_name: str, in_channels: int = 3) -> nn.Module:
     """The encoder of ``encoder_name``: a module whose forward returns the
     six-level pyramid at strides (1, 2, 4, 8, 16, 32), channels
     ``out_channels``, and whose ``conv_init`` names its family's
-    initializer. EfficientNet names raise ``NotImplementedError`` (ROADMAP
-    A11b), unknown names ``ValueError``."""
+    initializer. Unknown names raise ``ValueError``."""
     for names, encoder in ENCODER_FAMILIES:
         if encoder_name in names:
             return encoder(encoder_name, in_channels)
-    if encoder_name in EFFICIENTNET_NAMES:
-        raise NotImplementedError(
-            f"encoder {encoder_name!r} is not ported yet (ROADMAP A11b: "
-            "EfficientNet's stochastic depth)")
     raise ValueError(f"unsupported encoder_name {encoder_name!r}; "
                      f"available: {encoder_names()}")
 
@@ -185,10 +193,82 @@ class Unet(nn.Module):
         self.segmentation_head = nn.Sequential(
             Conv2d(DECODER_CHANNELS[-1], classes, 3, padding=1, bias=True))
 
-    def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+    def forward(self, x_nhwc: torch.Tensor,
+                drop_masks: torch.Tensor | None = None) -> torch.Tensor:
+        """``drop_masks``: the stochastic-depth masks, ``(n, B)`` for the
+        ``n = len(drop_keep_probs())`` blocks that drop, or None."""
         x = x_nhwc.permute(0, 3, 1, 2).to(self.dtype)
-        y = self.segmentation_head(self.decoder(self.encoder(x)))
+        if drop_masks is None:
+            features = self.encoder(x)
+        elif not self.drop_keep_probs():
+            raise ValueError(f"the {self.encoder_name} encoder has no block "
+                             "that drops; drop_masks must be None")
+        else:
+            features = self.encoder(x, drop_masks)
+        y = self.segmentation_head(self.decoder(features))
         return y.permute(0, 2, 3, 1).to(torch.float32)
+
+    def drop_keep_probs(self) -> tuple[float, ...]:
+        """The keep probability of each block that drops (empty for every
+        family but EfficientNet), in ``drop_masks``' order."""
+        return drop_keep_probs(self.encoder_name)
+
+
+def drop_keep_probs(encoder_name: str) -> tuple[float, ...]:
+    """The keep probabilities of ``encoder_name``'s stochastic-depth
+    blocks, in block order; empty for a family without."""
+    if encoder_name not in EFFICIENTNET_SPECS:
+        return ()
+    return tuple(keep for _, keep in drop_blocks(encoder_name))
+
+
+def space_to_depth(x: torch.Tensor, p: int) -> torch.Tensor:
+    """NHWC ``(B, H, W, C)`` -> ``(B, H/p, W/p, p*p*C)``, channel ``(py * p
+    + px) * C + c`` (JAX's order; ``F.pixel_unshuffle``'s is ``(c, py,
+    px)``)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // p, p, w // p, p, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // p, w // p, p * p * c)
+
+
+def depth_to_space(x: torch.Tensor, p: int) -> torch.Tensor:
+    """The inverse of ``space_to_depth``."""
+    b, h, w, cpp = x.shape
+    c = cpp // (p * p)
+    x = x.reshape(b, h, w, p, p, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h * p, w * p, c)
+
+
+class PatchifiedUnet(nn.Module):
+    """The opt-in non-parity variant (``patchify_stem: p``): the inner
+    ``unet`` runs on the pixel-unshuffled input at H/p x W/p, with
+    ``in_channels * p^2`` inputs and ``classes * p^2`` outputs, and its
+    head is pixel-shuffled back; NHWC in, NHWC fp32 out. The reference
+    has no counterpart, so its checkpoints are not exported."""
+
+    def __init__(self, encoder_name: str = "resnet34", patch: int = 2,
+                 in_channels: int = 3, classes: int = 3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.encoder_name = encoder_name
+        self.patch = patch
+        self.dtype = dtype
+        self.unet = Unet(encoder_name, in_channels * patch * patch,
+                         classes * patch * patch, dtype)
+
+    def forward(self, x_nhwc: torch.Tensor,
+                drop_masks: torch.Tensor | None = None) -> torch.Tensor:
+        p = self.patch
+        if x_nhwc.shape[1] % (32 * p) or x_nhwc.shape[2] % (32 * p):
+            raise ValueError(
+                f"patchify_stem={p}: H/W must be divisible by {32 * p} "
+                f"(got {x_nhwc.shape[1]}x{x_nhwc.shape[2]}) so the patched "
+                "encoder pyramid stays integral")
+        y = self.unet(space_to_depth(x_nhwc.to(self.dtype), p), drop_masks)
+        return depth_to_space(y, p)
+
+    def drop_keep_probs(self) -> tuple[float, ...]:
+        return self.unet.drop_keep_probs()
 
 
 def _init_encoder_conv_(conv: Conv2d, kind: str,
@@ -212,9 +292,13 @@ def _init_encoder_conv_(conv: Conv2d, kind: str,
 
 
 @torch.no_grad()
-def init_unet_(model: Unet, generator: torch.Generator) -> Unet:
+def init_unet_(model: Unet | PatchifiedUnet, generator: torch.Generator
+               ) -> Unet | PatchifiedUnet:
     """smp's and the encoder family's initialisation, drawn from
-    ``generator`` in module order."""
+    ``generator`` in module order (a patchified model's inner U-Net's)."""
+    if isinstance(model, PatchifiedUnet):
+        init_unet_(model.unet, generator)
+        return model
     kind = model.encoder.conv_init
     for name, module in model.named_modules():
         if isinstance(module, Conv2d):
@@ -238,18 +322,22 @@ def init_unet_(model: Unet, generator: torch.Generator) -> Unet:
 
 
 def create_unet(encoder_name: str = "resnet34", *, in_channels: int = 3,
-                classes: int = 3, dtype: torch.dtype = torch.float32) -> Unet:
-    """Factory mirroring the JAX package's ``create_unet`` (the opt-in
-    ``PatchifiedUnet`` is not ported; the trainer refuses ``patchify_stem``).
-    """
+                classes: int = 3, dtype: torch.dtype = torch.float32,
+                patchify: int = 1) -> Unet | PatchifiedUnet:
+    """Factory mirroring the JAX package's ``create_unet``: ``patchify >
+    1`` returns the opt-in ``PatchifiedUnet``."""
+    if patchify > 1:
+        return PatchifiedUnet(encoder_name, patchify, in_channels, classes,
+                              dtype)
     return Unet(encoder_name=encoder_name, in_channels=in_channels,
                 classes=classes, dtype=dtype)
 
 
-def unet_shapes(encoder_name: str) -> dict[str, torch.Size]:
+def unet_shapes(encoder_name: str, patchify: int = 1
+                ) -> dict[str, torch.Size]:
     """The U-Net's state_dict keys and shapes, built on the meta device (no
     memory, nothing drawn); a name the port lacks raises as
     ``make_encoder`` does."""
     with torch.device("meta"):
-        model = create_unet(encoder_name)
+        model = create_unet(encoder_name, patchify=patchify)
     return {k: v.shape for k, v in model.state_dict().items()}

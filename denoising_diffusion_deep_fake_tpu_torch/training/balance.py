@@ -28,6 +28,10 @@ draws at offset ``state.step`` and scoring batch ``k`` of epoch ``e`` at
 ``SCORE_STREAM * (e + 1) + k``, a range no train step reaches (the JAX
 runner folds ``2_000_000_000 + epoch`` into its key for the same end). The
 offsets are counted on the host; nothing is read back from the device.
+With an encoder that has stochastic depth (EfficientNet) the gradient
+forward's drop masks come from a seeded ``torch.Generator`` (``cfg.seed``),
+in one draw a step (``draw_drop_masks``); for every other family the
+balancer has no generator and draws nothing. Scoring never drops.
 ``train_step`` and the validation step accept the noise itself instead, so
 a test can feed both frameworks the same numbers; given noise is blended
 with ``blend_fixed_amount_of_noise`` after ``normalise_batch``, as the JAX
@@ -71,13 +75,15 @@ from denoising_diffusion_deep_fake_tpu_torch.training.multi_step import (
 from denoising_diffusion_deep_fake_tpu_torch.training.state import (
     ModelState,
     create_model_state,
+    draw_drop_masks,
+    drop_keep_tensor,
     graph_objects,
     prepare_for_capture,
     train_one_model,
 )
 
 SCORE_STREAM = 1 << 32
-_UNPORTED = ("data_parallel", "spatial_parallel", "patchify_stem")
+_UNPORTED = ("data_parallel", "spatial_parallel")
 
 
 def compute_difficulty_index(losses: np.ndarray,
@@ -98,8 +104,9 @@ def score_offset(epoch: int, batch_index: int) -> int:
 class BalanceTrainer:
     """The balancer's train step and scoring pass on one device."""
 
-    # Its only randomness is the noise kernel's stream, keyed by offsets:
-    # no generator state to checkpoint.
+    # Its randomness is the noise kernel's stream, keyed by offsets, and,
+    # for an encoder with stochastic depth, the drop masks: only then a
+    # generator state to checkpoint.
     generator = None
 
     def __init__(self, cfg: BalanceConfig, *, steps_per_epoch: int,
@@ -112,6 +119,10 @@ class BalanceTrainer:
         self.device = resolve_device(device)
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                       else torch.float32)
+        self.drop_keep = drop_keep_tensor(cfg, self.device)
+        if self.drop_keep is not None:
+            self.generator = torch.Generator(device=self.device)
+            self.generator.manual_seed(cfg.seed)
         if self.device.type == "cuda":
             # fp32 SSIM blur in full fp32 (see training/denoiser.py).
             torch.backends.cudnn.allow_tf32 = False
@@ -145,13 +156,15 @@ class BalanceTrainer:
 
     def train_step(self, state: ModelState, batch_u8: torch.Tensor, *,
                    noise: torch.Tensor | None = None,
+                   drop_masks: torch.Tensor | None = None,
                    with_images: bool = False):
         """One update of ``state`` in place from a uint8 batch in the
         config's ``upload_format``; returns ``{"loss"}`` (a device scalar:
         reading it waits for the step); ``with_images``, ``(metrics,
-        panels)``."""
+        panels)``. ``drop_masks`` take the place of the masks' draw."""
         out = self.step_core(state, batch_u8, self.step_scalars(state, 0),
-                             None, noise=noise, with_images=with_images)
+                             self.generator, noise=noise,
+                             drop_masks=drop_masks, with_images=with_images)
         self.advance(state, 1)
         return out
 
@@ -167,12 +180,18 @@ class BalanceTrainer:
     def step_core(self, state: ModelState, batch_u8: torch.Tensor,
                   scalars: dict, generator=None, *,
                   noise: torch.Tensor | None = None,
+                  drop_masks: torch.Tensor | None = None,
                   with_images: bool = False):
-        """The update of ``train_step`` at its ``step_scalars``; the host
-        counter is left alone (the balancer draws from no generator)."""
+        """The update of ``train_step`` at its ``step_scalars``, the drop
+        masks (if the encoder has any) from ``generator``; the host
+        counter is left alone."""
         image, noisy = self._images(batch_u8, scalars["offset"], noise,
                                     self.cfg.upload_format)
-        loss, pred = train_one_model(state, noisy, image)
+        if drop_masks is None:
+            drop_masks = draw_drop_masks(self.drop_keep, image.shape[0],
+                                         generator)
+        loss, pred = train_one_model(state, noisy, image,
+                                     drop_masks=drop_masks)
         if with_images:
             return {"loss": loss}, panels(image, noisy, pred)
         return {"loss": loss}
@@ -182,8 +201,9 @@ class BalanceTrainer:
         (``training/multi_step.py``), the losses a ``(K,)`` tensor."""
         return make_super_step(
             self.step_core, k, scalars=self.step_scalars,
-            advance=self.advance, generator=None, device=self.device,
-            identity=graph_objects, prepare=prepare_for_capture)
+            advance=self.advance, generator=self.generator,
+            device=self.device, identity=graph_objects,
+            prepare=prepare_for_capture)
 
     def make_validation_step(self):
         """Per-batch difficulty scoring: ``(state, batch_u8, *, offset,

@@ -94,13 +94,15 @@ from denoising_diffusion_deep_fake_tpu_torch.training.optim import (
 from denoising_diffusion_deep_fake_tpu_torch.training.state import (
     ModelState,
     create_model_state,
+    draw_drop_masks,
+    drop_keep_tensor,
     graph_objects,
     prepare_for_capture,
     train_one_model,
 )
 
 IDENTITIES = ("a", "b")
-_UNPORTED = ("data_parallel", "spatial_parallel", "patchify_stem")
+_UNPORTED = ("data_parallel", "spatial_parallel")
 
 
 def noise_offset(step: int, name: str) -> int:
@@ -131,6 +133,7 @@ class DeepFakeTrainer:
                                  update_after_step=cfg.ema_update_after_step)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
+        self.drop_keep = drop_keep_tensor(cfg, self.device)
         if self.device.type == "cuda":
             # fp32 SSIM blur in full fp32 (see training/denoiser.py).
             torch.backends.cudnn.allow_tf32 = False
@@ -165,6 +168,14 @@ class DeepFakeTrainer:
         with torch.no_grad():
             return state.ema_model(x)
 
+    def _masks(self, name: str, b: int, drop_masks: dict | None,
+               generator: torch.Generator) -> torch.Tensor | None:
+        """Identity ``name``'s gradient-forward drop masks: given, or drawn
+        just after its noise ratios (None for a family without)."""
+        if drop_masks is not None:
+            return drop_masks[name].to(self.device)
+        return draw_drop_masks(self.drop_keep, b, generator)
+
     def _noisy(self, x: torch.Tensor, name: str, offset, ratios, noise,
                generator: torch.Generator) -> torch.Tensor:
         b = x.shape[0]
@@ -184,10 +195,12 @@ class DeepFakeTrainer:
                    affine_params: dict | None = None,
                    jitter_params: dict | None = None,
                    ratios: dict | None = None, noise: dict | None = None,
+                   drop_masks: dict | None = None,
                    with_images: bool = False):
         """One step of both models in place. ``affine_params``,
-        ``jitter_params`` (used when the jitter is on), ``ratios`` and
-        ``noise``, when given, map each identity to its draws. Returns
+        ``jitter_params`` (used when the jitter is on), ``ratios``,
+        ``noise`` and ``drop_masks`` (the gradient forwards' only), when
+        given, map each identity to its draws. Returns
         ``lr`` and the losses (device scalars) under the JAX metric names;
         ``with_images``, ``(metrics, panels)`` with the uint8 panels under
         the JAX image tags."""
@@ -195,7 +208,7 @@ class DeepFakeTrainer:
         out = self.step_core(states, batch_a_u8, batch_b_u8, scalars,
                              self.generator, affine_params=affine_params,
                              jitter_params=jitter_params, ratios=ratios,
-                             noise=noise,
+                             noise=noise, drop_masks=drop_masks,
                              with_images=with_images)
         self.advance(states, 1)
         metrics = {"lr": scalars["lr"], **(out[0] if with_images else out)}
@@ -235,10 +248,14 @@ class DeepFakeTrainer:
                   affine_params: dict | None = None,
                   jitter_params: dict | None = None,
                   ratios: dict | None = None, noise: dict | None = None,
+                  drop_masks: dict | None = None,
                   with_images: bool = False):
         """The update of ``train_step`` with its ``step_scalars`` and draws
         from ``generator``; the host counters are left alone. Returns the
-        losses (and the panels ``with_images``)."""
+        losses (and the panels ``with_images``). Each identity's drop
+        masks (an encoder with stochastic depth) are drawn after its noise
+        ratios, for its gradient forward only: the shadows' fake forwards
+        drop nothing (JAX ``deep_fake.py:135-148``)."""
         cfg = self.cfg
         real = {}
         stats = {"a": (cfg.mean_a, cfg.std_a), "b": (cfg.mean_b, cfg.std_b)}
@@ -268,8 +285,10 @@ class DeepFakeTrainer:
                 noisy = self._noisy(real[name], name,
                                     scalars[f"offset_{name}"], ratios, noise,
                                     generator)
+                masks = self._masks(name, noisy.shape[0], drop_masks,
+                                    generator)
                 loss, pred = train_one_model(states[name], noisy, real[name],
-                                             lrs[name], cfg.remat)
+                                             lrs[name], cfg.remat, masks)
                 metrics[f"loss_denoise/train_{name}"] = loss
                 if with_images:
                     panels[f"denoise_1_model_input/{name}"] = (
@@ -289,8 +308,10 @@ class DeepFakeTrainer:
                                                               fake)
                 noisy = self._noisy(fake, name, scalars[f"offset_{name}"],
                                     ratios, noise, generator)
+                masks = self._masks(name, noisy.shape[0], drop_masks,
+                                    generator)
                 loss, pred = train_one_model(states[name], noisy, real[name],
-                                             lrs[name], cfg.remat)
+                                             lrs[name], cfg.remat, masks)
                 metrics[f"loss_swap/train_{name}"] = loss
                 if with_images:
                     panels.update({

@@ -17,13 +17,17 @@ W)`` uint8, and ``unpack_upload`` turns it into fp32 RGB in [0, 255] first
 fused kernel's fp32 input with the normalise folded in).
 
 The affine params, the jitter factors (drawn only when the jitter is on,
-so with it off no draw moves) and the noise ratios come from the
-trainer's seeded ``torch.Generator``, in that order; the noise itself from
+so with it off no draw moves), the noise ratios and, for an encoder with
+stochastic depth (EfficientNet; no other family draws it, so their
+streams stay as they were), the drop masks of the gradient forward come
+from the trainer's seeded ``torch.Generator``, in that order, the masks in
+one call (``draw_drop_masks``); the noise itself from
 the noise kernel's stream keyed by ``cfg.seed`` at offset ``state.step``
 (the JAX trainer folds the step into a key instead; the two streams differ
 by design). ``train_step`` accepts the affine params, the jitter factors,
-the noise ratios and the noise itself, so a test can feed both frameworks
-the same numbers; given noise is blended with ``blend_noise``. ``with_images`` also returns the TensorBoard panels under
+the noise ratios, the noise itself and the drop masks, so a test can feed
+both frameworks the same numbers; given noise is blended with
+``blend_noise``. ``with_images`` also returns the TensorBoard panels under
 the JAX tags (``image``, ``image_noisy``, ``image_prediction``; JAX
 ``:139-148``), each a uint8 3x3 grid made on the device by
 ``panel_grid_u8``.
@@ -79,12 +83,14 @@ from denoising_diffusion_deep_fake_tpu_torch.training.optim import (
 from denoising_diffusion_deep_fake_tpu_torch.training.state import (
     ModelState,
     create_model_state,
+    draw_drop_masks,
+    drop_keep_tensor,
     graph_objects,
     prepare_for_capture,
     train_one_model,
 )
 
-_UNPORTED = ("data_parallel", "spatial_parallel", "patchify_stem")
+_UNPORTED = ("data_parallel", "spatial_parallel")
 
 
 class DenoiserTrainer:
@@ -107,6 +113,7 @@ class DenoiserTrainer:
                                         probability=cfg.color_jitter_p)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
+        self.drop_keep = drop_keep_tensor(cfg, self.device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
 
@@ -120,18 +127,21 @@ class DenoiserTrainer:
                    jitter_params: dict | None = None,
                    ratios: torch.Tensor | None = None,
                    noise: torch.Tensor | None = None,
+                   drop_masks: torch.Tensor | None = None,
                    with_images: bool = False):
         """One update of ``state`` in place from a uint8 batch in the
         config's ``upload_format``; returns ``{"loss", "lr"}`` (the loss as
         a device scalar: reading it waits for the step); ``with_images``,
         ``(metrics, panels)``. ``jitter_params`` (from
         ``sample_color_jitter_params``) take the place of the draw when
-        the jitter is on."""
+        the jitter is on, ``drop_masks`` (``(n, B)``, see
+        ``Unet.forward``) that of the masks' draw."""
         scalars = self.step_scalars(state, 0)
         out = self.step_core(state, batch_u8, scalars, self.generator,
                              affine_params=affine_params,
                              jitter_params=jitter_params, ratios=ratios,
-                             noise=noise, with_images=with_images)
+                             noise=noise, drop_masks=drop_masks,
+                             with_images=with_images)
         self.advance(state, 1)
         metrics = out[0] if with_images else out
         metrics["lr"] = scalars["lr"]
@@ -156,6 +166,7 @@ class DenoiserTrainer:
                   jitter_params: dict | None = None,
                   ratios: torch.Tensor | None = None,
                   noise: torch.Tensor | None = None,
+                  drop_masks: torch.Tensor | None = None,
                   with_images: bool = False):
         """The update of ``train_step`` with its ``step_scalars`` and draws
         from ``generator``; the host counter is left alone. Returns
@@ -184,8 +195,10 @@ class DenoiserTrainer:
                                       offset=scalars["offset"])
         else:
             noisy = blend_noise(image, noise, ratios.reshape(b, 1, 1, 1))
+        if drop_masks is None:
+            drop_masks = draw_drop_masks(self.drop_keep, b, generator)
         loss, pred = train_one_model(state, noisy, image, scalars["lr"],
-                                     cfg.remat)
+                                     cfg.remat, drop_masks)
         metrics = {"loss": loss}
         if with_images:
             return metrics, panels(image, noisy, pred)
@@ -202,7 +215,8 @@ class DenoiserTrainer:
             prepare=prepare_for_capture)
 
     def make_denoise_fn(self):
-        """Eval-mode forward (running-average BN), NHWC in and out."""
+        """Eval-mode forward (running-average BN, no block dropped), NHWC
+        in and out."""
         def denoise(state: ModelState, x: torch.Tensor) -> torch.Tensor:
             state.model.eval()
             with torch.inference_mode():

@@ -14,7 +14,10 @@ train-mode BN writes no running statistics: they move only through
 ``mse_ssim_loss``, backward, Adam. It leaves the host counters alone: a
 trainer advances ``step`` (and ``ema_step``) after its step, by one or, after
 a K-step CUDA graph (``training/multi_step.py``), by K. Its forward goes
-through ``maybe_remat`` (the ``remat`` knob, JAX ``:93-111``).
+through ``maybe_remat`` (the ``remat`` knob, JAX ``:93-111``) and takes the
+step's stochastic-depth masks as an argument (EfficientNet's; JAX passes
+its drop key into the checkpointed function the same way), which the
+trainers draw with ``draw_drop_masks`` after their other draws.
 
 ``graph_objects`` tells the K-step graph which tensors
 a group's graph was captured on, so that it is captured again when any is
@@ -42,6 +45,7 @@ from denoising_diffusion_deep_fake_tpu_torch.models.resnet import (
 )
 from denoising_diffusion_deep_fake_tpu_torch.models.unet import (
     create_unet,
+    drop_keep_probs,
     init_unet_,
 )
 from denoising_diffusion_deep_fake_tpu_torch.ops.losses import mse_ssim_loss
@@ -147,12 +151,14 @@ def param_count(model: nn.Module) -> int:
 
 def create_model_state(cfg, dtype: torch.dtype, device: torch.device,
                        seed: int, *, with_ema: bool = False) -> ModelState:
-    """A ``cfg.encoder_name`` U-Net with smp/torchvision init drawn from
-    ``seed``, on ``device`` (``channels_last`` on the GPU) in train mode,
-    its Adam with ``cfg``'s betas and, ``with_ema``, its shadow."""
+    """A ``cfg.encoder_name`` U-Net (patchified by ``cfg.patchify_stem``)
+    with smp/torchvision init drawn from ``seed``, on ``device``
+    (``channels_last`` on the GPU) in train mode, its Adam with ``cfg``'s
+    betas and, ``with_ema``, its shadow."""
     gen = torch.Generator()
     gen.manual_seed(seed)
-    model = init_unet_(create_unet(cfg.encoder_name, dtype=dtype), gen)
+    model = init_unet_(create_unet(cfg.encoder_name, dtype=dtype,
+                                   patchify=cfg.patchify_stem), gen)
     model = model.to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
@@ -163,6 +169,28 @@ def create_model_state(cfg, dtype: torch.dtype, device: torch.device,
     if with_ema:
         state.attach_ema()
     return state
+
+
+def drop_keep_tensor(cfg, device) -> torch.Tensor | None:
+    """The keep probabilities of ``cfg.encoder_name``'s stochastic-depth
+    blocks, an fp32 tensor on ``device``; None for a family without (every
+    one but EfficientNet), whose trainers then draw nothing more."""
+    keep = drop_keep_probs(cfg.encoder_name)
+    if not keep:
+        return None
+    return torch.tensor(keep, dtype=torch.float32, device=device)
+
+
+def draw_drop_masks(keep: torch.Tensor | None, batch: int,
+                    generator: torch.Generator) -> torch.Tensor | None:
+    """One step's stochastic-depth masks in one draw: ``(n, batch)`` bool,
+    each block's uniforms below its keep probability (JAX's ``bernoulli``);
+    None when ``keep`` is."""
+    if keep is None:
+        return None
+    u = torch.rand((keep.numel(), batch), generator=generator,
+                   device=keep.device)
+    return u < keep[:, None]
 
 
 # The ops whose outputs JAX's ``checkpoint_dots`` saves: ``dot_general``
@@ -229,8 +257,9 @@ def maybe_remat(forward: nn.Module, policy: str):
     Non-reentrant ``torch.utils.checkpoint``, which records the autocast
     state of the forward and recomputes under it. The recompute writes no
     BN running statistics (``_running_stats_frozen``). The RNG state is not
-    saved (``preserve_rng_state=False``): no module of the resnet U-Nets
-    draws random numbers in its forward, and ``get_rng_state`` inside a
+    saved (``preserve_rng_state=False``): no module draws random numbers
+    in its forward (EfficientNet's stochastic-depth masks are an argument,
+    which the recompute gets again), and ``get_rng_state`` inside a
     CUDA-graph capture (the K-step graph) is not allowed.
     """
     if policy == "none":
@@ -247,17 +276,21 @@ def maybe_remat(forward: nn.Module, policy: str):
 
 
 def train_one_model(state: ModelState, noisy: torch.Tensor,
-                    target: torch.Tensor, lr=None, remat: str = "none"
+                    target: torch.Tensor, lr=None, remat: str = "none",
+                    drop_masks: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """One update of ``state``'s tensors in place: ``mse_ssim_loss(
-    model(noisy), target)`` in train mode, the forward under the ``remat``
-    policy, backward, Adam at ``lr`` (a float, or an fp32 device tensor;
-    the optimizer's own when None). The host ``step`` is the caller's to
-    advance. Returns the loss as a device scalar and the prediction."""
+    model(noisy, drop_masks), target)`` in train mode, the forward under the
+    ``remat`` policy, backward, Adam at ``lr`` (a float, or an fp32 device
+    tensor; the optimizer's own when None). The host ``step`` is the
+    caller's to advance. Returns the loss as a device scalar and the
+    prediction."""
     model, optimizer = state.model, state.optimizer
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    pred = maybe_remat(model, remat)(noisy)
+    forward = maybe_remat(model, remat)
+    pred = (forward(noisy) if drop_masks is None
+            else forward(noisy, drop_masks))
     loss = mse_ssim_loss(pred, target)
     loss.backward()
     if lr is not None:

@@ -21,6 +21,10 @@ Two maps, as the JAX package's exporter has them
 ``load_jax_state`` carries a whole JAX ``ModelState`` (``training/state.py``
 there) into the port's: the online weights, and where present the EMA
 shadow's weights and ``ema_step``, plus ``step``.
+
+A patchified U-Net (``patchify > 1``) holds its U-Net under ``unet`` in
+both packages: flax ``unet/...``, the port ``unet.<smp key>``; its inner
+U-Net has ``3 p^2`` input and output channels, and the maps run on it.
 """
 
 from __future__ import annotations
@@ -503,13 +507,16 @@ def _bn_entry(path: list[str], leaf: str, value: np.ndarray, params: dict,
 
 
 @functools.lru_cache(maxsize=4)
-def _inversion_plan(encoder_name: str) -> tuple[dict, dict]:
-    """The key map's permutation for ``encoder_name``'s U-Net: ``(plan,
+def _inversion_plan(encoder_name: str, patchify: int = 1
+                    ) -> tuple[dict, dict]:
+    """The key map's permutation for ``encoder_name``'s U-Net (the inner
+    U-Net of a patchified one, its keys without ``unet.``): ``(plan,
     shapes)``, ``plan`` mapping each flax leaf path ``("params" |
     "batch_stats", *path)`` to ``(leaf shape, torch key, how)`` where
     ``how`` is "kernel" (an OIHW -> HWIO transpose), "copy", or the torch
     element of each leaf element; ``shapes`` the torch keys' shapes."""
-    shapes = {k: tuple(v) for k, v in unet_shapes(encoder_name).items()}
+    shapes = {k.removeprefix("unet.") if patchify > 1 else k: tuple(v)
+              for k, v in unet_shapes(encoder_name, patchify).items()}
     keys = list(shapes)
     sizes = np.array([int(np.prod(shapes[k], dtype=np.int64)) for k in keys],
                      dtype=np.int64)
@@ -561,12 +568,15 @@ def _inversion_plan(encoder_name: str) -> tuple[dict, dict]:
 
 
 def state_dict_from_jax_any(params: dict, batch_stats: dict,
-                            encoder_name: str) -> dict[str, torch.Tensor]:
+                            encoder_name: str, patchify: int = 1
+                            ) -> dict[str, torch.Tensor]:
     """flax U-Net variables -> the port's ``encoder_name`` U-Net
     state_dict (fp32), for any family, by the probe inversion. The trees
     may hold part of the model (gradients: ``batch_stats`` empty); a leaf
     that is not the model's raises."""
-    plan, shapes = _inversion_plan(encoder_name)
+    plan, shapes = _inversion_plan(encoder_name, patchify)
+    if patchify > 1:
+        params, batch_stats = _inner_trees(params, batch_stats)
     sd = {}
     for tree_name, tree in (("params", params), ("batch_stats",
                                                  batch_stats)):
@@ -586,17 +596,30 @@ def state_dict_from_jax_any(params: dict, batch_stats: dict,
                 out[how] = np.ravel(value)
             sd[key] = torch.from_numpy(np.array(
                 out, dtype=np.float32, copy=True).reshape(shapes[key]))
-    return {k: sd[k] for k in shapes if k in sd}
+    prefix = "unet." if patchify > 1 else ""
+    return {prefix + k: sd[k] for k in shapes if k in sd}
+
+
+def _inner_trees(params: dict, batch_stats: dict) -> tuple[dict, dict]:
+    """A patchified U-Net's flax trees -> its inner U-Net's (``unet``)."""
+    if set(params) - {"unet"} or set(batch_stats) - {"unet"}:
+        raise ValueError("a patchified U-Net's variables are all under "
+                         "'unet'")
+    return params.get("unet", {}), batch_stats.get("unet", {})
 
 
 def state_dict_from_jax(params: dict, batch_stats: dict,
-                        encoder_name: str | None = None
+                        encoder_name: str | None = None, patchify: int = 1
                         ) -> dict[str, torch.Tensor]:
-    """flax U-Net variables -> the port's ``Unet`` state_dict (fp32): the
-    handwritten map when ``encoder_name`` is None or a resnet-family name,
-    else ``state_dict_from_jax_any``."""
+    """flax U-Net variables -> the port's ``Unet`` (or ``PatchifiedUnet``)
+    state_dict (fp32): the handwritten map when ``encoder_name`` is None or
+    a resnet-family name, else ``state_dict_from_jax_any``."""
     if encoder_name is not None and encoder_name not in RESNET_SPECS:
-        return state_dict_from_jax_any(params, batch_stats, encoder_name)
+        return state_dict_from_jax_any(params, batch_stats, encoder_name,
+                                       patchify)
+    if patchify > 1:
+        inner = state_dict_from_jax(*_inner_trees(params, batch_stats))
+        return {f"unet.{k}": v for k, v in inner.items()}
     sd = {}
     for stat, tree in ((False, params), (True, batch_stats)):
         for path, value in _flatten(tree).items():
@@ -614,12 +637,13 @@ def load_jax_state(state, jax_state) -> None:
     into a shadow (attached when the port state has none) with
     ``ema_step``, and ``step``. The optimizer's moments are not carried."""
     name = state.model.encoder_name
+    patch = getattr(state.model, "patch", 1)
     state.model.load_state_dict(state_dict_from_jax(
-        jax_state.params, jax_state.batch_stats, name))
+        jax_state.params, jax_state.batch_stats, name, patch))
     state.step = int(jax_state.step)
     if jax_state.ema_params is not None:
         if not state.has_ema:
             state.attach_ema()
         state.ema_model.load_state_dict(state_dict_from_jax(
-            jax_state.ema_params, jax_state.ema_batch_stats, name))
+            jax_state.ema_params, jax_state.ema_batch_stats, name, patch))
         state.ema_step = int(jax_state.ema_step)

@@ -141,6 +141,11 @@ _CATEGORY_RULES = [
 ]
 
 
+# cuDNN's kernels that convert a tensor between NCHW and NHWC: a
+# convolution whose input or weight is not in the layout it runs in.
+_LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw")
+
+
 def categorize(name: str) -> str:
     """Map a CUDA kernel, aten op or HLO op name to a coarse cost category:
     an aten op by its name; a kernel by substring (the port's own kernels
@@ -244,6 +249,7 @@ def analyze_trace(path, nsteps: int, top_k: int = 15,
         by_line: collections.Counter = collections.Counter()
         by_cat_ops = collections.defaultdict(collections.Counter)
         launches: collections.Counter = collections.Counter()
+        layout = [0, 0]
         copies = collections.defaultdict(lambda: [0, 0, 0])
         intervals = []
         for e in evs:
@@ -264,6 +270,9 @@ def analyze_trace(path, nsteps: int, top_k: int = 15,
                     ] += t - s
             if cat == "port_kernel":
                 launches[name] += 1
+            if any(k in name for k in _LAYOUT_KERNELS):
+                layout[0] += 1
+                layout[1] += t - s
             intervals.append((s, t))
         busy = union_ps(intervals)
         wall = _wall_ps(evs, windows, launched)
@@ -293,6 +302,8 @@ def analyze_trace(path, nsteps: int, top_k: int = 15,
                 if any(fn in k for k in launches)},
             "memcpy": {d: {"count": n, "bytes": b, "ms_per_step": per_step(ps)}
                        for d, (n, b, ps) in sorted(copies.items())},
+            "layout_conversions": {"per_step": layout[0] / nsteps,
+                                   "ms_per_step": per_step(layout[1])},
         }
     return report
 

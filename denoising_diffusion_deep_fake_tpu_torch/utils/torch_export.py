@@ -8,8 +8,8 @@ Port of ``denoising_diffusion_deep_fake_tpu/utils/torch_export.py:64-122``
 running the reference, whose Lightning module loads ``state_dict`` keys of
 smp's Unet under ``model_{a,b}.`` and ``ema_model_{a,b}.ema_model.``.
 
-The port's U-Net has smp's keys in every family it builds (all but
-EfficientNet's, ROADMAP A11b), so a model's export is its state_dict with
+The port's U-Net has smp's keys in every family it builds, EfficientNet's
+included, so a model's export is its state_dict with
 BN's ``num_batches_tracked`` put back as int64 zero scalars after each
 ``running_mean`` (the reference's strict load expects them). JAX's
 probe inversion (``:125-241``) is the port's way in from flax weights,
@@ -40,8 +40,7 @@ def export_unet_state_dict(state_dict: dict, encoder_name: str
     """The port's ``Unet`` state_dict -> a reference smp-Unet state_dict:
     contiguous CPU tensors in the port's key order, with a
     ``num_batches_tracked`` int64 zero after each BN's ``running_mean``.
-    The keys must be those of the port's ``encoder_name`` U-Net; an
-    EfficientNet encoder raises ``NotImplementedError`` naming A11b."""
+    The keys must be those of the port's ``encoder_name`` U-Net."""
     template = unet_shapes(encoder_name)
     if set(state_dict) != set(template):
         raise ValueError(

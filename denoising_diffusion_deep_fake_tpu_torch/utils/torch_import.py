@@ -1,7 +1,7 @@
 """Import reference (Lightning) checkpoints into the port.
 
 Port of ``denoising_diffusion_deep_fake_tpu/utils/torch_import.py:440-535``
-for every encoder family but EfficientNet's. The reference trains
+for every encoder family. The reference trains
 ``segmentation_models_pytorch.Unet`` models inside a Lightning module, so
 its users hold ``.ckpt`` files: ``torch.save`` of ``{"state_dict",
 "hyper_parameters", "epoch", "global_step", ...}`` whose state_dict keys
@@ -14,8 +14,10 @@ The port's U-Net already carries smp's key names (``models/``), so the
 mapping is the identity on keys: BN's ``num_batches_tracked`` is dropped
 (the port's ``BatchNorm2d`` has none) and every other key must be one of the
 port's U-Net of the checkpoint's ``encoder_name``, at its shape. A key that
-is not raises and names the keys, as JAX's "unmapped torch keys" does; an
-EfficientNet encoder raises ``NotImplementedError`` naming ROADMAP A11b.
+is not raises and names the keys, as JAX's "unmapped torch keys" does: so
+an EfficientNet file that carries efficientnet-pytorch's classifier head
+(``encoder._conv_head``, ``._bn1``, ``._fc``, which smp never runs and
+neither package builds) raises, as JAX's importer does.
 
 ``import_reference_checkpoint`` is a file conversion on the host, as
 JAX's is: it reads and writes CPU tensors, launches nothing and so takes no

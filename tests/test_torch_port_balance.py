@@ -208,7 +208,10 @@ def test_balancer_refuses_unported_knobs(knob, tmp_path):
     ``tests/test_torch_port_i420.py``). ``knob1``, ``data_cache: device``,
     too: that case builds a cache, trains a step on a batch gathered from
     it and scores from it (against the host runs:
-    ``tests/test_torch_port_device_cache.py``)."""
+    ``tests/test_torch_port_device_cache.py``). ``knob2``,
+    ``patchify_stem: 2``, too: that case trains a step of the patchified
+    U-Net at 64^2 and scores with it (its parity with JAX:
+    ``tests/test_torch_port_patchify.py``)."""
     if knob == dict(data_cache="device"):
         manifest = make_image_dataset(tmp_path, n=3, size=S)
         trainer = balance.BalanceTrainer(_cfg(**knob), steps_per_epoch=1,
@@ -232,9 +235,15 @@ def test_balancer_refuses_unported_knobs(knob, tmp_path):
         _, losses = trainer.score_dataset(state, [(rgb, np.arange(B))])
         assert torch.isfinite(loss) and np.isfinite(losses).all()
         return
-    with pytest.raises(NotImplementedError):
-        balance.BalanceTrainer(_cfg(**knob), steps_per_epoch=1,
-                               image_size=S, device="cpu")
+    assert knob == dict(patchify_stem=2)
+    trainer = balance.BalanceTrainer(_cfg(**knob), steps_per_epoch=1,
+                                     image_size=64, device="cpu")
+    state = trainer.init_state(seed=0)
+    u8 = torch.zeros((B, 64, 64, 3), dtype=torch.uint8)
+    loss = trainer.train_step(state, u8)["loss"]
+    _, losses = trainer.score_dataset(state, [(u8, np.arange(B))])
+    assert state.model.patch == 2 and trainer.generator is None
+    assert torch.isfinite(loss) and np.isfinite(losses).all()
 
 
 @pytest.mark.parametrize("case", ["random", "tied", "all-equal"])

@@ -296,8 +296,10 @@ def test_import_refusals(tmp_path, case):
                               if case == "unmapped key" else None)
     ref = torch.load(ckpt, weights_only=False)
     if case == "another family":
+        # A resnet18 file that names EfficientNet: the port builds the
+        # family, so its keys are what the importer refuses.
         ref["hyper_parameters"]["encoder_name"] = "efficientnet-b0"
-        error, match = NotImplementedError, "A11"
+        error, match = ValueError, r"unmapped torch keys: \['encoder.bn1"
     elif case == "unmapped key":
         error, match = ValueError, r"unmapped torch keys: \['encoder.bogus"
     else:
@@ -317,14 +319,16 @@ def test_export_refusals(tmp_path, case):
     state = create_model_state(cfg, torch.float32, torch.device("cpu"),
                                seed=0)
     states = state if case == "single state" else {"a": state, "b": state}
-    # "vgg": the one family still unported, EfficientNet (ROADMAP A11b).
+    # "vgg": resnet18 states whose hparams name another family, now
+    # EfficientNet, which the port builds: the states are not its U-Net.
     hparams = dict(encoder_name="efficientnet-b0" if case == "vgg"
                    else "resnet18",
                    patchify_stem=2 if case == "patchify" else 1)
     manager.save(3, states, hparams)
     error, match = {"single state": (ValueError, "two-identity"),
                     "patchify": (ValueError, "patchify_stem"),
-                    "vgg": (NotImplementedError, "A11")}[case]
+                    "vgg": (ValueError,
+                            "not a efficientnet-b0 U-Net state_dict")}[case]
     with pytest.raises(error, match=match):
         export_reference_checkpoint(tmp_path / "ckpt", tmp_path / "x.ckpt")
 

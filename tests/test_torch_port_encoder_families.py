@@ -2,7 +2,7 @@
 CPU: tables, keys and parameter counts.
 
 * Names: each family's table is JAX's, name for name, and the port builds
-  every JAX name but EfficientNet's (ROADMAP A11b).
+  every JAX name (EfficientNet's: ``test_torch_port_efficientnet.py``).
 * Keys and shapes: for all 28 names, on the meta device, the U-Net's
   state_dict equals the JAX package's torch replica's under smp's names
   (``smp_named_state_dict(UnetSMP(name))``) less BN's
@@ -52,7 +52,8 @@ from denoising_diffusion_deep_fake_tpu_torch.training.state import (
     param_count,
 )
 
-NEW_NAMES = [n for n in encoder_names() if n not in RESNET_SPECS]
+NEW_NAMES = [n for n in encoder_names()
+             if n not in RESNET_SPECS and n not in EFFICIENTNET_NAMES]
 # tests/test_models.py::test_vgg_mobilenet_param_count's pins.
 PINNED = {
     "vgg11": 18_254_323, "vgg16": 23_748_531, "vgg19": 29_058_227,
@@ -96,9 +97,11 @@ def test_family_tables_are_jax_tables():
         jax_names.add(name)
     assert set(NEW_NAMES) == jax_names - set(EFFICIENTNET_SPECS)
     assert len(NEW_NAMES) == 28
+    # Every JAX name builds in the port, EfficientNet's too.
+    assert set(encoder_names()) == jax_names | set(RESNET_SPECS)
     for name in EFFICIENTNET_NAMES:
-        with pytest.raises(NotImplementedError, match="A11b"):
-            create_unet(name)
+        with torch.device("meta"):
+            assert create_unet(name).encoder.encoder_name == name
     with pytest.raises(ValueError, match="unsupported encoder_name"):
         create_unet("vgg17")
 

@@ -136,7 +136,10 @@ def test_bf16_forward_casts_and_returns_fp32(models):
 
 
 def test_unported_encoders_raise():
-    # Nine encoder families are ported (tests/test_torch_port_resnet_family.py,
-    # tests/test_torch_port_encoder_*.py); EfficientNet is ROADMAP A11b.
-    with pytest.raises(NotImplementedError, match="A11"):
-        create_unet("efficientnet-b0")
+    # Every encoder family is ported (tests/test_torch_port_resnet_family.py,
+    # tests/test_torch_port_encoder_*.py, tests/test_torch_port_efficientnet
+    # .py): EfficientNet builds, and only an unknown name raises.
+    with torch.device("meta"):
+        assert create_unet("efficientnet-b0").drop_keep_probs()
+    with pytest.raises(ValueError, match="unsupported encoder_name"):
+        create_unet("efficientnet-b8")

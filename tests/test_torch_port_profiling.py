@@ -208,6 +208,22 @@ def test_analyze_trace_accounting(tmp_path):
                                       * 3, "ms_per_step": pytest.approx(0.2)}}
     assert report["events_by_category"]["kernel"] == 7
     assert report["cuda:1"]["ops_busy_ms_per_step"] == pytest.approx(0.4)
+    assert dev["layout_conversions"] == {"per_step": 0.0, "ms_per_step": 0.0}
+
+
+def test_analyze_trace_counts_layout_conversions(tmp_path):
+    """cuDNN's NCHW <-> NHWC kernels (a convolution fed another layout
+    than it runs in) are counted and timed a step."""
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": [
+        _kernel("void cudnn::engines_precompiled::nchwToNhwcKernel<float>",
+                0, 30, 1),
+        _kernel("void cudnn::engines_precompiled::nhwcToNchwKernel<float>",
+                100, 20, 2),
+        _kernel(CONV, 200, 400, 3)]}))
+    dev = profiling.analyze_trace(path, nsteps=2)["cuda:0"]
+    assert dev["layout_conversions"] == {
+        "per_step": 1.0, "ms_per_step": pytest.approx(0.025)}
 
 
 def test_analyze_trace_divides_by_nsteps_and_spans_unannotated(tmp_path):

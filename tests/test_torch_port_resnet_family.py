@@ -117,9 +117,13 @@ def test_param_count_equals_jax(name):
 
 
 def test_unknown_encoder_names_roadmap_a11():
-    # Every family but EfficientNet is ported; its names name ROADMAP A11b.
-    with pytest.raises(NotImplementedError, match="A11"):
-        create_unet("efficientnet-b0")
+    # Every family is ported, EfficientNet's too; an unknown name raises
+    # and lists the names the port builds.
+    with torch.device("meta"):
+        assert create_unet("efficientnet-b0").encoder_name == \
+            "efficientnet-b0"
+    with pytest.raises(ValueError, match="efficientnet-b7"):
+        create_unet("resnet19")
 
 
 @pytest.fixture

@@ -106,9 +106,12 @@ KNOBS = [dict(remat="dots"), dict(steps_per_call=2),
                  else f"{name}-knob{i}")
     for name in TRAINERS for i, knob in enumerate(KNOBS)])
 def test_trainer_refuses_unported_knobs(trainer, knob):
-    """Each knob without its feature in the port is refused. Four have been
-    ported since, and their cases check that the trainer takes the knob
-    and trains: ``knob3``, ``upload_format: i420``, a step on a packed
+    """Each knob without its feature in the port is refused. All five have
+    been ported since, and their cases check that the trainer takes the
+    knob and trains: ``knob4``, ``patchify_stem: 2``, a step of the
+    patchified U-Net at 64^2 (its parity with JAX:
+    ``tests/test_torch_port_patchify.py``); ``knob3``,
+    ``upload_format: i420``, a step on a packed
     batch (its parity with JAX: ``tests/test_torch_port_i420.py``);
     ``knob1``, ``steps_per_call: 2``, one K-step call
     (``tests/test_torch_port_multi_step.py``); ``knob0``, ``remat: dots``,
@@ -158,8 +161,20 @@ def test_trainer_refuses_unported_knobs(trainer, knob):
             losses = [m["loss_denoise/train_a"], m["loss_denoise/train_b"]]
         assert all(torch.isfinite(v) for v in losses)
         return
-    with pytest.raises(NotImplementedError):
-        cls(make_cfg(**knob), steps_per_epoch=1, image_size=64, device="cpu")
+    assert knob == dict(patchify_stem=2)
+    t = cls(make_cfg(**knob), steps_per_epoch=1, image_size=64, device="cpu")
+    u8 = torch.zeros((2, 64, 64, 3), dtype=torch.uint8)
+    if trainer == "denoiser":
+        state = t.init_state(seed=0)
+        losses = [t.train_step(state, u8)["loss"]]
+    else:
+        states = t.init_states(seed=0)
+        state = states["a"]
+        m = t.train_step(states, u8, u8)
+        losses = [m["loss_denoise/train_a"], m["loss_denoise/train_b"]]
+    assert state.model.patch == 2
+    assert next(iter(state.model.state_dict())).startswith("unet.encoder.")
+    assert all(torch.isfinite(v) for v in losses)
 
 
 def test_deep_fake_step_returns_image_panels():
