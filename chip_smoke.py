@@ -88,7 +88,9 @@ Phases, in order; any failure exits non-zero:
 11. the i420 wire format and video render, from 9a's checkpoint and 10a's
    frames: (a) rgb_to_i420 and i420_to_rgb at 448^2 x 16 on the card
    against the CPU (pack within 1 LSB, unpack within 1e-3), the host pack
-   against the device pack, and the times of a batch's host pack and
+   and unpack against cv2's converters bit for bit (the JAX package's) and
+   the device's within 1 LSB and 2 of them (bit-equal to the device's
+   where cv2 does not import), and the times of a batch's host pack and
    device pack and unpack; (b) ``upload_format: i420`` at full width: the
    denoiser at 448^2 x 16 (3 + 20 steps, one fused warp on fp32 input and
    one fp32 noise launch a step, a profile of 3 more), the deep-fake
@@ -250,6 +252,27 @@ Phases, in order; any failure exits non-zero:
    measurement: a 448^2 x8 single-pass frame of 8d's model against its
    batch slot, with cuDNN's default and with ``cudnn.deterministic`` set
    only there, and the batch's time in each.
+19. data parallelism (``parallel/``): (a) both noise kernels, by value
+   and by device offset, at 448^2 x16 and 45^2 x6 (where a rank's element
+   base is not a multiple of 4): a launch on rows ``[lb:]`` at its
+   ``element_base`` bit-equal to those rows of the whole launch, Philox
+   words too, and within one ulp of the plain version; (b) one rank over
+   NCCL in a subprocess started by the ``D3F_*`` launch variables:
+   ``fit_denoiser`` at 448^2 x16 resnet34 bf16 from 13b's 256 .npy frames
+   through the device cache, 2 epochs of 16 steps, eager and at K = 16
+   (one fused warp and one fp32 noise launch a step), its rates beside
+   13b's; the same trainer driven 3 + 10 steps and profiled (kernels a
+   step, device idle) beside phase 5, its K = 16 graph beside 12c; the
+   step's collective census; the host's cost of one all-reduce; 12b's
+   64^2 K = 3 graphs of the denoiser (with a restored optimizer's
+   recapture) and the swap pair against eager steps inside the group; (c)
+   two ranks
+   on the one card over gloo, 64^2, a global batch of 4, resnet18, the
+   U-Nets in float64, ``cudnn.deterministic``: one denoiser, swap-pair and
+   balancer step against the one-process step on the card (the CPU test's
+   tolerances), the ranks' states equal, a K-step graph refused under
+   gloo, and ``fit_denoiser`` from the cache on both ranks with one
+   checkpoint and one event file, by the primary.
 
 Every profile of the script is a ``utils/profiling.py`` trace read by its
 ``analyze_trace``. It prints one JSON line of per-kernel results, then, as its last line,
@@ -1517,14 +1540,14 @@ def serving_http(path: Path, dev, launches, card: str, *, size: int = 448,
                         batch_size=batch, transfer=transfer)
     warm_s = engine.warmup()
     ran = []                       # (frames, output, batch index), on card
-    pipeline = engine._dispatcher.pipeline
+    pipeline = engine._dispatchers[0].pipeline
 
     def recorded(frames, batch_idx):
         out = pipeline(frames, batch_idx)
         ran.append((frames.clone(), out, batch_idx))
         return out
 
-    engine._dispatcher.pipeline = recorded
+    engine._dispatchers[0].pipeline = recorded
     rng = np.random.default_rng(SEED + 12)
     stacks = [rng.integers(0, 256, (int(rng.integers(1, 4)), size, size, 3),
                            np.uint8) for _ in range(24)]
@@ -2137,9 +2160,16 @@ def training_from_disk(dev, launches, card: str, step_ms: float,
 
 def i420_ops(dev, card: str) -> None:
     """Phase 11a: the i420 ops at 448^2 x 16 on the card against the CPU,
-    the host pack against the device pack, and their times."""
+    the host pack and unpack against cv2's converters (bit for bit where
+    cv2 imports; they are the JAX package's) with the device's within 1
+    LSB of the pack and 2 of the unpack (the CPU test's tolerances), or,
+    where cv2 does not import, bit-equal to the device's; and their
+    times."""
+    from denoising_diffusion_deep_fake_tpu_torch.data.codec import (
+        cv2_or_none)
     from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
-        i420_to_rgb, pack_rgb_batch_to_i420_np, rgb_to_i420)
+        i420_to_rgb, pack_rgb_batch_to_i420_np, rgb_to_i420,
+        unpack_i420_batch_to_rgb_np)
 
     host = np.random.default_rng(SEED + 30).integers(
         0, 256, (16, 448, 448, 3), np.uint8)
@@ -2153,8 +2183,32 @@ def i420_ops(dev, card: str) -> None:
         "(limit 1e-3)")
     check(err <= 1e-3, "i420_to_rgb on the card disagrees with the CPU")
     host_packed = pack_rgb_batch_to_i420_np(host)
-    u8_compare(torch.from_numpy(host_packed), packed.cpu(),
-               "host pack (CPU tensors) vs device pack")
+    host_back = unpack_i420_batch_to_rgb_np(host_packed)
+    device_back = torch.round(i420_to_rgb(torch.from_numpy(
+        host_packed).to(dev))).to(torch.uint8).cpu()
+    back_lsb = int((device_back.to(torch.int16)
+                    - torch.from_numpy(host_back).to(torch.int16)).abs()
+                   .max())
+    cv2 = cv2_or_none()
+    if cv2 is None:
+        check(np.array_equal(host_packed, packed.cpu().numpy())
+              and back_lsb == 0, "without cv2 the host pack or unpack is "
+              "not the device's")
+        log("  no cv2: the host pack and unpack are the device functions "
+            "on CPU tensors, bit for bit")
+    else:
+        check(all(np.array_equal(host_packed[i], cv2.cvtColor(
+            host[i], cv2.COLOR_RGB2YUV_I420)) for i in range(len(host)))
+            and all(np.array_equal(host_back[i], cv2.cvtColor(
+                host_packed[i], cv2.COLOR_YUV2RGB_I420))
+                for i in range(len(host))),
+            "the host pack or unpack is not cv2's")
+        u8_compare(packed.cpu(), torch.from_numpy(host_packed),
+                   f"device pack vs the host's (cv2 {cv2.__version__})")
+        log(f"  device unpack vs the host's (cv2): max |difference| "
+            f"{back_lsb} LSB (limit 2)")
+        check(back_lsb <= 2, "the device unpack is more than 2 LSB from "
+              "cv2's")
     t0 = time.perf_counter()
     for _ in range(5):
         pack_rgb_batch_to_i420_np(host)
@@ -2389,14 +2443,14 @@ def mixed_formats(path: Path, dev, card: str, size: int = 448,
                             batch_size=batch, transfer=engine_fmt)
         engine.warmup()
         ran = []
-        pipeline = engine._dispatcher.pipeline
+        pipeline = engine._dispatchers[0].pipeline
 
         def recorded(frames, batch_idx, pipeline=pipeline, ran=ran):
             out = pipeline(frames, batch_idx)
             ran.append((frames.clone(), out))
             return out
 
-        engine._dispatcher.pipeline = recorded
+        engine._dispatchers[0].pipeline = recorded
         server = SwapServer(engine, host="127.0.0.1", port=0)
         server.start()
         try:
@@ -2627,7 +2681,7 @@ def _check_same(what: str, trainer, states, eager_trainer, eager_states,
               f"{what}: the generator's state differs from eager")
 
 
-def graph_against_eager(dev, launches) -> dict:
+def graph_against_eager(dev, launches, names=None) -> dict:
     """Phase 12b: at 64^2 x2, resnet18, fp32, under cudnn.deterministic, 2
     replays of a K = 3 graph against 6 eager steps from equal states: every
     weight, BN buffer, Adam moment and step (on the card), shadow, loss,
@@ -2635,7 +2689,8 @@ def graph_against_eager(dev, launches) -> dict:
     step's a replay. Then a replaced optimizer (a restore through
     ``load_state_dict``) and the denoise -> swap flip (a mode change and
     new shadows) must each capture a new graph, which again matches eager.
-    Returns the launch counts of the two replays by path."""
+    ``names`` picks some of the cases (all when None). Returns the launch
+    counts of the two replays by path."""
     import io
 
     from denoising_diffusion_deep_fake_tpu_torch.training.optim import (
@@ -2649,6 +2704,8 @@ def graph_against_eager(dev, launches) -> dict:
     try:
         for what, (make, init, n_args, per_step) in _small_trainers(
                 dev).items():
+            if names is not None and what not in names:
+                continue
             eager_t, graph_t = make(), make()
             eager_s, graph_s = init(eager_t), init(graph_t)
             steps = [[torch.from_numpy(rng.integers(
@@ -4347,14 +4404,14 @@ def jpeg_serving(ckpt: Path, dev, launches, card: str, raw_rate: float
     engine.warmup()
     direct = make_device_pipeline(engine.model)
     ran = []
-    pipeline = engine._dispatcher.pipeline
+    pipeline = engine._dispatchers[0].pipeline
 
     def recorded(batch, batch_idx):
         out = pipeline(batch, batch_idx)
         ran.append((batch.clone(), out, batch_idx))
         return out
 
-    engine._dispatcher.pipeline = recorded
+    engine._dispatchers[0].pipeline = recorded
     rates = {}
     # One server for both routes: it picks cv2 or the port's codec at each
     # request, and its shutdown closes the engine.
@@ -5108,15 +5165,473 @@ def efficientnet_and_patchify(root: Path, data: dict, dev, launches,
     return counts
 
 
+# ---------------------------------------- phase 19: data parallelism
+
+
+DP_BATCH, DP_SIZE = 4, 64
+
+
+def noise_element_base(dev, card: str) -> None:
+    """Phase 19a: both noise kernels, by value and by device offset, on
+    rows ``[lb:]`` of a batch at ``element_base = lb * H * W * C`` (a
+    data-parallel rank's launch), against those rows of the launch on the
+    whole batch: Philox words and outputs bit-equal, and within one ulp of
+    the plain version; a launch at base 0 bit-equal to one without a base.
+    At 448^2 x16 the base is a multiple of 4; at 45^2 x6 (lb 3) it is not,
+    and the rank's first Philox group starts in the rows before it."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import (
+        noise_kernel as nk)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda._build import (
+        moved_launches)
+
+    rng = np.random.default_rng(SEED + 90)
+    seed, offset = 12345, (1 << 33) + 5
+    with moved_launches():
+        for shape in ((16, 448, 448, 3), (6, 45, 45, 3)):
+            b, lb = shape[0], shape[0] // 2
+            base = lb * shape[1] * shape[2] * shape[3]
+            x = torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dev)
+            u8 = torch.from_numpy(rng.integers(0, 256, shape,
+                                               np.uint8)).to(dev)
+            ratios = torch.from_numpy(rng.uniform(0, 1, b).astype(
+                np.float32)).to(dev)
+            at = torch.tensor([offset], dtype=torch.int64, device=dev)
+            groups = (x.numel() + 3) // 4
+            for form, off in (("by value", offset), ("device offset", at)):
+                words = nk.philox_words(groups, seed=seed, offset=off,
+                                        device=dev)
+                tail = nk.philox_words(groups - base // 4, seed=seed,
+                                       offset=off, device=dev,
+                                       group_base=base // 4)
+                check(torch.equal(tail, words[base // 4:]),
+                      f"19a {shape} {form}: Philox words from the group "
+                      "base differ from the whole launch's")
+                launches = {
+                    "fused_noise_blend": lambda xs, rs, **kw:
+                        nk.fused_noise_blend(xs, rs, seed=seed, **kw),
+                    "fused_normalise_noise_blend": lambda xs, rs, **kw:
+                        nk.fused_normalise_noise_blend(
+                            xs, rs, *HALF, seed=seed, **kw)}
+                for name, fn in launches.items():
+                    src = x if name == "fused_noise_blend" else u8
+                    whole = fn(src, ratios, offset=off)
+                    zero = fn(src, ratios, offset=off, element_base=0)
+                    part = fn(src[lb:], ratios[lb:], offset=off,
+                              element_base=base)
+                    torch.cuda.synchronize()
+                    check(torch.equal(zero, whole),
+                          f"19a {name} {shape} {form}: base 0 changed the "
+                          "launch")
+                    check(torch.equal(part, whole[lb:]),
+                          f"19a {name} {shape} {form}: rows [{lb}:] at "
+                          f"their base differ from the whole launch's")
+                    if name == "fused_noise_blend":
+                        plain = nk.fused_noise_blend_plain(
+                            src[lb:], ratios[lb:], seed=seed, offset=offset,
+                            element_base=base)
+                    else:
+                        plain = nk.fused_normalise_noise_blend_plain(
+                            src[lb:], ratios[lb:],
+                            nk.noise_constants(*HALF, 3), seed=seed,
+                            offset=offset, element_base=base)
+                    compare_ulp(part, plain, f"19a {name} {shape} rows "
+                                f"[{lb}:] at base {base} (base % 4 = "
+                                f"{base % 4}), {form}")
+    log(f"  both noise kernels: a rank's rows at their element base "
+        f"bit-equal to the whole launch's, Philox words too, by value and "
+        f"device offset [{card}]")
+
+
+def _dp_trainer(workload: str, dev, **extra):
+    """Phase 19c's trainers: 64^2, a global batch of 4, resnet18, fp32."""
+    common = dict(dict(batch_size=DP_BATCH, image_size=DP_SIZE,
+                       learning_rate=1e-3, encoder_name="resnet18",
+                       compute_dtype="float32"), **extra)
+    if workload == "swap":
+        return make_deep_fake(dev, None, mode="swap",
+                              ema_update_after_step=0, **common)
+    if workload == "balance":
+        return make_balancer(dev, **common)
+    return make_trainer(dev, encoder="resnet18", batch=DP_BATCH,
+                        size=DP_SIZE, dtype="float32",
+                        **{k: v for k, v in extra.items()})
+
+
+def _dp_step(workload: str, dev, rows) -> dict:
+    """One step of ``workload`` from seed-made weights, the U-Nets in
+    float64 (fp32 gradients of a 64^2 U-Net are too ill-conditioned for
+    1e-5: a decoder BN's bias gradient is a sum that nearly cancels),
+    on ``rows(global batch, trainer)``; every tensor after it, by name."""
+    from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
+        shard_state)
+    from denoising_diffusion_deep_fake_tpu_torch.training.state import (
+        model_states)
+
+    trainer = _dp_trainer(workload, dev)
+    states = (trainer.init_states(seed=SEED) if workload == "swap"
+              else trainer.init_state(seed=SEED))
+    for state in model_states(states):
+        for model in (state.model, state.ema_model):
+            if model is not None:
+                model.double().dtype = torch.float64
+    shard_state(states, trainer.mesh)
+    rng = np.random.default_rng(SEED + 91)
+    batches = [rows(torch.from_numpy(rng.integers(
+        0, 256, (DP_BATCH, DP_SIZE, DP_SIZE, 3), np.uint8)), trainer)
+        for _ in range(2 if workload == "swap" else 1)]
+    metrics = trainer.train_step(states, *batches)
+    out = {f"metric.{k}": float(v) for k, v in metrics.items()
+           if isinstance(v, torch.Tensor)}
+    out["lr"] = trainer.cfg.learning_rate
+    for i, state in enumerate(model_states(states)):
+        for name, t in state.model.state_dict().items():
+            out[f"{i}.model.{name}"] = t.cpu()
+        if state.has_ema:
+            for name, t in state.ema_model.state_dict().items():
+                out[f"{i}.shadow.{name}"] = t.cpu()
+        for name, p in state.model.named_parameters():
+            out[f"{i}.grad.{name}"] = p.grad.cpu()
+            for k, v in state.optimizer.state[p].items():
+                if k != "step":
+                    out[f"{i}.adam_{k}.{name}"] = v.cpu()
+    return out
+
+
+def _dp_compare(what: str, dp: dict, one: dict) -> None:
+    """19c: a 2-rank step against the one-process step (the CPU test's
+    tolerances): the losses 1e-5 relative; BN buffers, gradients, Adam
+    moments and shadows' buffers 1e-5 of each tensor's largest; weights
+    (and shadows' weights) 1e-6 where the gradient is above 2% of its
+    tensor's largest and 1e-6, 2 lr + 1e-6 elsewhere (Adam's first step
+    moves a weight by about +-lr whatever |g|)."""
+    check(set(dp) == set(one), f"19c {what}: other tensors")
+    worst, lr = 0.0, one["lr"]
+    for k, want in one.items():
+        got = dp[k]
+        if k == "lr":
+            continue
+        if k.startswith("metric."):
+            check(abs(got - want) <= 1e-5 * abs(want),
+                  f"19c {what} {k}: {got} against {want}")
+            continue
+        identity, kind, name = k.split(".", 2)
+        diff = (got.double() - want.double()).abs()
+        if kind in ("model", "shadow") and "running_" not in name:
+            grad = one[f"{identity}.grad.{name}"].double().abs()
+            clear = (grad > 2e-2 * grad.max()) & (grad > 1e-6)
+            check(float(diff.max()) <= 2 * lr + 1e-6 and (
+                not clear.any() or float(diff[clear].max()) <= 1e-6),
+                f"19c {what} {k}: a weight moved apart")
+            continue
+        scale = float(want.double().abs().max())
+        err = float(diff.max())
+        worst = max(worst, err / scale if scale else err)
+        check(err <= 1e-5 * scale + 1e-12,
+              f"19c {what} {k}: {err} against {scale}")
+    log(f"  19c {what}: 2 ranks (gloo) against one process on the card: "
+        f"losses within 1e-5, BN buffers, gradients, Adam moments and "
+        f"shadows within {worst:.2e} of their largest")
+
+
+def _dp_worker_gloo(workdir: Path, card: str) -> None:
+    """19c, one of two ranks on the one card over gloo: the three steps,
+    the K-step graph's refusal, and ``fit_denoiser`` from the cache."""
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DenoiserConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.device import (
+        resolve_device)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda._build import (
+        LAUNCHES)
+    from denoising_diffusion_deep_fake_tpu_torch.parallel import (
+        distributed)
+    from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
+        shard_batch)
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_denoiser)
+
+    check(distributed.maybe_initialize_from_env(backend="gloo"),
+          "19c: no D3F_* launch environment")
+    rank = distributed.process_index()
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic, cudnn.benchmark = True, False
+    dev = resolve_device()
+    out = {"counts": {}}
+    for workload in ("denoiser", "swap", "balance"):
+        LAUNCHES.clear()
+        out[workload] = _dp_step(workload, dev, lambda b, t: shard_batch(
+            b, t.mesh).to(dev))
+        torch.cuda.synchronize()
+        out["counts"][f"dp_gloo_{workload}_64"] = dict(LAUNCHES)
+    trainer = _dp_trainer("denoiser", dev)
+    state = trainer.init_state(seed=SEED)
+    u8 = torch.zeros((DP_BATCH // 2, DP_SIZE, DP_SIZE, 3), dtype=torch.uint8,
+                     device=dev)
+    try:
+        trainer.make_super_step(2)(state, u8, u8)
+        out["graph_refused"] = False
+    except RuntimeError as e:
+        out["graph_refused"] = "gloo" in str(e)
+    cfg = config_from_dict(DenoiserConfig, dict(
+        input_image_list_path=str(workdir / "frames_64" / "images.txt"),
+        batch_size=DP_BATCH, image_size=DP_SIZE, encoder_name="resnet18",
+        compute_dtype="float32", max_epochs=3, data_cache="device",
+        log_images=False, seed=SEED, log_dir=str(workdir / "runs"),
+        checkpoint_dir=str(workdir / "ck")))
+    LAUNCHES.clear()
+    state, trainer, ctx = fit_denoiser(cfg, max_steps=4, verbose=False,
+                                       decode_fn=np.load)
+    torch.cuda.synchronize()
+    out["counts"]["dp_gloo_cache_fit_denoiser_64"] = dict(LAUNCHES)
+    out["fit"] = {"step": state.step, "world": trainer.mesh.world,
+                  "backend": torch.distributed.get_backend(),
+                  "weights": [t.cpu() for t in
+                              state.model.state_dict().values()]}
+    torch.save(out, workdir / f"gloo_rank{rank}.pt")
+    distributed.shutdown()
+
+
+def _dp_worker_nccl(workdir: Path, data: Path, card: str) -> None:
+    """19b, one rank over NCCL: ``fit_denoiser`` at full width from the
+    ``D3F_*`` launch (which opens the group) eager and at K = 16, the same
+    trainer driven and profiled, its K = 16 graph, the step's census, and
+    12b's 64^2 K = 3 graphs against eager steps, all inside the group."""
+    import torch.distributed as dist
+
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DenoiserConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda._build import (
+        LAUNCHES)
+    from denoising_diffusion_deep_fake_tpu_torch.parallel.audit import (
+        census_of_train_step, census_summary, census_violations)
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_denoiser)
+
+    fused = {"affine_warp_fused": 1, "fused_noise_blend": 1}
+    out = {"counts": {}, "rates": {}}
+    for k in (1, 16):
+        cfg = config_from_dict(DenoiserConfig, dict(
+            input_image_list_path=str(data), batch_size=16,
+            learning_rate=0.02, max_epochs=2, cosine_scheduler_max_epoch=100,
+            encoder_name="resnet34", noise_exponential_sampling_lambda=5,
+            compute_dtype="bfloat16", image_size=448, seed=SEED,
+            steps_per_call=k, data_cache="device", log_images=False,
+            log_dir=str(workdir / f"runs_{k}"),
+            checkpoint_dir=str(workdir / f"ck_{k}")))
+        ends = {}
+
+        def at_epoch_end(step, states, metrics):
+            if step in (16, 32):
+                torch.cuda.synchronize()
+                ends[step] = time.perf_counter()
+
+        LAUNCHES.clear()
+        state, trainer, ctx = fit_denoiser(cfg, verbose=False,
+                                           decode_fn=np.load,
+                                           step_callback=at_epoch_end)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        check(dist.is_initialized() and dist.get_backend() == "nccl"
+              and trainer.mesh.world == 1 and trainer.mesh.in_group,
+              "19b: fit_denoiser did not run in an NCCL group of 1")
+        check_launches(counts, {n: 32 * v for n, v in fused.items()},
+                       f"19b fit_denoiser K = {k}")
+        rate = 16 * 16 / (ends[32] - ends[16])
+        out["rates"][f"fit_{k}"] = rate
+        out["counts"][f"dp_nccl_{'graph_' if k > 1 else ''}"
+                      f"fit_denoiser_448"] = counts
+        log(f"  19b fit_denoiser 448^2 x16 resnet34 bf16 from the cache, "
+            f"NCCL world size 1, K = {k}: {rate:.1f} imgs/s over epoch 2 "
+            f"(16 steps; host clock between synchronised epoch ends) "
+            f"[{card}]")
+        shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
+    dev = trainer.device
+    run = drive(dev, LAUNCHES, card, single_path(make_trainer(
+        dev, encoder="resnet34", batch=16, size=448, dtype="bfloat16"),
+        size=448, batch=16), warmup=3, steps=10, per_step=fused)
+    out["counts"]["dp_nccl_denoiser_448"] = run["counts"]
+    port_ms = profile_steps(run, dev, None)
+    out["step_ms"], out["busy_ms"] = run["step_ms"], run["busy_ms"]
+    out["port_ms"] = port_ms
+    graph = graph_rate(dev, LAUNCHES, card, "19b denoiser 448^2 x16 in an "
+                       "NCCL group", run["trainer"], run["state"], 1, 16,
+                       run, fused, phase="19b")
+    out["counts"]["dp_nccl_graph_denoiser_448"] = graph["counts"]
+    out["rates"]["graph"] = graph["imgs_s"]
+    census = census_of_train_step("denoiser", image_size=448, batch_size=16,
+                                  encoder_name="resnet34",
+                                  compute_dtype="bfloat16")
+    out["census"] = census_summary(census)
+    check(not census_violations(census, spatial=False),
+          f"19b census: {census_violations(census, spatial=False)}")
+    # The host's cost of one collective (a BN's statistics' size).
+    t = torch.zeros(1024, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        dist.all_reduce(t)
+    out["all_reduce_host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    out["all_reduce_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    log("[19b] 12b's 64^2 K = 3 graphs of the denoiser and the swap pair "
+        "against eager steps inside the NCCL group")
+    out["counts"].update({f"dp_nccl_{k}": v for k, v in graph_against_eager(
+        dev, LAUNCHES, ("denoiser", "deep_fake_swap")).items()})
+    (workdir / "nccl.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _launch_ranks(mode: str, workdir: Path, world: int, extra=(),
+                  timeout_s: float = 300) -> None:
+    """Start ``world`` ranks of this script's ``--dp-worker mode`` with the
+    ``D3F_*`` launch environment, wait for all (stopping every one at the
+    first failure or the timeout) and fail unless each exits 0."""
+    import os
+
+    coordinator = f"127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dp-worker", mode,
+         str(workdir), *map(str, extra)],
+        env=dict(os.environ, D3F_COORDINATOR=coordinator,
+                 D3F_NUM_PROCESSES=str(world), D3F_PROCESS_ID=str(r)))
+        for r in range(world)]
+    deadline = time.monotonic() + timeout_s
+    try:
+        while any(p.poll() is None for p in procs):
+            check(time.monotonic() < deadline,
+                  f"19 {mode}: the ranks did not finish in {timeout_s} s")
+            check(all(p.returncode in (None, 0) for p in procs),
+                  f"19 {mode}: a rank failed "
+                  f"({[p.returncode for p in procs]})")
+            time.sleep(0.2)
+        check(all(p.returncode == 0 for p in procs),
+              f"19 {mode}: a rank failed ({[p.returncode for p in procs]})")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def data_parallel(root: Path, data: Path, dev, launches, card: str,
+                  main_run: dict, graph_rates: dict, npy_rates: dict
+                  ) -> dict:
+    """Phase 19: 19a the noise kernels' element base; 19b one rank over
+    NCCL at full width; 19c two ranks on the one card over gloo against
+    the one-process step. Returns the launch counts by path."""
+    t19 = time.perf_counter()
+    log("[19a] the noise kernels' global element base")
+    noise_element_base(dev, card)
+    log(f"    ({time.perf_counter() - t19:.1f} s)")
+
+    log("[19b] data parallelism over NCCL, world size 1, from the D3F_* "
+        "launch: fit_denoiser 448^2 x16 eager and K = 16")
+    root.mkdir(parents=True, exist_ok=True)
+    if not data.exists():
+        data = write_frames(root / "frames_256", 256, 448, SEED + 60)
+    t0 = time.perf_counter()
+    _launch_ranks("nccl", root, 1, extra=(data,), timeout_s=400)
+    nccl = json.loads((root / "nccl.json").read_text())
+    main_rate = 16 / main_run["step_ms"] * 1e3
+    log(f"  19b rates, imgs/s: fit_denoiser eager {nccl['rates']['fit_1']:.1f}"
+        f" and K = 16 {nccl['rates']['fit_16']:.1f} (phase 13b's cached "
+        f"fit_denoiser without a group: eager "
+        f"{npy_rates.get('denoiser_device_1') or 0:.1f}, K = 16 "
+        f"{npy_rates.get('denoiser_device_16') or 0:.1f}); the trainer "
+        f"driven {16 / nccl['step_ms'] * 1e3:.1f} beside phase 5's "
+        f"{main_rate:.1f}; its K = 16 graph {nccl['rates']['graph']:.1f} "
+        f"beside 12c's {graph_rates['graph_denoiser_448']:.1f} [{card}]")
+    busy = nccl["busy_ms"]
+    log(f"  19b kernels {busy:.3f} ms a step, device idle "
+        f"{1 - busy / nccl['step_ms']:.1%} of the eager step"
+        if busy > 0 else "  19b: the profiler saw no device time")
+    census = nccl["census"]
+    log("  19b census of one step: " + ", ".join(
+        f"{op} {c['count']} calls, {c['total_mib']:.3f} MiB (largest "
+        f"{c['max_mib']:.3f})" for op, c in census.items()))
+    check(census.get("all-reduce", {}).get("count", 0) > 0,
+          "19b: the step issued no all-reduce")
+    log(f"  19b: one NCCL all-reduce of 4 KiB costs the host "
+        f"{nccl['all_reduce_host_us']:.1f} us to issue, "
+        f"{nccl['all_reduce_us']:.1f} us to complete (200 in a row) [{card}]")
+    log(f"    ({time.perf_counter() - t0:.1f} s)")
+
+    log("[19c] two ranks on the one card over gloo: 64^2, a global batch "
+        "of 4, resnet18, cudnn.deterministic")
+    t0 = time.perf_counter()
+    write_frames(root / "frames_64", 16, DP_SIZE, SEED + 92)
+    _launch_ranks("gloo", root, 2, timeout_s=300)
+    ranks = [torch.load(root / f"gloo_rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        for workload in ("denoiser", "swap", "balance"):
+            one = _dp_step(workload, dev, lambda b, t: b.to(dev))
+            _dp_compare(workload, ranks[0][workload], one)
+            check(all(torch.equal(a, b) if isinstance(a, torch.Tensor)
+                      else a == b for a, b in zip(
+                          ranks[0][workload].values(),
+                          ranks[1][workload].values())),
+                  f"19c {workload}: the ranks' states differ")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    for r in ranks:
+        check(r["graph_refused"], "19c: a K-step graph under gloo was not "
+              "refused")
+        check(r["fit"]["step"] == 4 and r["fit"]["world"] == 2
+              and r["fit"]["backend"] == "gloo",
+              f"19c fit_denoiser: {r['fit']['step']} steps")
+    check(all(torch.equal(a, b) for a, b in zip(
+        ranks[0]["fit"]["weights"], ranks[1]["fit"]["weights"])),
+        "19c fit_denoiser: the ranks' weights differ")
+    check(sorted(p.name for p in (root / "ck").iterdir())
+          == ["step_0000000004"], "19c: not one checkpoint by the primary")
+    check(len(list((root / "runs").rglob("events.out.tfevents.*"))) == 1,
+          "19c: not one event file")
+    counts = {**nccl["counts"], **ranks[0]["counts"]}
+    log("  19c: fit_denoiser from the cache on both ranks, 4 steps, the "
+        "same weights; one checkpoint (step 4) and one event file, by the "
+        "primary; a K-step graph under gloo refused before its capture; "
+        f"launches by path {ranks[0]['counts']}")
+    log(f"    ({time.perf_counter() - t0:.1f} s)")
+    log(f"  phase 19 took {time.perf_counter() - t19:.1f} s [{card}]")
+    return counts
+
+
+def dp_worker(argv: list) -> int:
+    """``--dp-worker nccl|gloo WORKDIR [DATA]``: one rank of phase 19."""
+    mode, workdir = argv[0], Path(argv[1])
+    card = card_line()
+    if mode == "nccl":
+        _dp_worker_nccl(workdir, Path(argv[2]), card)
+    else:
+        _dp_worker_gloo(workdir, card)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", type=Path, default=None,
                         help="write the main path's profile report (JSON) "
                         "here")
+    parser.add_argument("--dp-worker", nargs="+", default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.dp_worker:
+        return dp_worker(args.dp_worker)
     t_start = time.perf_counter()
     # A hang anywhere prints every thread's stack and exits non-zero within
     # the script's 1200 s limit.
@@ -5320,6 +5835,13 @@ def main() -> int:
             Path(tmp) / "efficientnet", data, dev, _build.LAUNCHES, card,
             main_run, ckpt)
 
+        log("[19] data parallelism: the noise kernels' element base, one "
+            "rank over NCCL, two ranks on the one card over gloo")
+        dp_paths = data_parallel(
+            Path(tmp) / "dp", Path(tmp) / "disk" / "cache_256" /
+            "images.txt", dev, _build.LAUNCHES, card, main_run, graph_rates,
+            npy_rates)
+
     paths = {"denoiser_448": main_run["counts"],
              "twopass_640": twopass_run["counts"],
              "balancer_448": balance_counts,
@@ -5327,7 +5849,8 @@ def main() -> int:
              "deep_fake_swap_448": swap_run["counts"],
              "serve_ddim_448": ddim_counts, **loop_paths, **i420_paths,
              **graph_paths, **cache_paths, **family_paths, **jpeg_paths,
-             **knob_paths, **other_paths, **efficientnet_paths}
+             **knob_paths, **other_paths, **efficientnet_paths,
+             **dp_paths}
     first_path = {"affine_warp_fused": "denoiser_448",
                   "warp_axis_pass": "twopass_640",
                   "fused_noise_blend": "denoiser_448",

@@ -34,6 +34,10 @@ is written last, so a step without it is incomplete and ignored.
   (affine params and noise ratios) in ``extra``, where JAX keeps its key.
   With the steps (the noise kernel's offset) and the epoch (the loader's
   order), a resumed run draws what the uninterrupted run would have.
+
+Under data parallelism (``parallel/``) the ranks' states and generators
+are the same, so only the primary saves (``training/loop.py`` gates it)
+and every rank restores the same files.
 """
 
 from __future__ import annotations

@@ -10,8 +10,9 @@ config.py``: ``BaseConfig``, ``DeepFakeConfig``, ``DenoiserConfig``,
 ``yaml`` is imported only by ``read_yaml_file_into_dict``: the GPU machine
 may lack PyYAML, and ``chip_smoke.py`` builds its config from a dict.
 
-Knobs whose feature the port does not have yet are kept in the schema (so
-configs load unchanged) and refused by the trainer that would need them.
+Every knob of the schema is ported; ``spatial_parallel > 1`` is kept (so
+configs load unchanged) and refused by the trainers' mesh
+(``parallel/mesh.py``, ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -235,16 +236,6 @@ class BalanceConfig(BaseConfig):
         if self.number_of_classes <= 0:
             raise ValueError("number_of_classes must be positive")
         _rescale_mean_std(self)
-
-
-def refuse_unported(cfg: BaseConfig, knobs) -> None:
-    """Raise ``NotImplementedError`` naming each of ``knobs`` that is set
-    away from its default: a feature the port has not yet."""
-    defaults = {f.name: f.default for f in dataclasses.fields(cfg)}
-    names = [k for k in knobs if getattr(cfg, k) != defaults[k]]
-    if names:
-        raise NotImplementedError(
-            f"config knobs not ported to the PyTorch trainer yet: {names}")
 
 
 def config_from_dict(cls, data: dict, *, validate: bool = True):

@@ -17,10 +17,11 @@ steps that read the previous one), so a CUDA graph captured on the buffer
 (``training/multi_step.py``) reads each new epoch's order without being
 captured again.
 
-The JAX package's multi-process layout (each process's manifest shard
-sharded over its local devices, ``:97-136``, and its shard-local gather)
-waits for ROADMAP A9: a cache made inside a process group of more than one
-process raises.
+Under data parallelism (JAX ``:97-136``) each rank is given its loader of
+its manifest shard (``shard=``, ``data/loader.py``) at the local batch
+size, so the cache holds that shard on the rank's device, trimmed to whole
+local batches; the shards are equally long, so every rank runs as many
+steps an epoch. The epoch's order and the gather stay local.
 """
 
 from __future__ import annotations
@@ -44,12 +45,6 @@ class DeviceDatasetCache:
 
     def __init__(self, loader: ImageLoader, *, limit_bytes: int = 8 << 30,
                  device=None):
-        if (torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError(
-                "the multi-process device cache (a manifest shard per "
-                "process) is not ported yet (ROADMAP A9)")
         n = len(loader.paths)
         nbytes = n * loader.image_size * loader.image_size * 3
         if nbytes > limit_bytes:

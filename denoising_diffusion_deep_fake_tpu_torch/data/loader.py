@@ -29,12 +29,14 @@ The decoder, JAX's selection rule with the card's codec after it
 Off route 2 a mismatched frame is resized by cv2's cubic resize where cv2
 imports, else by ``ops.image.resize_cubic``, OpenCV's own algorithm. The
 decoder and the resize are chosen once, when the loader is built. A file
-no decoder can read raises; none is skipped. The per-process manifest
-shard (``shard``, ROADMAP A9) is not ported; the constructor refuses it.
+no decoder can read raises; none is skipped. ``shard=(i, n)`` keeps
+process ``i``'s strided, equal-length slice of the manifest (data
+parallelism, JAX ``:72-85``).
 
-``device_prefetch`` is the counterpart of JAX ``parallel/mesh.py:115``
-without sharding or i420: a worker thread uploads each batch's uint8
-arrays ahead of the step that consumes them.
+``device_prefetch`` is the counterpart of JAX ``parallel/mesh.py:115``:
+a worker thread uploads each batch's uint8 arrays ahead of the step that
+consumes them, to the rank's own device under data parallelism (a rank's
+batch is its slice of the global one).
 """
 
 from __future__ import annotations
@@ -127,14 +129,27 @@ class ImageLoader:
                  shard: tuple[int, int] | None = None,
                  cache: bool | str = "auto",
                  cache_limit_bytes: int = 2 << 30):
-        if shard is not None:
-            raise NotImplementedError(
-                "manifest shards across processes are not ported to the "
-                "PyTorch loader yet (ROADMAP A9)")
         self.manifest_path = Path(manifest_path)
         paths, classes = read_image_manifest_with_classes(manifest_path)
         self.paths = [str(p) for p in paths]
         self.classes = classes
+        if shard is not None:
+            # Data parallelism: each process keeps a strided slice of the
+            # manifest (parallel/distributed.py's data_shard()), cut to the
+            # same length on every process: unequal shards would give
+            # processes different batches_per_epoch, and the one with more
+            # would issue a step's collectives that its peers never join.
+            # Drops at most shard_num - 1 images an epoch.
+            shard_idx, shard_num = shard
+            per_shard = len(self.paths) // shard_num
+            if per_shard == 0:
+                raise ValueError(
+                    f"manifest {manifest_path} has {len(self.paths)} images "
+                    f"for {shard_num} processes — every process needs one")
+            self.paths = self.paths[shard_idx::shard_num][:per_shard]
+            if self.classes is not None:
+                self.classes = list(
+                    self.classes)[shard_idx::shard_num][:per_shard]
         self.class_balanced = class_balanced
         if class_balanced and classes is None:
             raise ValueError(

@@ -133,14 +133,20 @@ def load_swap_model(checkpoint_path, model_a_or_b: str, *,
                      device=device)
 
 
+REPLICA_SHIFT = 40
+
+
 def make_device_pipeline(model: SwapModel, *, sampler_steps: int = 0,
-                         transfer: str = "rgb", seed: int = 0
+                         transfer: str = "rgb", seed: int = 0,
+                         replica: int = 0
                          ) -> Callable[[torch.Tensor, int], torch.Tensor]:
     """The uint8 -> uint8 swap of one ``SwapModel``:
     ``f(frames_u8, batch_idx) -> fake_u8`` for batches on the model's
     device in the ``transfer`` wire format, NHWC RGB or (B, H*3/2, W) i420.
     Normalise, swap (one forward, or ``sampler_steps`` DDIM steps from
-    ``r_start`` 0.7 whose noise is keyed by ``(seed, batch_idx)``), then
+    ``r_start`` 0.7 whose noise is keyed by ``(seed, batch_idx)``, in the
+    stream of serving replica ``replica``: offset ``replica << 40`` on,
+    as JAX folds the replica index into its key), then
     ``trunc(fake * std*255 + mean*255)`` clamped to [0, 255]: truncation,
     as the reference casts. An i420 batch is unpacked to fp32 RGB and
     normalised as ``(rgb - mean*255) / (std*255)``, and the fake packed
@@ -160,8 +166,9 @@ def make_device_pipeline(model: SwapModel, *, sampler_steps: int = 0,
                 frames_u8 = i420_to_rgb(frames_u8)
             x = normalise_batch(frames_u8, mean, std)
             if sampler_steps > 0:
-                fake = swap_refine(model.predict, x, steps=sampler_steps,
-                                   clip=clip, seed=seed, offset=batch_idx)
+                fake = swap_refine(
+                    model.predict, x, steps=sampler_steps, clip=clip,
+                    seed=seed, offset=(replica << REPLICA_SHIFT) + batch_idx)
             else:
                 fake = model.predict(x)
             fake_u8 = denormalise_to_uint8_rgb(fake, mean, std)

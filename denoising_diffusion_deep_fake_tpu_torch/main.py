@@ -23,8 +23,11 @@ and the same subcommand and option names. ``--device``
 ``--device cpu`` runs the plain PyTorch path. ``import`` and ``export``
 convert files on the host and take no ``--device``; they cover every
 encoder family (a ``patchify_stem`` checkpoint is not exported: the
-reference has no such model). ``serve --devices`` other
-than 1 is refused (replicas are ROADMAP A9). ``profile`` runs
+reference has no such model). ``serve --devices n``
+serves n engine replicas, one a card (on the CPU they share it). The
+training commands run data-parallel when launched as several processes
+with ``D3F_COORDINATOR``, ``D3F_NUM_PROCESSES`` and ``D3F_PROCESS_ID``
+(``parallel/distributed.py``). ``profile`` runs
 ``fit_denoiser`` for ``--steps`` steps under a ``torch.profiler`` trace
 (``utils/profiling.py``) and, with ``--report``, prints the trace's
 per-device report as JSON: device busy and idle a step, time by category
@@ -268,8 +271,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Swap through the EMA shadow instead of the online "
                    "model.")
     p.add_argument("--devices", type=int, default=1,
-                   help="Cards to replicate the engine over; only 1 is "
-                   "ported.")
+                   help="Cards to replicate the engine over, one "
+                   "replica a card.")
     p.add_argument("--max_queue_frames", type=int, default=None,
                    help="Admission watermark: queued frames beyond this "
                    "shed with 503 + Retry-After (default 8 batches).")

@@ -18,6 +18,20 @@ Numerics follow the flax model, not ``torch.nn`` defaults:
   ``E[x^2] - E[x]^2`` (``torch.nn.BatchNorm2d`` would use momentum 0.1 on
   the new value and the unbiased variance).
 
+Inside a process group (data parallelism, ``parallel/``) train-mode batch
+norm takes its statistics over the GLOBAL batch, as flax's does when the
+batch axis is sharded (``_GlobalBatchNorm``): each rank sums its rows'
+fp32 ``x`` and ``x^2``, one all-reduce (``parallel/collectives.py``) adds
+them over the ranks, and the rank normalises with the global mean and
+biased variance ``E[x^2] - E[x]^2`` (flax's formula); the running
+statistics take the global values. The backward is written out in the
+stable form ``w / sigma * (dy - mean(dy) - xhat * mean(dy * xhat))`` (the
+one ``F.batch_norm``'s backward uses) with the two means global, one
+all-reduce: differentiating through the sums instead would cancel two
+terms of size ``mean / sigma`` in fp32, a per-channel error large enough
+to move a conv's gradient by several percent where a channel's mean is
+far from 0. Outside a group nothing of this runs.
+
 An EMA shadow runs train-mode BN without writing its running statistics
 (``freeze_running_stats_``): it normalises with the batch's statistics, and
 its own statistics move only through the EMA blend, as the JAX package
@@ -36,6 +50,13 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from denoising_diffusion_deep_fake_tpu_torch.parallel.collectives import (
+    all_reduce_,
+)
+from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
+    training_mesh,
+)
 
 
 class ResNetSpec(NamedTuple):
@@ -96,6 +117,8 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if torch.distributed.is_initialized():
+            return self._global_forward(x)
         if self.update_running_stats:
             with torch.no_grad():
                 xf = x.detach().to(torch.float32)
@@ -107,6 +130,61 @@ class BatchNorm2d(nn.Module):
                 self.running_var.mul_(m).add_((1.0 - m) * var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train-mode BN over the global batch of a process group (the
+        module docstring); every rank has as many rows."""
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                              self.eps, training_mesh())
+        if self.update_running_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1.0 - m) * mean)
+                self.running_var.mul_(m).add_((1.0 - m) * var)
+        return y
+
+
+def _per_channel(v: torch.Tensor) -> torch.Tensor:
+    return v[None, :, None, None]
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """``(y, mean, var)`` of train-mode batch norm over the ranks' rows
+    together, in fp32 (float64 for a float64 ``x``); ``mean`` and ``var``
+    (the global statistics) carry no
+    gradient. The weight's and bias's gradients are this rank's sums: the
+    gradient average (``all_reduce_grads_``) makes them the global
+    ones."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, mesh):
+        c = x.shape[1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = xf.numel() // c * mesh.world
+        sums = all_reduce_(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                      xf.square().sum(dim=(0, 2, 3))]), mesh)
+        mean = sums[:c] / count
+        var = (sums[c:] / count - mean.square()).clamp_min(0.0)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - _per_channel(mean)) * _per_channel(invstd)
+        y = xhat * _per_channel(weight) + _per_channel(bias)
+        ctx.save_for_backward(xhat, invstd, weight)
+        ctx.mesh, ctx.count = mesh, count
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        xhat, invstd, weight = ctx.saved_tensors
+        c = xhat.shape[1]
+        dyf = dy.to(xhat.dtype)
+        local = torch.cat([dyf.sum(dim=(0, 2, 3)),
+                           (dyf * xhat).sum(dim=(0, 2, 3))])
+        grad_bias, grad_weight = local[:c], local[c:]
+        sums = all_reduce_(local.clone(), ctx.mesh) / ctx.count
+        dx = _per_channel(weight * invstd) * (
+            dyf - _per_channel(sums[:c]) - xhat * _per_channel(sums[c:]))
+        return dx.to(dy.dtype), grad_weight, grad_bias, None, None
 
 
 def freeze_running_stats_(model: nn.Module) -> nn.Module:

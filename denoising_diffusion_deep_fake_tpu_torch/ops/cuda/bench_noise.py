@@ -281,7 +281,7 @@ def sweep(names: list[str], dev) -> dict:
                            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                            ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
                            ctypes.c_ulonglong, ctypes.c_ulonglong,
-                           ctypes.c_void_p]
+                           ctypes.c_ulonglong, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             row = {"ptxas": _build.ptxas_summary(
                 report, "normalise_noise_blend_u8_kernelILi3")}
@@ -291,7 +291,7 @@ def sweep(names: list[str], dev) -> dict:
                 def launch():
                     err = fn(2, u8.data_ptr(), out.data_ptr(), u8.numel(),
                              448 * 448 * 3, 3, ratios.data_ptr(), c_norm,
-                             SEED, OFFSET,
+                             SEED, OFFSET, 0,
                              torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"launch failed: CUDA error {err}")

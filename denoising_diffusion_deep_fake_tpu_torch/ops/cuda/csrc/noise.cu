@@ -23,6 +23,15 @@
 // alone, not on the launch geometry, so the plain PyTorch version
 // (noise_kernel.py) reproduces it.
 //
+// The element index is global: a launch takes `element_base`, the flat
+// index of its first element in a larger batch (a data-parallel rank's
+// rows start at rank * lb * H * W * C), so a rank draws the noise its rows
+// get in the one-process step. A thread owns one global group; where the
+// base is not a multiple of 4, the launch's first group is shared with the
+// rows before it, and its lanes below the base are skipped (so are the
+// vector accesses: the pointers are then off a group's alignment). At
+// base 0 every launch is what it was without one.
+//
 // Rounding: every fp32 operation rounds on its own (the __f*_rn intrinsics,
 // and the file is built with -fmad=false), as PyTorch's elementwise ops do,
 // and logf / sincosf / sqrtf are CUDA's accurate versions (no fast math).
@@ -90,6 +99,8 @@ struct BlendParams {
   int vec;                // pointers aligned for one vector access a group
   unsigned long long offset;
   const long long* offset_at;  // the offset on the device (AT kernels)
+  unsigned long long gbase;    // element_base / 4: the first global group
+  int shift;                   // element_base % 4: lanes of group 0 skipped
   uint32_t k0, k1;        // seed words
   const float* ratios;    // (B,)
   float mean255[MAX_C];
@@ -154,11 +165,14 @@ __global__ void __launch_bounds__(THREADS)
 noise_blend_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
                        BlendParams p) {
   const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const long long i0 = 4 * g;
+  // Local index of the group's lane 0: below 0 for the lanes of a shared
+  // first group that belong to the rows before the launch's.
+  const long long i0 = 4 * g - p.shift;
   if (i0 >= p.n) return;
-  const float4 e4 = normals4((unsigned long long)g, stream_offset<AT>(p), p);
+  const float4 e4 = normals4(p.gbase + (unsigned long long)g,
+                             stream_offset<AT>(p), p);
   const float eps[4] = {e4.x, e4.y, e4.z, e4.w};
-  const bool full = i0 + 4 <= p.n;
+  const bool full = i0 >= 0 && i0 + 4 <= p.n;
 
   float v[4];
   if (p.vec && full) {
@@ -166,17 +180,20 @@ noise_blend_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
     v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
   } else {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) v[k] = i0 + k < p.n ? x[i0 + k] : 0.f;
+    for (int k = 0; k < 4; ++k)
+      v[k] = i0 + k >= 0 && i0 + k < p.n ? x[i0 + k] : 0.f;
   }
 
-  // Sample of the first element; the next three follow on.
-  long long b = i0 / p.per_sample;
-  long long rem = i0 - b * p.per_sample;
+  // Sample of the first element in the launch; the next follow on.
+  const long long first = i0 < 0 ? 0 : i0;
+  long long b = first / p.per_sample;
+  long long rem = first - b * p.per_sample;
   float r[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    r[k] = i0 + k < p.n ? p.ratios[b] : 0.f;
-    if (++rem == p.per_sample) {
+    const bool ok = i0 + k >= 0 && i0 + k < p.n;
+    r[k] = ok ? p.ratios[b] : 0.f;
+    if (ok && ++rem == p.per_sample) {
       rem = 0;
       ++b;
     }
@@ -190,7 +207,7 @@ noise_blend_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
   } else {
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      if (i0 + k < p.n) out[i0 + k] = o[k];
+      if (i0 + k >= 0 && i0 + k < p.n) out[i0 + k] = o[k];
   }
 }
 
@@ -204,13 +221,17 @@ __device__ __noinline__ float2 sample_factors(const float* ratios, uint32_t i,
 }
 
 // out = sqrt(1 - r[b]) * table[c][x] + sqrt(r[b]) * eps over a uint8 batch
-// of C channels; n < 2^31 (the host checks it).
+// of C channels; n < 2^31 (the host checks it). Group g of the launch is
+// global group gbase + g, whose lane 0 is local element 4 g - shift: in
+// 32-bit arithmetic the skipped lanes of group 0 wrap to 2^32 - 3 or above,
+// past any n, so the one test `i < n` skips them.
 template <int C, bool AT>
 __global__ void __launch_bounds__(U8_THREADS, 65536 / (64 * U8_THREADS))
 normalise_noise_blend_u8_kernel(const uint8_t* __restrict__ x,
                                 float* __restrict__ out, BlendParams p) {
   __shared__ float table[C][256];
   const uint32_t n = (uint32_t)p.n, per_sample = (uint32_t)p.per_sample;
+  const uint32_t shift = (uint32_t)p.shift;
   const uint32_t first = blockIdx.x * (U8_GROUPS * U8_THREADS);
   const uint32_t g0 = first + threadIdx.x;
 
@@ -218,7 +239,7 @@ normalise_noise_blend_u8_kernel(const uint8_t* __restrict__ x,
   uint32_t bytes[U8_GROUPS];
 #pragma unroll
   for (int j = 0; j < U8_GROUPS; ++j) {
-    const uint32_t i0 = 4 * (g0 + j * U8_THREADS);
+    const uint32_t i0 = 4 * (g0 + j * U8_THREADS) - shift;
     if (p.vec && i0 + 4 <= n) {
       bytes[j] = *reinterpret_cast<const uint32_t*>(x + i0);
     } else {
@@ -229,8 +250,8 @@ normalise_noise_blend_u8_kernel(const uint8_t* __restrict__ x,
     }
   }
   // One ratio for the block unless its elements straddle samples.
-  const uint32_t lo = 4 * first;
-  const uint32_t hi = min(n, lo + 4 * U8_GROUPS * U8_THREADS) - 1;
+  const uint32_t lo = first == 0 ? 0 : 4 * first - shift;
+  const uint32_t hi = min(n, 4 * (first + U8_GROUPS * U8_THREADS) - shift) - 1;
   const uint32_t b = lo / per_sample;
   const bool one_sample = hi - b * per_sample < per_sample;
   const float r = p.ratios[b];
@@ -247,11 +268,12 @@ normalise_noise_blend_u8_kernel(const uint8_t* __restrict__ x,
 #pragma unroll
   for (int j = 0; j < U8_GROUPS; ++j) {
     const uint32_t g = g0 + j * U8_THREADS;
-    const uint32_t i0 = 4 * g;
-    if (i0 >= n) break;
-    const float4 e4 = normals4(g, offset, p);
+    const uint32_t i0 = 4 * g - shift;
+    if (4 * g >= n + shift) break;
+    const float4 e4 = normals4(p.gbase + g, offset, p);
     const float eps[4] = {e4.x, e4.y, e4.z, e4.w};
-    const int c0 = (int)(i0 % C);
+    // i0 + 4C wraps a skipped lane 0 back to its channel below the launch.
+    const int c0 = (int)((i0 + 4u * C) % C);
     float o[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -280,17 +302,18 @@ void launch_u8(long long groups, const uint8_t* x, float* out,
                                                                      p);
 }
 
-// Debug entry: the raw Philox words of groups 0 .. groups - 1, the offset
-// by value or (AT) from the device.
+// Debug entry: the raw Philox words of groups group_base .. group_base +
+// groups - 1, the offset by value or (AT) from the device.
 template <bool AT>
 __global__ void __launch_bounds__(THREADS)
 philox_words_kernel(uint4* __restrict__ out, long long groups,
-                    unsigned long long offset, const long long* offset_at,
-                    uint32_t k0, uint32_t k1) {
+                    unsigned long long group_base, unsigned long long offset,
+                    const long long* offset_at, uint32_t k0, uint32_t k1) {
   const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
   const unsigned long long o =
       AT ? (unsigned long long)*offset_at : offset;
-  if (g < groups) out[g] = philox4x32_10((unsigned long long)g, o, k0, k1);
+  if (g < groups)
+    out[g] = philox4x32_10(group_base + (unsigned long long)g, o, k0, k1);
 }
 
 unsigned grid_for(long long groups) {
@@ -319,7 +342,7 @@ int noise_blend(int in_kind, const void* x, float* out, long long n,
                 long long per_sample, int chans, const float* ratios,
                 const float* norm, unsigned long long seed,
                 unsigned long long offset, const long long* offset_at,
-                void* stream) {
+                unsigned long long element_base, void* stream) {
   if (n <= 0 || per_sample <= 0 || n % per_sample || chans <= 0 ||
       per_sample % chans || chans > MAX_C)
     return (int)cudaErrorInvalidValue;
@@ -327,7 +350,8 @@ int noise_blend(int in_kind, const void* x, float* out, long long n,
     return (int)cudaErrorInvalidValue;
   if (in_kind != KIND_U8 && in_kind != KIND_F32)
     return (int)cudaErrorInvalidValue;
-  const long long groups = (n + 3) / 4;
+  const int shift = (int)(element_base & 3);
+  const long long groups = (n + shift + 3) / 4;
   if (groups > (long long)THREADS * 0x7FFFFFFFLL ||
       (in_kind == KIND_U8 && n > U8_MAX_N))
     return (int)cudaErrorInvalidValue;
@@ -337,9 +361,12 @@ int noise_blend(int in_kind, const void* x, float* out, long long n,
   p.n = n;
   p.per_sample = per_sample;
   const size_t in_align = in_kind == KIND_U8 ? 4 : 16;
-  p.vec = (uintptr_t)x % in_align == 0 && (uintptr_t)out % 16 == 0;
+  p.vec = shift == 0 && (uintptr_t)x % in_align == 0 &&
+          (uintptr_t)out % 16 == 0;
   p.offset = offset;
   p.offset_at = offset_at;
+  p.gbase = element_base >> 2;
+  p.shift = shift;
   p.k0 = (uint32_t)seed;
   p.k1 = (uint32_t)(seed >> 32);
   p.ratios = ratios;
@@ -357,7 +384,7 @@ int noise_blend(int in_kind, const void* x, float* out, long long n,
 
 int philox_words(uint32_t* out, long long groups, unsigned long long seed,
                  unsigned long long offset, const long long* offset_at,
-                 void* stream) {
+                 unsigned long long group_base, void* stream) {
   if (groups <= 0 || groups > (long long)THREADS * 0x7FFFFFFFLL ||
       (uintptr_t)out % 16 || (offset_at && (uintptr_t)offset_at % 8))
     return (int)cudaErrorInvalidValue;
@@ -366,27 +393,30 @@ int philox_words(uint32_t* out, long long groups, unsigned long long seed,
   const uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
   if (offset_at)
     philox_words_kernel<true><<<grid_for(groups), THREADS, 0, s>>>(
-        o, groups, 0, offset_at, k0, k1);
+        o, groups, group_base, 0, offset_at, k0, k1);
   else
     philox_words_kernel<false><<<grid_for(groups), THREADS, 0, s>>>(
-        o, groups, offset, nullptr, k0, k1);
+        o, groups, group_base, offset, nullptr, k0, k1);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // One blend over a contiguous (B, H, W, C) batch of n = B * per_sample
-// elements. in_kind 2 (uint8) needs `norm`, a host array of 2 * chans
-// floats (mean*255 then std*255), and n < 2^31; in_kind 0 (fp32) takes
-// NULL. `ratios` is a device array of B floats. Returns 0 or the CUDA error
-// of the launch; refuses before any launch what the kernels cannot take.
+// elements, the first of which is element `element_base` of the stream.
+// in_kind 2 (uint8) needs `norm`, a host array of 2 * chans floats
+// (mean*255 then std*255), and n < 2^31; in_kind 0 (fp32) takes NULL.
+// `ratios` is a device array of B floats. Returns 0 or the CUDA error of
+// the launch; refuses before any launch what the kernels cannot take.
 extern "C" int d3f_noise_blend(int in_kind, const void* x, float* out,
                                long long n, long long per_sample, int chans,
                                const float* ratios, const float* norm,
                                unsigned long long seed,
-                               unsigned long long offset, void* stream) {
+                               unsigned long long offset,
+                               unsigned long long element_base,
+                               void* stream) {
   return noise_blend(in_kind, x, out, n, per_sample, chans, ratios, norm,
-                     seed, offset, nullptr, stream);
+                     seed, offset, nullptr, element_base, stream);
 }
 
 // The same blend with the offset read by the kernel from `offset_at`, an
@@ -396,23 +426,31 @@ extern "C" int d3f_noise_blend_at(int in_kind, const void* x, float* out,
                                   long long n, long long per_sample,
                                   int chans, const float* ratios,
                                   const float* norm, unsigned long long seed,
-                                  const long long* offset_at, void* stream) {
+                                  const long long* offset_at,
+                                  unsigned long long element_base,
+                                  void* stream) {
   if (!offset_at) return (int)cudaErrorInvalidValue;
   return noise_blend(in_kind, x, out, n, per_sample, chans, ratios, norm,
-                     seed, 0, offset_at, stream);
+                     seed, 0, offset_at, element_base, stream);
 }
 
-// The Philox words of groups 0 .. groups - 1 into `out` (4 * groups uint32).
+// The Philox words of groups group_base .. group_base + groups - 1 into
+// `out` (4 * groups uint32).
 extern "C" int d3f_philox_words(uint32_t* out, long long groups,
                                 unsigned long long seed,
-                                unsigned long long offset, void* stream) {
-  return philox_words(out, groups, seed, offset, nullptr, stream);
+                                unsigned long long offset,
+                                unsigned long long group_base,
+                                void* stream) {
+  return philox_words(out, groups, seed, offset, nullptr, group_base,
+                      stream);
 }
 
 // The same with the offset read from the device int64 `offset_at`.
 extern "C" int d3f_philox_words_at(uint32_t* out, long long groups,
                                    unsigned long long seed,
-                                   const long long* offset_at, void* stream) {
+                                   const long long* offset_at,
+                                   unsigned long long group_base,
+                                   void* stream) {
   if (!offset_at) return (int)cudaErrorInvalidValue;
-  return philox_words(out, groups, seed, 0, offset_at, stream);
+  return philox_words(out, groups, seed, 0, offset_at, group_base, stream);
 }

@@ -24,6 +24,13 @@ reads it when the kernel runs: a train step inside a CUDA graph
 (``training/multi_step.py``) takes its offset from a table the graph is
 replayed from, where a value passed by launch would be frozen at capture. A
 CPU tensor is read as an int. Both forms draw the same words.
+
+``element_base`` is the flat index of the batch's first element in a
+larger batch (0 by default): a data-parallel rank passes ``rank * lb * H *
+W * C`` and draws the noise of its own rows of the global batch, the noise
+the one-process step gives them (``parallel/mesh.py``). The base need not
+be a multiple of 4: the kernels and the plain versions then start inside
+a Philox group.
 """
 
 from __future__ import annotations
@@ -109,10 +116,11 @@ def _host_offset(offset) -> int:
     return int(offset) & _MASK64
 
 
-def philox_words_plain(n_groups: int, *, seed: int, offset,
-                       device) -> torch.Tensor:
-    """``(n_groups, 4)`` int64: the words of groups ``0 .. n_groups - 1``."""
-    g = torch.arange(n_groups, dtype=torch.int64, device=device)
+def philox_words_plain(n_groups: int, *, seed: int, offset, device,
+                       group_base: int = 0) -> torch.Tensor:
+    """``(n_groups, 4)`` int64: the words of groups ``group_base ..
+    group_base + n_groups - 1``."""
+    g = torch.arange(n_groups, dtype=torch.int64, device=device) + group_base
     offset = _host_offset(offset)
     zeros = torch.zeros_like(g)
     counter = (g & _MASK32, g >> 32, zeros + (offset & _MASK32),
@@ -120,15 +128,15 @@ def philox_words_plain(n_groups: int, *, seed: int, offset,
     return torch.stack(philox4x32_10(counter, _key(seed)), dim=1)
 
 
-def philox_words(n_groups: int, *, seed: int, offset,
-                 device) -> torch.Tensor:
+def philox_words(n_groups: int, *, seed: int, offset, device,
+                 group_base: int = 0) -> torch.Tensor:
     """The same words from the kernel's generator (a debug entry of
     ``csrc/noise.cu``, in the form the offset asks for) for a CUDA
     ``device``; the plain version otherwise."""
     device = torch.device(device)
     if device.type == "cpu":
         return philox_words_plain(n_groups, seed=seed, offset=offset,
-                                  device=device)
+                                  device=device, group_base=group_base)
     _require_cuda(device)
     out = torch.empty((n_groups, 4), dtype=torch.int32, device=device)
     lib = _noise_lib()
@@ -137,11 +145,11 @@ def philox_words(n_groups: int, *, seed: int, offset,
     if at is None:
         err = lib.d3f_philox_words(out.data_ptr(), n_groups,
                                    int(seed) & _MASK64, _host_offset(offset),
-                                   stream)
+                                   _base(group_base), stream)
     else:
         err = lib.d3f_philox_words_at(out.data_ptr(), n_groups,
                                       int(seed) & _MASK64, at.data_ptr(),
-                                      stream)
+                                      _base(group_base), stream)
     if err != 0:
         raise RuntimeError(f"philox words kernel launch failed: CUDA error "
                            f"{err}")
@@ -153,16 +161,26 @@ def uniforms_from_words(words: torch.Tensor) -> torch.Tensor:
     return (words >> 8).to(torch.float32) * 2.0 ** -24 + 2.0 ** -25
 
 
-def normal_plain(n: int, *, seed: int, offset, device) -> torch.Tensor:
-    """``(n,)`` fp32 standard normals of elements ``0 .. n - 1``: Box-Muller
-    pairs ``sqrt(-2 ln u0) (cos 2 pi u1, sin 2 pi u1)`` and the same of
-    ``(u2, u3)`` for each group of four."""
+def _base(element_base: int) -> int:
+    base = int(element_base)
+    if base < 0:
+        raise ValueError(f"element_base must be >= 0, got {base}")
+    return base
+
+
+def normal_plain(n: int, *, seed: int, offset, device,
+                 element_base: int = 0) -> torch.Tensor:
+    """``(n,)`` fp32 standard normals of elements ``element_base ..
+    element_base + n - 1``: Box-Muller pairs ``sqrt(-2 ln u0) (cos 2 pi u1,
+    sin 2 pi u1)`` and the same of ``(u2, u3)`` for each group of four."""
+    shift = _base(element_base) % 4
     u = uniforms_from_words(philox_words_plain(
-        (n + 3) // 4, seed=seed, offset=offset, device=device))
+        (shift + n + 3) // 4, seed=seed, offset=offset, device=device,
+        group_base=element_base // 4))
     rad = torch.sqrt(torch.log(u[:, 0::2]) * -2.0)
     theta = u[:, 1::2] * TWO_PI
     eps = torch.stack([rad * torch.cos(theta), rad * torch.sin(theta)], -1)
-    return eps.reshape(-1)[:n]
+    return eps.reshape(-1)[shift:shift + n]
 
 
 def _blend(x: torch.Tensor, eps: torch.Tensor, ratios: torch.Tensor
@@ -174,34 +192,39 @@ def _blend(x: torch.Tensor, eps: torch.Tensor, ratios: torch.Tensor
 
 
 def _noise_like(x: torch.Tensor, seed: int, offset,
-                noise: torch.Tensor | None) -> torch.Tensor:
+                noise: torch.Tensor | None,
+                element_base: int = 0) -> torch.Tensor:
     if noise is not None:
         return noise.to(torch.float32)
-    return normal_plain(x.numel(), seed=seed, offset=offset,
-                        device=x.device).reshape(x.shape)
+    return normal_plain(x.numel(), seed=seed, offset=offset, device=x.device,
+                        element_base=element_base).reshape(x.shape)
 
 
 def fused_normalise_noise_blend_plain(batch_u8: torch.Tensor,
                                       ratios: torch.Tensor,
                                       norm: list[float], *, seed: int,
                                       offset=0,
-                                      noise: torch.Tensor | None = None
+                                      noise: torch.Tensor | None = None,
+                                      element_base: int = 0
                                       ) -> torch.Tensor:
     """Plain version: normalise (a true division), then blend with
-    ``noise`` or with the kernel's stream of ``(seed, offset)``."""
+    ``noise`` or with the kernel's stream of ``(seed, offset)`` from
+    element ``element_base`` on."""
     c = batch_u8.shape[-1]
     m255 = torch.tensor(norm[:c], dtype=torch.float32, device=batch_u8.device)
     s255 = torch.tensor(norm[c:], dtype=torch.float32, device=batch_u8.device)
     x = (batch_u8.to(torch.float32) - m255) / s255
-    return _blend(x, _noise_like(x, seed, offset, noise), ratios)
+    return _blend(x, _noise_like(x, seed, offset, noise, element_base),
+                  ratios)
 
 
 def fused_noise_blend_plain(x: torch.Tensor, ratios: torch.Tensor, *,
                             seed: int, offset=0,
-                            noise: torch.Tensor | None = None
-                            ) -> torch.Tensor:
+                            noise: torch.Tensor | None = None,
+                            element_base: int = 0) -> torch.Tensor:
     """Plain version of the fp32 blend."""
-    return _blend(x, _noise_like(x, seed, offset, noise), ratios)
+    return _blend(x, _noise_like(x, seed, offset, noise, element_base),
+                  ratios)
 
 
 def _noise_lib() -> ctypes.CDLL:
@@ -211,11 +234,12 @@ def _noise_lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
-            ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_void_p]
+            ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_ulonglong,
+            ctypes.c_void_p]
         lib.d3f_noise_blend.restype = ctypes.c_int
         lib.d3f_philox_words.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong,
-            ctypes.c_ulonglong, ctypes.c_void_p]
+            ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_void_p]
         lib.d3f_philox_words.restype = ctypes.c_int
         # The device-offset forms: the offset argument is a device pointer.
         at_args = list(lib.d3f_noise_blend.argtypes)
@@ -224,7 +248,7 @@ def _noise_lib() -> ctypes.CDLL:
         lib.d3f_noise_blend_at.restype = ctypes.c_int
         lib.d3f_philox_words_at.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong,
-            ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p]
         lib.d3f_philox_words_at.restype = ctypes.c_int
     return lib
 
@@ -236,7 +260,8 @@ def _require_cuda(*devices) -> None:
 
 
 def launch_blend(x: torch.Tensor, out: torch.Tensor, ratios: torch.Tensor,
-                 norm: list[float] | None, *, seed: int, offset) -> None:
+                 norm: list[float] | None, *, seed: int, offset,
+                 element_base: int = 0) -> None:
     """Launch one blend of ``csrc/noise.cu`` on the current stream from
     ``x`` (uint8 with ``norm``, at most ``U8_MAX_ELEMENTS`` elements, or
     fp32 without) into the contiguous fp32 ``out`` of the same shape; an
@@ -273,6 +298,7 @@ def launch_blend(x: torch.Tensor, out: torch.Tensor, ratios: torch.Tensor,
                else (lib.d3f_noise_blend_at, at.data_ptr()))
     err = fn(kind, x.data_ptr(), out.data_ptr(), x.numel(), h * w * c, c,
              r.data_ptr(), c_norm, int(seed) & _MASK64, off,
+             _base(element_base),
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"noise blend kernel launch failed: CUDA error "
@@ -280,47 +306,54 @@ def launch_blend(x: torch.Tensor, out: torch.Tensor, ratios: torch.Tensor,
 
 
 def fused_normalise_noise_blend(batch_u8: torch.Tensor, ratios: torch.Tensor,
-                                mean, std, *, seed: int,
-                                offset=0) -> torch.Tensor:
+                                mean, std, *, seed: int, offset=0,
+                                element_base: int = 0) -> torch.Tensor:
     """Fused ``normalise -> + noise`` over a uint8 NHWC batch.
 
     ``ratios``: ``(B,)`` per-sample noise ratios in [0, 1]; ``mean``/``std``
     per channel (or one value) on the 0-1 scale; ``seed`` keys the random
-    stream and ``offset`` (the step) picks a disjoint part of it. Returns
-    the fp32 noisy batch.
+    stream and ``offset`` (the step) picks a disjoint part of it;
+    ``element_base`` places the batch in a larger one (module docstring).
+    Returns the fp32 noisy batch.
     """
     if batch_u8.dtype != torch.uint8:
         raise TypeError(f"expected uint8, got {batch_u8.dtype}")
     norm = noise_constants(mean, std, batch_u8.shape[-1])
     if batch_u8.device.type == "cpu":
-        return fused_normalise_noise_blend_plain(batch_u8, ratios, norm,
-                                                 seed=seed, offset=offset)
+        return fused_normalise_noise_blend_plain(
+            batch_u8, ratios, norm, seed=seed, offset=offset,
+            element_base=element_base)
     out = torch.empty(batch_u8.shape, dtype=torch.float32,
                       device=batch_u8.device)
-    launch_blend(batch_u8, out, ratios, norm, seed=seed, offset=offset)
+    launch_blend(batch_u8, out, ratios, norm, seed=seed, offset=offset,
+                 element_base=element_base)
     LAUNCHES["fused_normalise_noise_blend"] += 1
     return out
 
 
 def fused_noise_blend(x: torch.Tensor, ratios: torch.Tensor, *, seed: int,
-                      offset=0) -> torch.Tensor:
+                      offset=0, element_base: int = 0) -> torch.Tensor:
     """Fused VP noise blend of a normalised fp32 NHWC batch: the noise stage
     of ``blend_random_amount_of_noise`` with the noise drawn in the kernel
     (the ratios still come from the caller)."""
     if x.dtype != torch.float32:
         raise TypeError(f"expected float32, got {x.dtype}")
     if x.device.type == "cpu":
-        return fused_noise_blend_plain(x, ratios, seed=seed, offset=offset)
+        return fused_noise_blend_plain(x, ratios, seed=seed, offset=offset,
+                                       element_base=element_base)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    launch_blend(x, out, ratios, None, seed=seed, offset=offset)
+    launch_blend(x, out, ratios, None, seed=seed, offset=offset,
+                 element_base=element_base)
     LAUNCHES["fused_noise_blend"] += 1
     return out
 
 
 def fused_noise_for_balance(batch_u8: torch.Tensor, ratio: float, mean, std,
-                            seed: int, offset=0) -> torch.Tensor:
+                            seed: int, offset=0,
+                            element_base: int = 0) -> torch.Tensor:
     """Balance-workload wrapper: one fixed ratio for the whole batch."""
     ratios = torch.full((batch_u8.shape[0],), ratio, dtype=torch.float32,
                         device=batch_u8.device)
     return fused_normalise_noise_blend(batch_u8, ratios, mean, std,
-                                       seed=seed, offset=offset)
+                                       seed=seed, offset=offset,
+                                       element_base=element_base)

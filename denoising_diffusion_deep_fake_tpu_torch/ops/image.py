@@ -22,10 +22,11 @@ are NHWC (or HWC) RGB, as in the JAX package.
   upsample), in fp32 one operation at a time and rounded half to even
   before the uint8 cast, as the JAX package computes them; ``unpack_upload``
   at the top of a train step; ``pack_rgb_batch_to_i420_np`` and
-  ``unpack_i420_batch_to_rgb_np`` on the host. The JAX package's host
-  functions call cv2; the port's run the same functions on CPU tensors, so
-  the bits do not depend on what a machine has installed (cv2's converters
-  are within 1 LSB of the pack and 2 of the unpack).
+  ``unpack_i420_batch_to_rgb_np`` on the host: cv2's converters
+  (``COLOR_RGB2YUV_I420`` / ``COLOR_YUV2RGB_I420``) where cv2 imports, as
+  the JAX package's host functions call them, bit for bit; the device
+  functions on CPU tensors where it does not (within 1 LSB of cv2's pack
+  and 2 of its unpack).
 * ``resize_cubic``: ``cv2.resize(..., interpolation=cv2.INTER_CUBIC)`` of
   a uint8 frame, OpenCV's own fixed-point algorithm on CPU tensors, so a
   machine without cv2 resizes as one with it.
@@ -182,17 +183,43 @@ def _host_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a if a.flags.writeable else a.copy())
 
 
+def _cv2():
+    from denoising_diffusion_deep_fake_tpu_torch.data.codec import (
+        cv2_or_none)
+    return cv2_or_none()
+
+
 def pack_rgb_batch_to_i420_np(batch: np.ndarray) -> np.ndarray:
-    """Host (B, H, W, 3) RGB uint8 -> (B, H*3/2, W) uint8 i420:
-    ``rgb_to_i420`` on CPU tensors, so bit-equal to it."""
-    return rgb_to_i420(_host_tensor(batch)).numpy()
+    """Host (B, H, W, 3) RGB uint8 -> (B, H*3/2, W) uint8 i420: cv2's
+    ``COLOR_RGB2YUV_I420`` frame by frame where cv2 imports (the JAX
+    package's function), else ``rgb_to_i420`` on CPU tensors."""
+    cv2 = _cv2()
+    if cv2 is None:
+        return rgb_to_i420(_host_tensor(batch)).numpy()
+    b, h, w, _ = batch.shape
+    validate_i420_dims(h, w)
+    out = np.empty((b, h * 3 // 2, w), dtype=np.uint8)
+    for i in range(b):
+        out[i] = cv2.cvtColor(np.ascontiguousarray(batch[i]),
+                              cv2.COLOR_RGB2YUV_I420)
+    return out
 
 
 def unpack_i420_batch_to_rgb_np(packed: np.ndarray) -> np.ndarray:
-    """Host (B, H*3/2, W) uint8 i420 -> (B, H, W, 3) RGB uint8: ``i420_to_rgb``
-    on CPU tensors, rounded half to even."""
-    return torch.round(i420_to_rgb(_host_tensor(packed))).to(
-        torch.uint8).numpy()
+    """Host (B, H*3/2, W) uint8 i420 -> (B, H, W, 3) RGB uint8: cv2's
+    ``COLOR_YUV2RGB_I420`` frame by frame where cv2 imports (the JAX
+    package's function), else ``i420_to_rgb`` on CPU tensors, rounded half
+    to even."""
+    cv2 = _cv2()
+    if cv2 is None:
+        return torch.round(i420_to_rgb(_host_tensor(packed))).to(
+            torch.uint8).numpy()
+    b, h15, w = packed.shape
+    out = np.empty((b, h15 * 2 // 3, w, 3), dtype=np.uint8)
+    for i in range(b):
+        out[i] = cv2.cvtColor(np.ascontiguousarray(packed[i]),
+                              cv2.COLOR_YUV2RGB_I420)
+    return out
 
 
 # cv2.resize's INTER_CUBIC on uint8 (imgproc/src/resize.cpp): Keys' kernel

@@ -20,8 +20,15 @@ padding and the stats are the JAX engine's, unchanged:
 The dispatcher thread sets its CUDA device and enters inference mode
 itself: both are thread-local in PyTorch. The device wire format is
 ``rgb`` or ``i420`` (4:2:0-packed, half the bytes; ``swap()`` packs and
-unpacks on the request thread). One device only: replicas over several
-devices (ROADMAP A9) are not ported and are refused.
+unpacks on the request thread).
+
+``devices=n`` serves n replicas (JAX ``:161-164, :207-219``): one model
+copy, pipeline and dispatcher thread a device, ``cuda:0 .. n-1``, all
+pulling from the one request queue. With ``device="cpu"`` the replicas
+share the CPU (and its one model copy), standing in for JAX's virtual CPU
+devices. A single-pass swap gives the same frames whichever replica serves
+them; DDIM noise is keyed by the replica index too
+(``inference.make_device_pipeline``'s ``replica``).
 
 The engine is transport-agnostic; ``serving/server.py`` puts HTTP in front.
 """
@@ -36,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from denoising_diffusion_deep_fake_tpu_torch.device import resolve_device
 from denoising_diffusion_deep_fake_tpu_torch.inference import (
     load_swap_model,
     make_device_pipeline,
@@ -151,13 +159,31 @@ class _Request:
             return self._state
 
 
+def replica_devices(device, devices: int) -> list[torch.device]:
+    """The device of each of ``devices`` replicas: ``cuda:0 .. n-1`` on
+    the GPU (raising past the cards there are), the given device for one,
+    the CPU ``n`` times."""
+    dev = resolve_device(device)
+    if devices < 1:
+        raise ValueError(f"devices={devices}: need at least one replica")
+    if dev.type == "cuda":
+        available = torch.cuda.device_count()
+        if devices > available:
+            raise ValueError(f"devices={devices} but {available} CUDA "
+                             "device(s) are available")
+        if devices > 1:
+            return [torch.device("cuda", i) for i in range(devices)]
+    return [dev] * devices
+
+
 class SwapEngine:
     """Micro-batching inference engine over one loaded swap model.
 
     ``swap()`` accepts RGB uint8 arrays of shape (H, W, 3) or (N, H, W, 3)
     with N <= batch_size and blocks until the swapped frames return. Any
     number of threads may call it concurrently; their frames ride shared
-    device batches. The engine runs on ``cuda`` unless given ``device``.
+    device batches. The engine runs on ``cuda`` unless given ``device``,
+    with ``devices`` replicas (the module docstring).
     """
 
     def __init__(self, checkpoint_path, identity: str, *, height: int,
@@ -171,10 +197,7 @@ class SwapEngine:
                              f"got {transfer!r}")
         if transfer == "i420":
             validate_i420_dims(height, width)
-        if devices != 1:
-            raise ValueError(
-                f"devices={devices}: the engine serves from one device "
-                "(replicas over several are ROADMAP A9)")
+        replicas = replica_devices(device, devices)
         self.height, self.width = height, width
         self.batch_size = batch_size
         self.max_wait_s = max_wait_ms / 1000.0
@@ -183,7 +206,7 @@ class SwapEngine:
         self.transfer = transfer
         self.model = load_swap_model(checkpoint_path, identity,
                                      use_ema=use_ema, image_size=height,
-                                     device=device)
+                                     device=replicas[0])
         self._queue: queue.Queue = queue.Queue()
         self._stats = EngineStats()
         self._stats_lock = threading.Lock()
@@ -193,11 +216,11 @@ class SwapEngine:
         # this watermark, so a client burst beyond device throughput degrades
         # into clean 503-style shedding with bounded queueing delay instead of
         # unbounded queue growth + unbounded latency for every caller. The
-        # default (8 device batches) bounds queueing delay to
+        # default (8 device batches a replica) bounds queueing delay to
         # ~8x the device batch time. Must be >= the largest frame stack a
         # single call may carry, or that call can never be admitted.
         if max_queue_frames is None:
-            max_queue_frames = 8 * batch_size
+            max_queue_frames = 8 * batch_size * devices
         if max_queue_frames < batch_size:
             raise ValueError(
                 f"max_queue_frames={max_queue_frames} is below "
@@ -212,16 +235,25 @@ class SwapEngine:
         # per-call override via swap(..., deadline_ms=...).
         self.request_deadline_ms = request_deadline_ms or None
         self._queued_frames = 0  # guarded by _stats_lock
-        # One dispatcher thread over the request queue. The DDIM noise is
-        # keyed by (seed, batch index).
-        pipeline = make_device_pipeline(self.model,
-                                        sampler_steps=sampler_steps,
-                                        transfer=transfer, seed=seed)
-        # The parameters' device carries the CUDA index the dispatcher
-        # thread must select.
-        device = next(self.model.model.parameters()).device
-        self._dispatcher = _Dispatcher(self, pipeline, device)
-        self._dispatcher.thread.start()
+        # One dispatcher thread a replica over the shared request queue. The
+        # DDIM noise is keyed by (seed, replica, batch index).
+        self.devices = devices
+        models = {replicas[0]: self.model}
+        self._dispatchers = []
+        for i, dev in enumerate(replicas):
+            if dev not in models:
+                models[dev] = load_swap_model(
+                    checkpoint_path, identity, use_ema=use_ema,
+                    image_size=height, device=dev)
+            pipeline = make_device_pipeline(
+                models[dev], sampler_steps=sampler_steps, transfer=transfer,
+                seed=seed, replica=i)
+            # The parameters' device carries the CUDA index the dispatcher
+            # thread must select.
+            self._dispatchers.append(_Dispatcher(
+                self, pipeline, next(models[dev].model.parameters()).device))
+        for d in self._dispatchers:
+            d.thread.start()
 
     # ------------------------------------------------------------------ API
 
@@ -378,7 +410,7 @@ class SwapEngine:
         s = self._stats
         if not s.batches or not s.total_device_ms:
             return 1.0
-        frames_per_s = (self.batch_size
+        frames_per_s = (self.batch_size * self.devices
                         / (s.total_device_ms / s.batches / 1000.0))
         return max(0.1, backlog_frames / frames_per_s)
 
@@ -404,7 +436,7 @@ class SwapEngine:
                 raise RequestExpiredError(
                     "request deadline passed before the result was "
                     "delivered")
-            if not self._dispatcher.thread.is_alive():
+            if not any(d.thread.is_alive() for d in self._dispatchers):
                 raise RuntimeError("engine closed" if self._closed else
                                    "engine dispatcher stopped")
         if req.error is not None:
@@ -438,18 +470,20 @@ class SwapEngine:
                 "identity": self.identity,
                 "frame_shape": [self.height, self.width, 3],
                 "transfer": self.transfer,
+                "devices": self.devices,
             }
 
     def close(self) -> None:
         self._closed = True
-        self._queue.put(None)  # the dispatcher's stop signal
-        d = self._dispatcher
-        d.thread.join(timeout=5.0)
+        self._queue.put(None)  # _gather re-signals: one sentinel stops all
+        for d in self._dispatchers:
+            d.thread.join(timeout=5.0)
         # Fail any requests that raced past the shutdown sentinel.
-        if d.pending is not None:  # dispatcher joined; safe to read
-            d.pending.error = RuntimeError("engine closed")
-            d.pending.event.set()
-            d.pending = None
+        for d in self._dispatchers:  # dispatchers joined; safe to read
+            if d.pending is not None:
+                d.pending.error = RuntimeError("engine closed")
+                d.pending.event.set()
+                d.pending = None
         while True:
             try:
                 item = self._queue.get_nowait()
@@ -461,10 +495,10 @@ class SwapEngine:
 
 
 class _Dispatcher:
-    """The pipeline on its device + its batch-packing thread.
+    """One replica: the pipeline on its device + its batch-packing thread.
 
-    The holdover slot (``pending``) keeps a request that didn't fit the
-    current batch at the HEAD of the next one instead of re-queuing it
+    The holdover slot (``pending``) keeps a request that didn't fit this
+    replica's current batch at the HEAD of its next one instead of re-queuing it
     behind newer arrivals (which starves large requests under sustained
     load); it is touched only by this dispatcher's thread (and by
     ``close()`` after the join).
@@ -495,6 +529,7 @@ class _Dispatcher:
             else:
                 first = eng._queue.get()
                 if first is None:
+                    eng._queue.put(None)  # wake the other replicas
                     return None
                 eng._note_dequeued(first.frames.shape[0])
             if first.try_claim():

@@ -470,8 +470,8 @@ def run_server(checkpoint_path, identity: str, *, host: str = "0.0.0.0",
     device round-trip per engine, print each engine's stats JSON, return.
     Nothing listens, so it is safe on a host where the real server (or
     another validation) is already running. The engines run on ``cuda``
-    unless given ``device``; ``devices`` other than 1 is refused (ROADMAP
-    A9)."""
+    unless given ``device``, each with ``devices`` replicas (one a card,
+    ``serving/engine.py``)."""
     identities = ["a", "b"] if identity == "both" else [identity]
     engines = {}
     for name in identities:

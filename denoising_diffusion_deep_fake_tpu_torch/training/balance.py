@@ -38,6 +38,15 @@ with ``blend_fixed_amount_of_noise`` after ``normalise_batch``, as the JAX
 step composes it. ``with_images`` returns the denoiser's panels (JAX
 ``:113-121``).
 
+Data parallelism (``parallel/``, as in ``training/denoiser.py``): a
+rank's train batch is its rows of the global batch, its noise starts at
+its first global element (``element_base``), its drop masks are its
+columns of the global draw, batch norm is global, the gradients are
+averaged and the loss is the global mean. Scoring is replicated, as in
+JAX (``balance.py:185-226``): every rank scores the whole unsharded batch
+(eval-mode BN issues no collective), so every rank gets every image's
+loss.
+
 A train step is ``step_core`` at the offset ``step_scalars`` gives, then
 ``advance``; ``make_super_step`` runs K of them a call (``steps_per_call``,
 one CUDA graph on the card: ``training/multi_step.py``), the uint8 (or
@@ -49,10 +58,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from denoising_diffusion_deep_fake_tpu_torch.config import (
-    BalanceConfig,
-    refuse_unported,
-)
+from denoising_diffusion_deep_fake_tpu_torch.config import BalanceConfig
 from denoising_diffusion_deep_fake_tpu_torch.device import resolve_device
 from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
     normalise_batch,
@@ -67,6 +73,13 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.losses import (
 )
 from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
     blend_fixed_amount_of_noise,
+)
+from denoising_diffusion_deep_fake_tpu_torch.parallel.collectives import (
+    mean_metrics,
+)
+from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
+    shard_batch,
+    training_mesh,
 )
 from denoising_diffusion_deep_fake_tpu_torch.training.denoiser import panels
 from denoising_diffusion_deep_fake_tpu_torch.training.multi_step import (
@@ -83,7 +96,6 @@ from denoising_diffusion_deep_fake_tpu_torch.training.state import (
 )
 
 SCORE_STREAM = 1 << 32
-_UNPORTED = ("data_parallel", "spatial_parallel")
 
 
 def compute_difficulty_index(losses: np.ndarray,
@@ -112,7 +124,7 @@ class BalanceTrainer:
     def __init__(self, cfg: BalanceConfig, *, steps_per_epoch: int,
                  image_size: int, device=None):
         cfg.validate()
-        refuse_unported(cfg, _UNPORTED)
+        self.mesh = training_mesh(cfg.data_parallel, cfg.spatial_parallel)
         self.cfg = cfg
         self.image_size = image_size
         self.steps_per_epoch = steps_per_epoch
@@ -133,22 +145,27 @@ class BalanceTrainer:
         return create_model_state(self.cfg, self.dtype, self.device, seed)
 
     def _images(self, batch_u8: torch.Tensor, offset,
-                noise: torch.Tensor | None, upload_format: str = "rgb"):
+                noise: torch.Tensor | None, upload_format: str = "rgb",
+                rank: int = 0):
         """(clean normalised batch, noisy batch) of a uint8 batch in
-        ``upload_format``; ``offset`` an int or a device int64."""
+        ``upload_format``; ``offset`` an int or a device int64, the noise
+        that of rows ``rank * B ..`` of a global batch of such batches."""
         cfg = self.cfg
         batch = unpack_upload(batch_u8.to(self.device, non_blocking=True),
                               upload_format)
         image = normalise_batch(batch, cfg.mean, cfg.std)
+        element_base = rank * image.numel()
         if noise is None and batch.dtype == torch.uint8:
             noisy = fused_noise_for_balance(batch, cfg.ratio_of_noise,
                                             cfg.mean, cfg.std, cfg.seed,
-                                            offset=offset)
+                                            offset=offset,
+                                            element_base=element_base)
         elif noise is None:
             ratios = torch.full((batch.shape[0],), cfg.ratio_of_noise,
                                 dtype=torch.float32, device=self.device)
             noisy = fused_noise_blend(image, ratios, seed=cfg.seed,
-                                      offset=offset)
+                                      offset=offset,
+                                      element_base=element_base)
         else:
             noisy = blend_fixed_amount_of_noise(
                 image, cfg.ratio_of_noise, noise=noise.to(self.device))
@@ -184,17 +201,24 @@ class BalanceTrainer:
                   with_images: bool = False):
         """The update of ``train_step`` at its ``step_scalars``, the drop
         masks (if the encoder has any) from ``generator``; the host
-        counter is left alone."""
-        image, noisy = self._images(batch_u8, scalars["offset"], noise,
-                                    self.cfg.upload_format)
+        counter is left alone. ``noise`` and ``drop_masks`` are the global
+        batch's (the module docstring)."""
+        mesh = self.mesh
+        lb = batch_u8.shape[0]
+        image, noisy = self._images(batch_u8, scalars["offset"],
+                                    shard_batch(noise, mesh),
+                                    self.cfg.upload_format, mesh.rank)
         if drop_masks is None:
-            drop_masks = draw_drop_masks(self.drop_keep, image.shape[0],
+            drop_masks = draw_drop_masks(self.drop_keep, lb * mesh.data,
                                          generator)
         loss, pred = train_one_model(state, noisy, image,
-                                     drop_masks=drop_masks)
+                                     drop_masks=shard_batch(drop_masks, mesh,
+                                                            dim=1),
+                                     mesh=mesh)
+        metrics = mean_metrics({"loss": loss}, mesh)
         if with_images:
-            return {"loss": loss}, panels(image, noisy, pred)
-        return {"loss": loss}
+            return metrics, panels(image, noisy, pred)
+        return metrics
 
     def make_super_step(self, k: int):
         """``step(state, batch_0 .. batch_{k-1})``: K train steps a call

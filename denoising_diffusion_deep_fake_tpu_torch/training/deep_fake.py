@@ -40,6 +40,14 @@ jitter factors, the ratios and the noise of each identity, so a test can
 feed both frameworks the same numbers; given noise is blended with
 ``blend_noise``.
 
+Data parallelism (``parallel/``, as in ``training/denoiser.py``): each
+rank holds its rows of both global batches; the generator draws the
+global batches' affine params, jitter factors, ratios and drop masks in
+the order above and the rank keeps its rows; the noise kernel starts at
+the rank's first global element; batch norm, the shadows' train-mode
+forwards included, is global; the gradients are averaged and every metric
+is the global mean.
+
 ``with_images`` also returns the TensorBoard panels under the JAX tags
 (``:239-287`` there), each the step's own tensor through ``panel_grid_u8``:
 a uint8 3x3 grid made on the device.
@@ -55,14 +63,12 @@ from __future__ import annotations
 
 import torch
 
-from denoising_diffusion_deep_fake_tpu_torch.config import (
-    DeepFakeConfig,
-    refuse_unported,
-)
+from denoising_diffusion_deep_fake_tpu_torch.config import DeepFakeConfig
 from denoising_diffusion_deep_fake_tpu_torch.device import resolve_device
 from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
     AffineAugmentConfig,
     augment_batch,
+    sample_affine_params,
 )
 from denoising_diffusion_deep_fake_tpu_torch.ops.color import (
     ColorJitterConfig,
@@ -80,6 +86,13 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.losses import mse_loss
 from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
     blend_noise,
     sample_truncated_exponential,
+)
+from denoising_diffusion_deep_fake_tpu_torch.parallel.collectives import (
+    mean_metrics,
+)
+from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
+    shard_batch,
+    training_mesh,
 )
 from denoising_diffusion_deep_fake_tpu_torch.training.ema import (
     EmaConfig,
@@ -102,7 +115,6 @@ from denoising_diffusion_deep_fake_tpu_torch.training.state import (
 )
 
 IDENTITIES = ("a", "b")
-_UNPORTED = ("data_parallel", "spatial_parallel")
 
 
 def noise_offset(step: int, name: str) -> int:
@@ -116,7 +128,7 @@ class DeepFakeTrainer:
     def __init__(self, cfg: DeepFakeConfig, *, steps_per_epoch: int,
                  image_size: int, device=None):
         cfg.validate()
-        refuse_unported(cfg, _UNPORTED)
+        self.mesh = training_mesh(cfg.data_parallel, cfg.spatial_parallel)
         self.cfg = cfg
         self.image_size = image_size
         self.steps_per_epoch = steps_per_epoch
@@ -170,24 +182,30 @@ class DeepFakeTrainer:
 
     def _masks(self, name: str, b: int, drop_masks: dict | None,
                generator: torch.Generator) -> torch.Tensor | None:
-        """Identity ``name``'s gradient-forward drop masks: given, or drawn
-        just after its noise ratios (None for a family without)."""
+        """Identity ``name``'s gradient-forward drop masks, this rank's
+        columns of the global draw: given, or drawn just after its noise
+        ratios (None for a family without)."""
         if drop_masks is not None:
-            return drop_masks[name].to(self.device)
-        return draw_drop_masks(self.drop_keep, b, generator)
+            masks = drop_masks[name].to(self.device)
+        else:
+            masks = draw_drop_masks(self.drop_keep, b * self.mesh.data,
+                                    generator)
+        return shard_batch(masks, self.mesh, dim=1)
 
     def _noisy(self, x: torch.Tensor, name: str, offset, ratios, noise,
                generator: torch.Generator) -> torch.Tensor:
-        b = x.shape[0]
+        b, mesh = x.shape[0], self.mesh
         r = (ratios[name] if ratios is not None else
              sample_truncated_exponential(
-                 (b, 1, 1, 1), self.cfg.noise_exponential_sampling_lambda,
+                 (b * mesh.data, 1, 1, 1),
+                 self.cfg.noise_exponential_sampling_lambda,
                  generator=generator, device=self.device))
-        r = r.to(self.device)
+        r = shard_batch(r, mesh).to(self.device)
         if noise is None:
             return fused_noise_blend(x, r.reshape(b), seed=self.cfg.seed,
-                                     offset=offset)
-        return blend_noise(x, noise[name].to(self.device),
+                                     offset=offset,
+                                     element_base=mesh.rank * x.numel())
+        return blend_noise(x, shard_batch(noise[name], mesh).to(self.device),
                            r.reshape(b, 1, 1, 1))
 
     def train_step(self, states: dict[str, ModelState],
@@ -256,26 +274,29 @@ class DeepFakeTrainer:
         masks (an encoder with stochastic depth) are drawn after its noise
         ratios, for its gradient forward only: the shadows' fake forwards
         drop nothing (JAX ``deep_fake.py:135-148``)."""
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.mesh
         real = {}
         stats = {"a": (cfg.mean_a, cfg.std_a), "b": (cfg.mean_b, cfg.std_b)}
         for name, batch in (("a", batch_a_u8), ("b", batch_b_u8)):
             batch = unpack_upload(batch.to(self.device, non_blocking=True),
                                   cfg.upload_format)
+            params = (sample_affine_params(
+                batch.shape[0] * mesh.data, self.aug, generator=generator,
+                device=self.device) if affine_params is None
+                else affine_params[name])
             real[name] = augment_batch(
-                batch, *stats[name], self.aug, generator=generator,
-                params=None if affine_params is None else affine_params[name],
-                method=cfg.warp_method)
+                batch, *stats[name], self.aug,
+                params=shard_batch(params, mesh), method=cfg.warp_method)
         if self.jitter.enabled:
             # The real batches of both modes, not the shadows' fakes.
             for name in IDENTITIES:
                 params = (sample_color_jitter_params(
-                    generator, real[name].shape[0], self.jitter,
+                    generator, real[name].shape[0] * mesh.data, self.jitter,
                     device=self.device) if jitter_params is None
                     else jitter_params[name])
                 real[name] = color_jitter_normalised(
-                    real[name], {k: v.to(self.device)
-                                 for k, v in params.items()},
+                    real[name], {k: v.to(self.device) for k, v in
+                                 shard_batch(params, mesh).items()},
                     *stats[name])
 
         lrs = {"a": scalars["lr"], "b": scalars["lr_b"]}
@@ -288,7 +309,8 @@ class DeepFakeTrainer:
                 masks = self._masks(name, noisy.shape[0], drop_masks,
                                     generator)
                 loss, pred = train_one_model(states[name], noisy, real[name],
-                                             lrs[name], cfg.remat, masks)
+                                             lrs[name], cfg.remat, masks,
+                                             mesh)
                 metrics[f"loss_denoise/train_{name}"] = loss
                 if with_images:
                     panels[f"denoise_1_model_input/{name}"] = (
@@ -311,7 +333,8 @@ class DeepFakeTrainer:
                 masks = self._masks(name, noisy.shape[0], drop_masks,
                                     generator)
                 loss, pred = train_one_model(states[name], noisy, real[name],
-                                             lrs[name], cfg.remat, masks)
+                                             lrs[name], cfg.remat, masks,
+                                             mesh)
                 metrics[f"loss_swap/train_{name}"] = loss
                 if with_images:
                     panels.update({
@@ -320,6 +343,7 @@ class DeepFakeTrainer:
                         f"swap_3_model_input/{name}": panel_grid_u8(noisy),
                         f"swap_4_model_prediction/{name}": panel_grid_u8(
                             pred)})
+        metrics = mean_metrics(metrics, mesh)
         return (metrics, panels) if with_images else metrics
 
     def make_super_step(self, k: int):

@@ -37,6 +37,19 @@ host step counter (the learning rate, the noise offset), then ``advance``;
 ``make_super_step`` runs K of them a call (``steps_per_call``, one CUDA
 graph on the card: ``training/multi_step.py``).
 
+Data parallelism (``data_parallel: N`` as N processes, ``parallel/``): a
+rank's ``batch_u8`` is its ``batch_size // N`` rows of the global batch.
+Every rank's generator is seeded alike and draws the GLOBAL batch's affine
+params, jitter factors, ratios and drop masks, in the order above, and
+keeps its rows (``shard_batch``); the noise kernel starts at the rank's
+first global element (``element_base``); batch norm takes global
+statistics, the gradients are averaged and the loss is the global batch's
+mean. So the step is the one-process step of the global batch. Injected
+numbers are global arrays, cut the same way. The warp route stays
+``select_warp_method``'s at any world size: a rank-local kernel launch has
+none of the partitioning limits that make JAX route around Pallas with
+several devices.
+
 On the GPU the U-Net weights and activations are ``channels_last``: the
 warp writes NHWC and the model takes its NCHW view as it is. cuDNN's TF32
 is turned off (``torch.backends.cudnn.allow_tf32 = False``, a process-wide
@@ -49,14 +62,12 @@ from __future__ import annotations
 
 import torch
 
-from denoising_diffusion_deep_fake_tpu_torch.config import (
-    DenoiserConfig,
-    refuse_unported,
-)
+from denoising_diffusion_deep_fake_tpu_torch.config import DenoiserConfig
 from denoising_diffusion_deep_fake_tpu_torch.device import resolve_device
 from denoising_diffusion_deep_fake_tpu_torch.ops.augment import (
     AffineAugmentConfig,
     augment_batch,
+    sample_affine_params,
 )
 from denoising_diffusion_deep_fake_tpu_torch.ops.color import (
     ColorJitterConfig,
@@ -74,6 +85,13 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
     blend_noise,
     sample_truncated_exponential,
 )
+from denoising_diffusion_deep_fake_tpu_torch.parallel.collectives import (
+    mean_metrics,
+)
+from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
+    shard_batch,
+    training_mesh,
+)
 from denoising_diffusion_deep_fake_tpu_torch.training.multi_step import (
     make_super_step,
 )
@@ -90,16 +108,15 @@ from denoising_diffusion_deep_fake_tpu_torch.training.state import (
     train_one_model,
 )
 
-_UNPORTED = ("data_parallel", "spatial_parallel")
-
 
 class DenoiserTrainer:
-    """The denoiser's train step and eval forward on one device."""
+    """The denoiser's train step and eval forward on one device (a rank's,
+    in a process group)."""
 
     def __init__(self, cfg: DenoiserConfig, *, steps_per_epoch: int,
                  image_size: int, device=None):
         cfg.validate()
-        refuse_unported(cfg, _UNPORTED)
+        self.mesh = training_mesh(cfg.data_parallel, cfg.spatial_parallel)
         self.cfg = cfg
         self.image_size = image_size
         self.steps_per_epoch = steps_per_epoch
@@ -170,36 +187,47 @@ class DenoiserTrainer:
                   with_images: bool = False):
         """The update of ``train_step`` with its ``step_scalars`` and draws
         from ``generator``; the host counter is left alone. Returns
-        ``{"loss"}`` (and the panels ``with_images``)."""
-        cfg = self.cfg
+        ``{"loss"}`` (and the panels ``with_images``). The draws and the
+        injected numbers are the global batch's, of which this rank keeps
+        its rows (the module docstring)."""
+        cfg, mesh = self.cfg, self.mesh
         batch = unpack_upload(batch_u8.to(self.device, non_blocking=True),
                               cfg.upload_format)
         b = batch.shape[0]
+        gb = b * mesh.data
+        if affine_params is None:
+            affine_params = sample_affine_params(
+                gb, self.aug, generator=generator, device=self.device)
         image = augment_batch(batch, cfg.mean, cfg.std, self.aug,
-                              generator=generator, params=affine_params,
+                              params=shard_batch(affine_params, mesh),
                               method=cfg.warp_method)
         if self.jitter.enabled:
             if jitter_params is None:
                 jitter_params = sample_color_jitter_params(
-                    generator, b, self.jitter, device=self.device)
-            jitter_params = {k: v.to(self.device)
-                             for k, v in jitter_params.items()}
+                    generator, gb, self.jitter, device=self.device)
+            jitter_params = {k: v.to(self.device) for k, v in
+                             shard_batch(jitter_params, mesh).items()}
             image = color_jitter_normalised(image, jitter_params, cfg.mean,
                                             cfg.std)
         if ratios is None:
             ratios = sample_truncated_exponential(
-                (b, 1, 1, 1), cfg.noise_exponential_sampling_lambda,
+                (gb, 1, 1, 1), cfg.noise_exponential_sampling_lambda,
                 generator=generator, device=self.device)
+        ratios = shard_batch(ratios, mesh)
         if noise is None:
             noisy = fused_noise_blend(image, ratios.reshape(b), seed=cfg.seed,
-                                      offset=scalars["offset"])
+                                      offset=scalars["offset"],
+                                      element_base=mesh.rank * image.numel())
         else:
-            noisy = blend_noise(image, noise, ratios.reshape(b, 1, 1, 1))
+            noisy = blend_noise(image, shard_batch(noise, mesh),
+                                ratios.reshape(b, 1, 1, 1))
         if drop_masks is None:
-            drop_masks = draw_drop_masks(self.drop_keep, b, generator)
+            drop_masks = draw_drop_masks(self.drop_keep, gb, generator)
         loss, pred = train_one_model(state, noisy, image, scalars["lr"],
-                                     cfg.remat, drop_masks)
-        metrics = {"loss": loss}
+                                     cfg.remat,
+                                     shard_batch(drop_masks, mesh, dim=1),
+                                     mesh)
+        metrics = mean_metrics({"loss": loss}, mesh)
         if with_images:
             return metrics, panels(image, noisy, pred)
         return metrics

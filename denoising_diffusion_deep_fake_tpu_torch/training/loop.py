@@ -1,7 +1,7 @@
 """The services every workload loop needs: logging, checkpoints, guards.
 
 Port of ``denoising_diffusion_deep_fake_tpu/training/loop.py:29-422``, the
-parts of ``pl.Trainer`` the reference leaned on, on one process:
+parts of ``pl.Trainer`` the reference leaned on:
 
 * metrics are queued as device scalars, or for a K-step group
   (``log_step(..., n_steps=K)``, ``training/multi_step.py``) as ``(K,)``
@@ -20,9 +20,18 @@ parts of ``pl.Trainer`` the reference leaned on, on one process:
 * ``PreemptionGuard`` turns SIGTERM into a flag the runners check after
   every step: they save and stop.
 
-The JAX package's multi-process branches (the lockstep metric check, the
-allgather in ``preempted`` and the broadcast in ``want_images``) wait for
-ROADMAP A9.
+In a process group (data parallelism, ``parallel/``) every rank runs the
+loop in lockstep, as JAX's multi-process branches (``:124-190``) keep it:
+
+* the metric check is synchronous: ``log_step`` fetches the step's
+  metrics (the global batch's means, the same on every rank) and the
+  ranks all-gather whether any found a non-finite one, so all raise at the
+  same step instead of one leaving its peers blocked in a collective;
+* ``preempted`` all-gathers the SIGTERM flags every 10 calls and every
+  rank stops at the same boundary;
+* ``want_images`` is rank 0's answer, broadcast: it picks the call (an
+  image step or a K-step group), which must be the same on every rank;
+* only the primary writes event files, panels and checkpoints.
 """
 
 from __future__ import annotations
@@ -40,13 +49,23 @@ from denoising_diffusion_deep_fake_tpu_torch.checkpoint import (
     CheckpointManager,
     save_rng_state,
 )
+from denoising_diffusion_deep_fake_tpu_torch.parallel.collectives import (
+    allgather_flags,
+    broadcast_one,
+)
+from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
+    training_mesh,
+)
 from denoising_diffusion_deep_fake_tpu_torch.utils import stragglers
 from denoising_diffusion_deep_fake_tpu_torch.utils.logging_scheduler import (
     LoggingScheduler,
 )
 from denoising_diffusion_deep_fake_tpu_torch.utils.tb import (
+    NullLogger,
     TensorBoardLogger,
 )
+
+PREEMPTION_SYNC_EVERY = 10
 
 
 class TrainingDivergedError(RuntimeError):
@@ -85,15 +104,20 @@ class PreemptionGuard:
 
 
 class LoopContext:
-    """Holds the cross-step services every workload loop needs."""
+    """Holds the cross-step services every workload loop needs. ``mesh``
+    (``parallel/mesh.py``, the process group's when None) decides the
+    lockstep and the primary rank."""
 
     def __init__(self, cfg, hparams: dict, *, workload: str,
-                 clock: Callable[[], float] = time.time):
+                 clock: Callable[[], float] = time.time, mesh=None):
         self.cfg = cfg
         self.hparams = hparams
         self.workload = workload
         self.clock = clock
-        self.tb = TensorBoardLogger(f"{cfg.log_dir}/{workload}")
+        self.mesh = training_mesh() if mesh is None else mesh
+        self.primary = self.mesh.rank == 0
+        self.tb = (TensorBoardLogger(f"{cfg.log_dir}/{workload}")
+                   if self.primary else NullLogger())
         self.ckpt = CheckpointManager(cfg.checkpoint_dir,
                                       keep=cfg.keep_checkpoints)
         self.image_scheduler = LoggingScheduler(clock)
@@ -102,6 +126,8 @@ class LoopContext:
         self.epoch = 0
         self.preemption = (PreemptionGuard() if cfg.handle_preemption
                            else None)
+        self._preempt_calls = 0
+        self._preempt_agreed = False
         # The worker fetches, NaN-guards and writes; divergence surfaces on
         # the next log_step (which has the states for the emergency save)
         # or at close(). A bounded queue holds the loop back if the worker
@@ -115,17 +141,33 @@ class LoopContext:
         self._metric_thread.start()
 
     def preempted(self) -> bool:
-        """True once SIGTERM arrived: runners save and exit."""
-        return self.preemption is not None and self.preemption.triggered
+        """True once SIGTERM arrived: runners save and exit. In a process
+        group the ranks' flags are all-gathered every
+        ``PREEMPTION_SYNC_EVERY`` calls (the runners call this once a step,
+        at the same point), and all stop once any was signalled."""
+        if self.preemption is None:
+            return False
+        if not self.mesh.in_group:
+            return self.preemption.triggered
+        if self._preempt_agreed:
+            return True
+        self._preempt_calls += 1
+        if self._preempt_calls % PREEMPTION_SYNC_EVERY:
+            return False
+        self._preempt_agreed = any(
+            allgather_flags(self.preemption.triggered, self.mesh))
+        return self._preempt_agreed
 
     # ------------------------------------------------------------- cadence
 
     def want_images(self) -> bool:
-        """Is an image-panel step due (the wall-clock scheduler)?"""
+        """Is an image-panel step due (the wall-clock scheduler)? In a
+        process group, rank 0's answer on every rank."""
         if not self.cfg.log_images:
             return False
         self.image_scheduler.update_with_step_number(self.global_step)
-        return self.image_scheduler.should_we_log_this_step()
+        want = self.image_scheduler.should_we_log_this_step()
+        return bool(broadcast_one(want, self.mesh))
 
     def log_step(self, metrics: dict[str, Any],
                  images: dict[str, Any] | None = None,
@@ -139,8 +181,20 @@ class LoopContext:
         every = self.cfg.log_every_n_steps
         due = any((step + j) % every == 0 for j in range(n_steps))
         if due or images:
-            self._metric_q.put((step, float(self.epoch),
-                                metrics if due else None, images, n_steps))
+            item = (step, float(self.epoch), metrics if due else None,
+                    images if self.primary else None, n_steps)
+            if self.mesh.in_group:
+                # Lockstep: fetch and check here, and raise on every rank
+                # at this step if any found a non-finite value.
+                self._log_metric_items([item])
+                flags = allgather_flags(self._diverged is not None,
+                                        self.mesh)
+                if any(flags) and self._diverged is None:
+                    self._diverged = [step, [
+                        f"a metric on rank {flags.index(True)}"]]
+                self._raise_if_diverged(states, generator)
+                return
+            self._metric_q.put(item)
 
     # -------------------------------------------------- async scalar worker
 
@@ -218,7 +272,9 @@ class LoopContext:
         epoch-end save (``force``) at most once every
         ``last_checkpoint_min_interval_s``; ``final`` always, blocking.
         ``generator``, the trainer's (None for the balancer, which has
-        none), is saved with the states."""
+        none), is saved with the states. Only the primary saves."""
+        if not self.primary:
+            return
         elapsed_s = self.clock() - self._last_ckpt_time
         due = elapsed_s / 3600.0 >= self.cfg.checkpoint_every_hours
         forced_ok = (force and elapsed_s

@@ -83,6 +83,13 @@ addresses, with batches of the same shapes and the same ``key(states)``
 the flip's shadows (``ensure_ema``) or a mode change therefore never
 replay a stale graph. There is no fallback: on CUDA a capture or replay
 that fails raises.
+
+In a process group (data parallelism, ``parallel/``) the graph captures
+the step's collectives too (batch norm's statistics, the gradient
+average, the metrics' mean), which NCCL allows: each replay runs them
+again on every rank. Gloo's collectives cannot be captured, so a K-step
+call on CUDA tensors under gloo (several ranks on one card) raises; on
+the CPU nothing changes.
 """
 
 from __future__ import annotations
@@ -93,6 +100,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from denoising_diffusion_deep_fake_tpu_torch.data.device_cache import (
     gather_batch,
@@ -194,6 +202,12 @@ class SuperStep:
         return metrics
 
     def _replay(self, states, batches, rows) -> dict:
+        if dist.is_initialized() and dist.get_backend() != "nccl":
+            raise RuntimeError(
+                f"steps_per_call={self.k} captures the step's collectives in "
+                f"a CUDA graph, which the {dist.get_backend()} backend "
+                "cannot be; use NCCL (one process a card) or steps_per_call "
+                "1")
         if any(b.device.type != "cuda" for b in batches):
             raise ValueError(f"a K-step graph reads its batches on "
                              f"{self.device}; upload them first")

@@ -42,8 +42,16 @@ their own batches, with no loader thread and no ``device_prefetch``;
 ``fit_balance`` scores from the cache (JAX ``:452-463``). A cache that
 cannot be made raises: there is no way back to the host loader.
 
-Left out: the multi-process layouts of the loader and the cache (ROADMAP
-A9).
+Data parallelism (JAX ``:280-293, :359-368, :407-414``): each ``fit_*``
+first opens the process group when the ``D3F_*`` launch variables are set
+(``parallel/distributed.py``); each rank then loads its shard of the
+manifest at the local batch size (``batch_size // processes``), builds its
+cache from that shard, makes every rank's states rank 0's after the init
+or the restore (``shard_state``), and runs the loop in lockstep
+(``training/loop.py``), the primary alone printing, logging and saving.
+The balancer scores the whole unsharded dataset on every rank, through
+the host loader when the device cache holds only a shard, and the primary
+writes the histogram and the manifest.
 """
 
 from __future__ import annotations
@@ -92,6 +100,13 @@ from denoising_diffusion_deep_fake_tpu_torch.training.loop import LoopContext
 from denoising_diffusion_deep_fake_tpu_torch.training.multi_step import (
     make_cached_super_step,
 )
+from denoising_diffusion_deep_fake_tpu_torch.parallel.distributed import (
+    data_shard,
+    is_primary,
+    local_batch_size,
+    maybe_initialize_from_env,
+)
+from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import shard_state
 from denoising_diffusion_deep_fake_tpu_torch.training.optim import make_adam
 
 HISTOGRAM_TAG = "difficulty_class_histogram"
@@ -272,11 +287,15 @@ def _run_epochs(ctx: LoopContext, trainer, steps, epochs, states,
         ctx.close()
 
 
-def _start(cfg, verbose: bool) -> dict:
+def _start(cfg, verbose: bool, device) -> tuple[dict, bool]:
+    """Open the process group if the launch asks for one; the hparams,
+    printed by the primary, and whether this process prints."""
+    maybe_initialize_from_env(device=device)
+    verbose = verbose and is_primary()
     hparams = config_to_dict(cfg)
     if verbose:
         print_hparams(hparams)
-    return hparams
+    return hparams, verbose
 
 
 # ------------------------------------------------------------------ deep fake
@@ -287,11 +306,11 @@ def fit_deep_fake(cfg: DeepFakeConfig, *, resume_from: str | None = None,
                   verbose: bool = True, step_callback=None, device=None,
                   decode_fn=None):
     """Train the two-identity workload; returns (states, trainer, context)."""
-    hparams = _start(cfg, verbose)
-    loaders = [ImageLoader(path, cfg.batch_size, image_size=cfg.image_size,
-                           seed=cfg.seed + i,
+    hparams, verbose = _start(cfg, verbose, device)
+    loaders = [ImageLoader(path, local_batch_size(cfg.batch_size),
+                           image_size=cfg.image_size, seed=cfg.seed + i,
                            class_balanced=cfg.class_balanced_sampling,
-                           decode_fn=decode_fn)
+                           decode_fn=decode_fn, shard=data_shard())
                for i, path in enumerate((cfg.data_path_a, cfg.data_path_b))]
     paired = PairedLoader(*loaders)
     trainer = DeepFakeTrainer(cfg,
@@ -301,10 +320,11 @@ def fit_deep_fake(cfg: DeepFakeConfig, *, resume_from: str | None = None,
         cfg, trainer, lambda epoch: ((ba, bb) for (ba, _), (bb, _)
                                      in paired.epoch(epoch)),
         *loaders, verbose=verbose)
-    ctx = LoopContext(cfg, hparams, workload="deep_fake")
+    ctx = LoopContext(cfg, hparams, workload="deep_fake", mesh=trainer.mesh)
     with _abort_on_error(ctx):
         states, start_epoch = _deep_fake_states(cfg, trainer, ctx,
                                                 resume_from, modify_from)
+        shard_state(states, trainer.mesh)
     _run_epochs(ctx, trainer, steps, epochs, states, start_epoch,
                 step_callback=step_callback, max_steps=max_steps,
                 verbose=verbose)
@@ -342,19 +362,20 @@ def fit_denoiser(cfg: DenoiserConfig, *, max_steps: int | None = None,
                  verbose: bool = True, step_callback=None, device=None,
                  decode_fn=None):
     """Train the single-model denoiser; returns (state, trainer, context)."""
-    hparams = _start(cfg, verbose)
-    loader = ImageLoader(cfg.input_image_list_path, cfg.batch_size,
+    hparams, verbose = _start(cfg, verbose, device)
+    loader = ImageLoader(cfg.input_image_list_path,
+                         local_batch_size(cfg.batch_size),
                          image_size=cfg.image_size, seed=cfg.seed,
                          class_balanced=cfg.class_balanced_sampling,
-                         decode_fn=decode_fn)
+                         decode_fn=decode_fn, shard=data_shard())
     trainer = DenoiserTrainer(cfg,
                               steps_per_epoch=_steps_per_epoch(cfg, loader),
                               image_size=loader.image_size, device=device)
     _, steps, epochs = _build_steps(
         cfg, trainer, lambda epoch: ((b,) for b, _ in loader.epoch(epoch)),
         loader, verbose=verbose)
-    state = trainer.init_state(cfg.seed)
-    ctx = LoopContext(cfg, hparams, workload="denoiser")
+    state = shard_state(trainer.init_state(cfg.seed), trainer.mesh)
+    ctx = LoopContext(cfg, hparams, workload="denoiser", mesh=trainer.mesh)
     _run_epochs(ctx, trainer, steps, epochs, state, 0,
                 step_callback=step_callback, max_steps=max_steps,
                 verbose=verbose)
@@ -370,12 +391,13 @@ def fit_balance(cfg: BalanceConfig, *, max_steps: int | None = None,
     """Train at the fixed noise ratio, then after every epoch score each
     image, log the class histogram and write the balanced manifest;
     returns (state, trainer, context)."""
-    hparams = _start(cfg, verbose)
-    loader = ImageLoader(cfg.data_path, cfg.batch_size,
+    hparams, verbose = _start(cfg, verbose, device)
+    loader = ImageLoader(cfg.data_path, local_batch_size(cfg.batch_size),
                          image_size=cfg.image_size, seed=cfg.seed,
-                         decode_fn=decode_fn)
+                         decode_fn=decode_fn, shard=data_shard())
     # Scoring: the whole dataset in manifest order, no remainder dropped,
-    # so every image gets a class.
+    # so every image gets a class; not sharded: the classes come from a
+    # min-max over the whole dataset, so every rank scores everything.
     val_loader = ImageLoader(cfg.data_path, cfg.batch_size,
                              image_size=cfg.image_size, shuffle=False,
                              drop_remainder=False, decode_fn=decode_fn)
@@ -385,11 +407,11 @@ def fit_balance(cfg: BalanceConfig, *, max_steps: int | None = None,
     caches, steps, epochs = _build_steps(
         cfg, trainer, lambda epoch: ((b,) for b, _ in loader.epoch(epoch)),
         loader, verbose=verbose)
-    state = trainer.init_state(cfg.seed)
-    ctx = LoopContext(cfg, hparams, workload="balance")
+    state = shard_state(trainer.init_state(cfg.seed), trainer.mesh)
+    ctx = LoopContext(cfg, hparams, workload="balance", mesh=trainer.mesh)
 
     def score(epoch: int) -> None:
-        if caches:
+        if caches and data_shard() is None:
             # Its rows are in manifest order, as val_loader's.
             indices, losses = trainer.score_dataset_from_cache(
                 state, caches[0], epoch=epoch)
@@ -400,6 +422,8 @@ def fit_balance(cfg: BalanceConfig, *, max_steps: int | None = None,
                 state, device_prefetch(val_loader.epoch(0), trainer.device),
                 epoch=epoch)
         classes = compute_difficulty_index(losses, cfg.number_of_classes)
+        if not ctx.primary:
+            return
         ctx.tb.log_figure(HISTOGRAM_TAG, difficulty_histogram_image(
             classes, cfg.number_of_classes), ctx.global_step)
         if cfg.output_image_list_path:

@@ -11,7 +11,9 @@ train-mode BN writes no running statistics: they move only through
 
 ``train_one_model`` is the update every trainer shares (JAX
 ``training/deep_fake.py:150-166``): train-mode forward,
-``mse_ssim_loss``, backward, Adam. It leaves the host counters alone: a
+``mse_ssim_loss``, backward, the gradient average over the ranks of a
+process group (``parallel/collectives.py``; nothing outside one), Adam.
+It leaves the host counters alone: a
 trainer advances ``step`` (and ``ema_step``) after its step, by one or, after
 a K-step CUDA graph (``training/multi_step.py``), by K. Its forward goes
 through ``maybe_remat`` (the ``remat`` knob, JAX ``:93-111``) and takes the
@@ -49,6 +51,9 @@ from denoising_diffusion_deep_fake_tpu_torch.models.unet import (
     init_unet_,
 )
 from denoising_diffusion_deep_fake_tpu_torch.ops.losses import mse_ssim_loss
+from denoising_diffusion_deep_fake_tpu_torch.parallel.collectives import (
+    all_reduce_grads_,
+)
 from denoising_diffusion_deep_fake_tpu_torch.training.ema import (
     EmaConfig,
     ema_blend,
@@ -102,7 +107,7 @@ def shadow_tensors(model: nn.Module) -> list[torch.Tensor]:
     return list(model.parameters()) + list(model.buffers())
 
 
-def _model_states(states) -> list[ModelState]:
+def model_states(states) -> list[ModelState]:
     """A trainer's states (one ``ModelState`` or the identity dict) as a
     list."""
     return list(states.values()) if isinstance(states, dict) else [states]
@@ -121,7 +126,7 @@ def graph_objects(states) -> list:
     rates, shadows. Whoever holds this list keeps them alive, so a
     replaced one can be told apart by identity."""
     out = []
-    for state in _model_states(states):
+    for state in model_states(states):
         out += [state.model, state.optimizer, state.ema_model]
         out += shadow_tensors(state.model)
         if state.has_ema:
@@ -138,7 +143,7 @@ def prepare_for_capture(states) -> None:
     optimizer's learning rate a device tensor, ``capturable`` set (Adam
     refuses to be captured without it; the fused update computes the same
     either way), and Adam's state made."""
-    for state in _model_states(states):
+    for state in model_states(states):
         bind_device_lr(state.optimizer)
         for group in state.optimizer.param_groups:
             group["capturable"] = True
@@ -277,14 +282,15 @@ def maybe_remat(forward: nn.Module, policy: str):
 
 def train_one_model(state: ModelState, noisy: torch.Tensor,
                     target: torch.Tensor, lr=None, remat: str = "none",
-                    drop_masks: torch.Tensor | None = None
+                    drop_masks: torch.Tensor | None = None, mesh=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """One update of ``state``'s tensors in place: ``mse_ssim_loss(
     model(noisy, drop_masks), target)`` in train mode, the forward under the
-    ``remat`` policy, backward, Adam at ``lr`` (a float, or an fp32 device
-    tensor; the optimizer's own when None). The host ``step`` is the
-    caller's to advance. Returns the loss as a device scalar and the
-    prediction."""
+    ``remat`` policy, backward, the gradients averaged over ``mesh``'s
+    ranks (``parallel/mesh.py``; none when None), Adam at ``lr`` (a float,
+    or an fp32 device tensor; the optimizer's own when None). The host
+    ``step`` is the caller's to advance. Returns the loss of this rank's
+    rows as a device scalar and the prediction."""
     model, optimizer = state.model, state.optimizer
     model.train()
     optimizer.zero_grad(set_to_none=True)
@@ -293,6 +299,7 @@ def train_one_model(state: ModelState, noisy: torch.Tensor,
             else forward(noisy, drop_masks))
     loss = mse_ssim_loss(pred, target)
     loss.backward()
+    all_reduce_grads_(model, mesh)
     if lr is not None:
         set_learning_rate(optimizer, lr)
     optimizer.step()

@@ -201,3 +201,25 @@ class TensorBoardLogger:
     def close(self) -> None:
         with self._lock:
             self._file.close()
+
+
+class NullLogger:
+    """``TensorBoardLogger``'s surface writing nothing: the logger of a
+    data-parallel rank other than the primary, which owns the event
+    files."""
+
+    def log_scalars(self, metrics: dict, step: int) -> None:
+        pass
+
+    def log_batch_as_image_grid(self, tag: str, batch, step: int,
+                                **kwargs) -> None:
+        pass
+
+    def log_figure(self, tag: str, image, step: int) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -144,12 +144,20 @@ def test_refusals_carry_jax_messages(tmp_path, case):
 
 
 def test_multi_process_cache_is_refused(tmp_path, monkeypatch):
-    manifest = make_image_dataset(tmp_path, n=3, size=8)
+    """No longer refused: inside a process group of two, a rank's cache
+    holds its loader's manifest shard (JAX ``device_cache.py:97-136``),
+    trimmed to whole local batches, and its epoch order is the shard
+    loader's own."""
+    manifest = make_image_dataset(tmp_path, n=7, size=8)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        device_cache.DeviceDatasetCache(loader.ImageLoader(manifest, 2),
-                                        device="cpu")
+    shard = loader.ImageLoader(manifest, 2, shard=(1, 2))
+    cache = device_cache.DeviceDatasetCache(shard, device="cpu")
+    assert cache.n_images == 3 and cache.steps_per_epoch == 1
+    want = np.stack([loader.default_decode(p) for p in shard.paths])
+    assert np.array_equal(cache.dataset.numpy(), want)
+    order = cache.order_for_epoch(2).numpy()
+    assert np.array_equal(order, shard._epoch_order(2)[:2])
 
 
 @pytest.mark.parametrize("overrides,match", [

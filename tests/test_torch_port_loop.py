@@ -215,8 +215,8 @@ def test_loader_errors(tmp_path):
         loader.ImageLoader(empty, 2)
     with pytest.raises(ValueError, match="difficulty-classed"):
         loader.ImageLoader(manifest, 2, class_balanced=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        loader.ImageLoader(manifest, 2, shard=(0, 2))
+    with pytest.raises(ValueError, match="every process"):
+        loader.ImageLoader(manifest, 2, shard=(0, 8))
 
 
 def test_ram_cache_decodes_each_image_once(tmp_path):

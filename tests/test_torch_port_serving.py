@@ -705,15 +705,21 @@ def test_engine_rejects_bad_input(engine):
         engine.swap(np.zeros((SIZE, SIZE, 3), np.float32))
 
 
-def test_engine_refuses_i420_and_replicas(checkpoint):
-    """Replicas are refused. The i420 wire format has been ported since
-    (``tests/test_torch_port_i420.py``); only a geometry it cannot carry is
-    refused now."""
+def test_engine_refuses_i420_and_replicas(checkpoint, monkeypatch):
+    """What the engine still refuses: an i420 geometry the format cannot
+    carry (the format itself is ported, ``tests/test_torch_port_i420.py``),
+    and replicas it has no device for (replicas are ported,
+    ``tests/test_torch_port_parallel.py``): none, or more than the CUDA
+    devices there are, before any weight is read."""
     with pytest.raises(ValueError, match="height % 4"):
         SwapEngine(checkpoint, "a", height=30, width=SIZE, transfer="i420",
                    device="cpu")
-    with pytest.raises(ValueError, match="A9"):
-        _engine(checkpoint, devices=2)
+    with pytest.raises(ValueError, match="at least one replica"):
+        _engine(checkpoint, devices=0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="devices=2 but 1 CUDA device"):
+        SwapEngine(checkpoint, "a", height=SIZE, width=SIZE, devices=2)
 
 
 @pytest.fixture(scope="module")
@@ -821,8 +827,8 @@ def test_swap_raises_when_the_dispatcher_stopped(checkpoint):
     eng = _engine(checkpoint)
     try:
         eng._queue.put(None)                 # the dispatcher's stop signal
-        eng._dispatcher.thread.join(timeout=30)
-        assert not eng._dispatcher.thread.is_alive()
+        eng._dispatchers[0].thread.join(timeout=30)
+        assert not eng._dispatchers[0].thread.is_alive()
         t0 = time.monotonic()
         with pytest.raises(RuntimeError, match="dispatcher stopped"):
             eng.swap(np.zeros((SIZE, SIZE, 3), np.uint8))
@@ -900,8 +906,8 @@ class _GatedPipeline:
 
 
 def _gate(eng):
-    gated = _GatedPipeline(eng._dispatcher.pipeline)
-    eng._dispatcher.pipeline = gated
+    gated = _GatedPipeline(eng._dispatchers[0].pipeline)
+    eng._dispatchers[0].pipeline = gated
     return gated
 
 
