@@ -1,6 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check what it computes.
 
     python3 chip_smoke.py [--profile-out PATH]
+    python3 chip_smoke.py --spatial-cards   # phase 20d alone, 4 cards
 
 Phases, in order; any failure exits non-zero:
 
@@ -273,6 +274,34 @@ Phases, in order; any failure exits non-zero:
    tolerances), the ranks' states equal, a K-step graph refused under
    gloo, and ``fit_denoiser`` from the cache on both ranks with one
    checkpoint and one event file, by the primary.
+20. spatial parallelism (``spatial_parallel: 2``, ``parallel/halo.py``):
+   (a) both noise kernels, by value and by device offset, on a rank's
+   rows with their row window, at 448^2 x16 over S = 2 and 4 and at 45^2
+   x6 over S = 3 (runs that start inside a Philox group): bit-equal to
+   those rows of the whole launch, within one ulp of the plain version,
+   and timed by graph replay beside one contiguous run; (b) two
+   ``--dp-worker spatial`` ranks on the one card over gloo, 64^2, a
+   global batch of 2, resnet18, the U-Nets in float64,
+   ``cudnn.deterministic``: the denoiser, swap-pair and balancer steps,
+   and the denoiser at 32^2 (its deepest stage gathered and replicated),
+   against the one-process step on the card at the CPU test's
+   tolerances (the swap pair's with its loss in the ranks' row shares),
+   the ranks' states equal; the denoiser under ``remat: dots`` and
+   ``full`` bit-equal to it without; the census of one step;
+   ``fit_denoiser`` for 4 steps from 64^2 .npy frames through the host
+   loader; (c) phase 5's denoiser (448^2 x16, resnet34, bf16, phase 5's
+   seed) over the two ranks: the first forward in fp32 and bf16 against
+   one process's, and beside it the same forward with a broken
+   exchange, the first step's loss against one process's, 3 warm-up and
+   5 timed steps (imgs/s), each rank's peak memory beside phase 5's,
+   kernels and idle a step (rank 0's profile), halo exchanges
+   a step and the host's cost of one; (d) only with ``--spatial-cards``,
+   in place of the phases: four ranks, a card each, over NCCL: the 64^2
+   float64 steps at data 1 x spatial 4 (the denoiser) and data 2 x
+   spatial 2 (the denoiser, the swap pair) against the one-process step
+   on card 0, a K = 2 graph of the data 2 x spatial 2 denoiser
+   bit-equal to two eager steps, and 20c's full-width denoiser and its
+   checks at both layouts, eager and as K = 16 graphs.
 
 Every profile of the script is a ``utils/profiling.py`` trace read by its
 ``analyze_trace``. It prints one JSON line of per-kernel results, then, as its last line,
@@ -5243,9 +5272,11 @@ def noise_element_base(dev, card: str) -> None:
         f"device offset [{card}]")
 
 
-def _dp_trainer(workload: str, dev, **extra):
-    """Phase 19c's trainers: 64^2, a global batch of 4, resnet18, fp32."""
-    common = dict(dict(batch_size=DP_BATCH, image_size=DP_SIZE,
+def _dp_trainer(workload: str, dev, batch: int = DP_BATCH,
+                size: int = DP_SIZE, **extra):
+    """Phase 19c's trainers: 64^2, a global batch of 4, resnet18, fp32
+    (20b's at its own batch, size and knobs in ``extra``)."""
+    common = dict(dict(batch_size=batch, image_size=size,
                        learning_rate=1e-3, encoder_name="resnet18",
                        compute_dtype="float32"), **extra)
     if workload == "swap":
@@ -5253,12 +5284,12 @@ def _dp_trainer(workload: str, dev, **extra):
                               ema_update_after_step=0, **common)
     if workload == "balance":
         return make_balancer(dev, **common)
-    return make_trainer(dev, encoder="resnet18", batch=DP_BATCH,
-                        size=DP_SIZE, dtype="float32",
-                        **{k: v for k, v in extra.items()})
+    return make_trainer(dev, encoder="resnet18", batch=batch, size=size,
+                        dtype="float32", **extra)
 
 
-def _dp_step(workload: str, dev, rows) -> dict:
+def _dp_step(workload: str, dev, rows, batch: int = DP_BATCH,
+             size: int = DP_SIZE, **extra) -> dict:
     """One step of ``workload`` from seed-made weights, the U-Nets in
     float64 (fp32 gradients of a 64^2 U-Net are too ill-conditioned for
     1e-5: a decoder BN's bias gradient is a sum that nearly cancels),
@@ -5268,7 +5299,7 @@ def _dp_step(workload: str, dev, rows) -> dict:
     from denoising_diffusion_deep_fake_tpu_torch.training.state import (
         model_states)
 
-    trainer = _dp_trainer(workload, dev)
+    trainer = _dp_trainer(workload, dev, batch, size, **extra)
     states = (trainer.init_states(seed=SEED) if workload == "swap"
               else trainer.init_state(seed=SEED))
     for state in model_states(states):
@@ -5278,7 +5309,7 @@ def _dp_step(workload: str, dev, rows) -> dict:
     shard_state(states, trainer.mesh)
     rng = np.random.default_rng(SEED + 91)
     batches = [rows(torch.from_numpy(rng.integers(
-        0, 256, (DP_BATCH, DP_SIZE, DP_SIZE, 3), np.uint8)), trainer)
+        0, 256, (batch, size, size, 3), np.uint8)), trainer)
         for _ in range(2 if workload == "swap" else 1)]
     metrics = trainer.train_step(states, *batches)
     out = {f"metric.{k}": float(v) for k, v in metrics.items()
@@ -5298,14 +5329,16 @@ def _dp_step(workload: str, dev, rows) -> dict:
     return out
 
 
-def _dp_compare(what: str, dp: dict, one: dict) -> None:
-    """19c: a 2-rank step against the one-process step (the CPU test's
-    tolerances): the losses 1e-5 relative; BN buffers, gradients, Adam
-    moments and shadows' buffers 1e-5 of each tensor's largest; weights
-    (and shadows' weights) 1e-6 where the gradient is above 2% of its
-    tensor's largest and 1e-6, 2 lr + 1e-6 elsewhere (Adam's first step
-    moves a weight by about +-lr whatever |g|)."""
-    check(set(dp) == set(one), f"19c {what}: other tensors")
+def _dp_compare(what: str, dp: dict, one: dict, phase: str = "19c",
+                ranks: str = "2 ranks (gloo)") -> None:
+    """19c (20b): a 2-rank step against the one-process step (the CPU
+    test's tolerances): the losses 1e-5 relative; BN buffers, gradients,
+    Adam moments and shadows' buffers 1e-5 of each tensor's largest;
+    weights (and shadows' weights) 1e-6 where the gradient is above 2% of
+    its tensor's largest and 1e-6, 2 lr + 1e-6 elsewhere (Adam's first
+    step moves a weight by about +-lr whatever |g|)."""
+    what = f"{phase} {what}"
+    check(set(dp) == set(one), f"{what}: other tensors")
     worst, lr = 0.0, one["lr"]
     for k, want in one.items():
         got = dp[k]
@@ -5313,7 +5346,7 @@ def _dp_compare(what: str, dp: dict, one: dict) -> None:
             continue
         if k.startswith("metric."):
             check(abs(got - want) <= 1e-5 * abs(want),
-                  f"19c {what} {k}: {got} against {want}")
+                  f"{what} {k}: {got} against {want}")
             continue
         identity, kind, name = k.split(".", 2)
         diff = (got.double() - want.double()).abs()
@@ -5322,14 +5355,14 @@ def _dp_compare(what: str, dp: dict, one: dict) -> None:
             clear = (grad > 2e-2 * grad.max()) & (grad > 1e-6)
             check(float(diff.max()) <= 2 * lr + 1e-6 and (
                 not clear.any() or float(diff[clear].max()) <= 1e-6),
-                f"19c {what} {k}: a weight moved apart")
+                f"{what} {k}: a weight moved apart")
             continue
         scale = float(want.double().abs().max())
         err = float(diff.max())
         worst = max(worst, err / scale if scale else err)
         check(err <= 1e-5 * scale + 1e-12,
-              f"19c {what} {k}: {err} against {scale}")
-    log(f"  19c {what}: 2 ranks (gloo) against one process on the card: "
+              f"{what} {k}: {err} against {scale}")
+    log(f"  {what}: {ranks} against one process on the card: "
         f"losses within 1e-5, BN buffers, gradients, Adam moments and "
         f"shadows within {worst:.2e} of their largest")
 
@@ -5608,14 +5641,697 @@ def data_parallel(root: Path, data: Path, dev, launches, card: str,
     return counts
 
 
+# ---------------------------------------- phase 20: spatial parallelism
+
+
+SP_BATCH = 2
+# 20c's and 20d's full width against one process: the relative L2
+# distance of the first forward's output in fp32, and the first step's
+# loss (bf16), relative. Readings on the H100: the fp32 forward 2.1e-5
+# sound and 0.43 with every halo zero-filled (``_halo_fault``, which
+# must land above the first limit in the same run); the first loss
+# 5.1e-6 to 5.0e-5 sound, but a broken exchange moves an initialised
+# U-Net's loss by only 0.6-1.2e-4 over 2 ranks (1e-3 over 4), so the loss
+# guards the bf16 step against gross faults and the fp32 forward holds
+# the exchange.
+SP_PRED_LIMIT, SP_LOSS_LIMIT = 1e-3, 2e-4
+
+
+@contextlib.contextmanager
+def _row_share_loss(spatial: int):
+    """One process's steps with a spatial run's loss arithmetic:
+    ``mse_ssim_loss`` as the sum of the ``spatial`` row blocks' shares
+    (``ops/losses.py``'s spatial path), each block's SSIM halo rows cut
+    from the whole batch in place of an exchange. The swap pair's model b
+    trains on a's post-Adam shadow, where the loss's row order alone parts
+    b's gradients by up to 0.8% of a tensor's largest at lr 1e-3 (the CPU
+    test's witness, ``tests/test_torch_port_spatial.py``): the spatial
+    pair is held against this step."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops import losses, ssim
+    from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import Mesh
+    from denoising_diffusion_deep_fake_tpu_torch.training import state
+    whole_loss, exchange = state.mse_ssim_loss, ssim.exchange_rows
+
+    def shares(pred, target, *, mesh=None):
+        xy = torch.cat([losses._normalise_between_zero_and_one(
+            t.to(torch.float32), -1.0, 1.0) for t in (pred, target)], -1)
+
+        def cut(x, above, below, m, *, dim, pad):
+            a, n = m.spatial_index * x.shape[dim], x.shape[dim]
+            lo, hi = max(a - above, 0), min(a + n + below, xy.shape[dim])
+            return xy.narrow(dim, lo, hi - lo)
+
+        n = pred.shape[1] // spatial
+        ssim.exchange_rows = cut
+        try:
+            return sum(whole_loss(pred[:, s * n:(s + 1) * n],
+                                  target[:, s * n:(s + 1) * n],
+                                  mesh=Mesh(data=1, spatial=spatial, rank=s,
+                                            world=spatial))
+                       for s in range(spatial))
+        finally:
+            ssim.exchange_rows = exchange
+
+    state.mse_ssim_loss = shares
+    try:
+        yield
+    finally:
+        state.mse_ssim_loss = whole_loss
+
+
+def _halo_fault(x, above, below, mesh, *, dim, pad):
+    """A broken exchange, for the sensitivity of 20c's check: every rank
+    fills its halo rows as a global edge would (zeros; ``-inf`` for the
+    max pool) in place of its neighbours' rows."""
+    def rows(n):
+        shape = list(x.shape)
+        shape[dim] = n
+        return x.new_full(shape, 0.0 if pad is None else pad)
+
+    return torch.cat([rows(above), x, rows(below)], dim)
+
+
+def _sp_probe_inputs() -> tuple[torch.Tensor, torch.Tensor]:
+    """20c's fixed noisy input and target, global 448^2 x16 fp32."""
+    rng = np.random.default_rng(SEED + 104)
+    target = rng.uniform(-1, 1, (16, 448, 448, 3)).astype(np.float32)
+    noisy = (np.float32(math.sqrt(0.5)) * target + np.float32(math.sqrt(0.5))
+             * rng.standard_normal(target.shape, np.float32))
+    return torch.from_numpy(noisy), torch.from_numpy(target)
+
+
+def _sp_prediction(state, mesh, x: torch.Tensor) -> torch.Tensor:
+    """The train-mode forward of ``state``'s U-Net on ``x`` (a rank's rows
+    over ``mesh``; the whole batch with None), in fp32 on the host; the
+    BN running statistics are left as they were."""
+    from denoising_diffusion_deep_fake_tpu_torch.parallel import halo
+
+    model = state.model
+    saved = [b.clone() for b in model.buffers()]
+    model.train()
+    with torch.no_grad(), halo.row_sharded(mesh):
+        pred = model(x).float().cpu()
+    with torch.no_grad():
+        for b, v in zip(model.buffers(), saved):
+            b.copy_(v)
+    return pred
+
+
+def noise_row_window(dev, card: str) -> dict:
+    """Phase 20a: both noise kernels, by value and by device offset, on a
+    spatial rank's rows with their row window (``sample_stride``) against
+    those rows of the launch on the whole batch: bit-equal, and within one
+    ulp of the plain version; at 448^2 x16 over S = 2 and 4, and at 45^2
+    x6 over S = 3 (W * C = 135: runs start inside a Philox group). At
+    448^2 x16, S = 2, rank 1's windowed launch is timed by graph replay,
+    by value and by device offset, beside one contiguous run of as many
+    elements. Returns those times by kernel."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import (
+        noise_kernel as nk)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda._build import (
+        moved_launches)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda.bench_warp_pass \
+        import graph_ms
+
+    rng = np.random.default_rng(SEED + 100)
+    seed, offset = 12345, (1 << 33) + 7
+    times = {}
+    with moved_launches():
+        for shape, spatials in (((16, 448, 448, 3), (2, 4)),
+                                ((6, 45, 45, 3), (3,))):
+            b, h, w, c = shape
+            x = torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dev)
+            u8 = torch.from_numpy(rng.integers(0, 256, shape,
+                                               np.uint8)).to(dev)
+            ratios = torch.from_numpy(rng.uniform(0, 1, b).astype(
+                np.float32)).to(dev)
+            at = torch.tensor([offset], dtype=torch.int64, device=dev)
+            launches = {
+                "fused_noise_blend": (x, lambda xs, **kw:
+                                      nk.fused_noise_blend(
+                                          xs, ratios, seed=seed, **kw)),
+                "fused_normalise_noise_blend": (u8, lambda xs, **kw:
+                                                nk.fused_normalise_noise_blend(
+                                                    xs, ratios, *HALF,
+                                                    seed=seed, **kw))}
+            for name, (src, fn) in launches.items():
+                for form, off in (("by value", offset), ("device offset", at)):
+                    whole = fn(src, offset=off)
+                    for spatial in spatials:
+                        n = h // spatial
+                        for r in range(spatial):
+                            rows = src[:, r * n:(r + 1) * n].contiguous()
+                            window = dict(element_base=r * n * w * c,
+                                          sample_stride=h * w * c)
+                            got = fn(rows, offset=off, **window)
+                            torch.cuda.synchronize()
+                            check(torch.equal(got, whole[:, r * n:
+                                                         (r + 1) * n]),
+                                  f"20a {name} {shape} S = {spatial} rank "
+                                  f"{r} {form}: the windowed rows differ "
+                                  "from the whole launch's")
+                            if r == spatial - 1 and form == "by value":
+                                if name == "fused_noise_blend":
+                                    plain = nk.fused_noise_blend_plain(
+                                        rows, ratios, seed=seed,
+                                        offset=offset, **window)
+                                else:
+                                    plain = (
+                                        nk.fused_normalise_noise_blend_plain(
+                                            rows, ratios,
+                                            nk.noise_constants(*HALF, 3),
+                                            seed=seed, offset=offset,
+                                            **window))
+                                compare_ulp(got, plain, f"20a {name} "
+                                            f"{shape} S = {spatial} rank {r}"
+                                            f" (first run at element "
+                                            f"{window['element_base']}, % 4 ="
+                                            f" {window['element_base'] % 4})")
+                if shape[1] == 448:
+                    rows = src[:, h // 2:].contiguous()
+                    out = torch.empty(rows.shape, dtype=torch.float32,
+                                      device=dev)
+                    norm = (None if name == "fused_noise_blend"
+                            else nk.noise_constants(*HALF, 3))
+                    window = dict(element_base=h // 2 * w * c,
+                                  sample_stride=h * w * c)
+
+                    def launch(**kw):
+                        return lambda: nk.launch_blend(
+                            rows, out, ratios, norm, seed=seed, **kw)
+
+                    times[name] = {
+                        "row_window_ms": graph_ms(launch(
+                            offset=offset, **window)),
+                        "row_window_device_offset_ms": graph_ms(launch(
+                            offset=at, **window)),
+                        "contiguous_ms": graph_ms(launch(offset=offset))}
+                    t = times[name]
+                    log(f"  20a {name} on rank 1's rows of 448^2 x16 over "
+                        f"S = 2 (16 runs of 224 x 448 x 3, graph replay): "
+                        f"windowed {t['row_window_ms']:.4f} ms by value, "
+                        f"{t['row_window_device_offset_ms']:.4f} ms by "
+                        f"device offset; one contiguous run of as many "
+                        f"elements {t['contiguous_ms']:.4f} ms [{card}]")
+    log(f"  both noise kernels: a spatial rank's rows with their window "
+        f"bit-equal to the whole launch's, by value and device offset, "
+        f"within one ulp of the plain version [{card}]")
+    return times
+
+
+def _sp_full_width(dev, rank: int, spatial: int = 2,
+                   graph_k: int | None = None) -> dict:
+    """20c (20d) on one rank: phase 5's denoiser (448^2 x16, resnet34,
+    bf16) with ``spatial_parallel`` from phase 5's seed: the first forward
+    on ``_sp_probe_inputs``' rows in fp32 and in bf16, each with its
+    exchanges and broken (``_halo_fault``); the first step's loss on a
+    fixed batch, 2 more warm-up and 5 timed steps, the peak memory, a
+    profile (rank 0), the census of one step and the host's cost of one
+    halo exchange; with
+    ``graph_k`` (NCCL), one group of K steps as a graph (capture and
+    replay), then 2 timed groups."""
+    import torch.distributed as dist
+
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda._build import (
+        LAUNCHES)
+    from denoising_diffusion_deep_fake_tpu_torch.parallel import (
+        collectives, halo)
+    from denoising_diffusion_deep_fake_tpu_torch.parallel.audit import (
+        census_summary, census_violations, collective_census)
+    from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
+        shard_batch, shard_rows)
+
+    preds = {}
+    for dtype in ("float32", "bfloat16"):  # bf16's trainer is stepped below
+        trainer = make_trainer(dev, encoder="resnet34", batch=16, size=448,
+                               dtype=dtype, spatial_parallel=spatial)
+        state = trainer.init_state(seed=SEED)
+        x = shard_rows(shard_batch(_sp_probe_inputs()[0], trainer.mesh),
+                       trainer.mesh).to(dev)
+        preds[f"pred_{dtype}"] = _sp_prediction(state, trainer.mesh, x)
+        exchange, halo.exchange_rows = halo.exchange_rows, _halo_fault
+        try:
+            preds[f"fault_{dtype}"] = _sp_prediction(state, trainer.mesh, x)
+        finally:
+            halo.exchange_rows = exchange
+        del x
+    rng = np.random.default_rng(SEED + 101)
+    batches = [shard_batch(torch.from_numpy(rng.integers(
+        0, 256, (16, 448, 448, 3), np.uint8)), trainer.mesh).to(dev)
+        for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    out = {"first_loss": float(trainer.train_step(state,
+                                                  batches[0])["loss"]),
+           **preds}
+    for i in (1, 2):
+        trainer.train_step(state, batches[i])
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for i in range(5):
+        loss = trainer.train_step(state, batches[i % 3])["loss"]
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    out["counts"] = dict(LAUNCHES)
+    out["last_loss"] = float(loss)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(out["counts"] == {"affine_warp_fused": 8, "fused_noise_blend": 8},
+          f"20c rank {rank}: launches {out['counts']} in 8 steps")
+    with collectives.recording() as calls:
+        trainer.train_step(state, batches[0])
+        torch.cuda.synchronize()
+    census = collective_census(calls)
+    out["census"] = census_summary(census)
+    out["violations"] = census_violations(census, spatial=True)
+    lb = batches[0].shape[0]
+    run = dict(single_path(trainer, size=448, batch=lb, state=state),
+               step_ms=out["step_ms"])
+    if rank == 0:
+        profile_steps(run, dev, None)
+        out["busy_ms"] = run["busy_ms"]
+    else:
+        u8 = torch.randint(0, 256, (lb, 448, 448, 3), dtype=torch.uint8,
+                           device=dev)
+        for _ in range(4):  # profile_steps' steps, on every rank
+            run["step"](u8)
+        torch.cuda.synchronize()
+    # The host's cost of one halo exchange: the stem's output rows (64
+    # channels, 112 of 224 rows, 224 wide, bf16), one row each way.
+    x = torch.randn((16, 64, 112, 224), device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    collectives.exchange_rows(x, 1, 1, trainer.mesh, dim=2, pad=0.0)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        collectives.exchange_rows(x, 1, 1, trainer.mesh, dim=2, pad=0.0)
+    torch.cuda.synchronize()
+    out["halo_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    if graph_k:
+        step = trainer.make_super_step(graph_k)
+        group = [batches[i % 3] for i in range(graph_k)]
+        step(state, *group)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(state, *group)
+        torch.cuda.synchronize()
+        out["graph_step_ms"] = (time.perf_counter() - t0) / (2 * graph_k) * 1e3
+    return out
+
+
+def _sp_hold_full_width(full: list, data: int, spatial: int, dev,
+                        card: str, phase: str) -> None:
+    """20c (20d): the ranks' ``_sp_full_width`` against one process of the
+    same weights. The first forward's rows put together, with the
+    exchanges and broken, by relative L2 distance (and the loss of each
+    against the target, relative), in fp32 and in bf16; the first step's
+    loss. Fails unless the fp32 forward with exchanges is within
+    ``SP_PRED_LIMIT``, the broken one beyond it, and every first loss
+    within ``SP_LOSS_LIMIT``. In bf16 the sound forward's distance is
+    logged beside the broken one's, not held: bf16 rounds each layer
+    to 2^-8, and an initialised U-Net with batch norm amplifies such
+    differences with depth, whoever computes them."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops.losses import (
+        mse_ssim_loss)
+
+    noisy, target = _sp_probe_inputs()
+    target = target.to(dev)
+    gaps, ones, one_loss = {}, {}, None
+    for dtype in ("float32", "bfloat16"):
+        trainer = make_trainer(dev, encoder="resnet34", batch=16, size=448,
+                               dtype=dtype)
+        state = trainer.init_state(seed=SEED)
+        one = ones[dtype] = _sp_prediction(state, None, noisy.to(dev))
+        if dtype == "bfloat16":
+            rng = np.random.default_rng(SEED + 101)
+            u8 = torch.from_numpy(rng.integers(0, 256, (16, 448, 448, 3),
+                                               np.uint8)).to(dev)
+            one_loss = float(trainer.train_step(state, u8)["loss"])
+            del u8
+        del trainer, state
+        one_fit = float(mse_ssim_loss(one.to(dev), target))
+        for key in ("pred", "fault"):
+            got = torch.cat([torch.cat([full[d * spatial + s][
+                f"{key}_{dtype}"] for s in range(spatial)], 1)
+                for d in range(data)], 0)
+            fit = float(mse_ssim_loss(got.to(dev), target))
+            gaps[key, dtype] = (float((got - one).norm() / one.norm()),
+                                abs(fit - one_fit) / abs(one_fit))
+    losses = [abs(f["first_loss"] - one_loss) / abs(one_loss) for f in full]
+    for dtype in ("float32", "bfloat16"):
+        (sound, sound_fit), (broken, broken_fit) = (gaps["pred", dtype],
+                                                    gaps["fault", dtype])
+        log(f"  {phase} first forward, 448^2 x16 {dtype}, the ranks' rows "
+            f"against one process: relative L2 {sound:.3e}"
+            + (f" (limit {SP_PRED_LIMIT:g})" if dtype == "float32" else "")
+            + f", its loss {sound_fit:.3e} relative; with every halo "
+            f"zero-filled (a broken exchange) {broken:.3e}, its loss "
+            f"{broken_fit:.3e} [{card}]")
+    bf16, fp32 = ones["bfloat16"], ones["float32"]
+    log(f"  {phase} one process's bf16 forward against its fp32 one: "
+        f"relative L2 {float((bf16 - fp32).norm() / fp32.norm()):.3e} "
+        f"[{card}]")
+    log(f"  {phase} first step's loss (bf16) {full[0]['first_loss']:.6f} "
+        f"against {one_loss:.6f} in one process ({max(losses):.2e} "
+        f"relative at most over the ranks, limit {SP_LOSS_LIMIT:g}) [{card}]")
+    sound, broken = gaps["pred", "float32"][0], gaps["fault", "float32"][0]
+    check(sound <= SP_PRED_LIMIT < broken,
+          f"{phase}: the fp32 first forward {sound:.3e} from one process, "
+          f"broken {broken:.3e}, limit {SP_PRED_LIMIT:g}")
+    check(max(losses) <= SP_LOSS_LIMIT
+          and len({f["first_loss"] for f in full}) == 1,
+          f"{phase}: first losses {[f['first_loss'] for f in full]} against "
+          f"one process {one_loss}")
+
+
+def _sp_worker_gloo(workdir: Path) -> None:
+    """20b and 20c, one of two ranks on the one card over gloo with
+    spatial_parallel: 2 (data 1)."""
+    from denoising_diffusion_deep_fake_tpu_torch.config import (
+        DenoiserConfig, config_from_dict)
+    from denoising_diffusion_deep_fake_tpu_torch.device import (
+        resolve_device)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda._build import (
+        LAUNCHES)
+    from denoising_diffusion_deep_fake_tpu_torch.parallel import (
+        distributed)
+    from denoising_diffusion_deep_fake_tpu_torch.parallel.audit import (
+        census_of_train_step, census_summary, census_violations)
+    from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
+        shard_batch)
+    from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
+        fit_denoiser)
+
+    check(distributed.maybe_initialize_from_env(backend="gloo"),
+          "20b: no D3F_* launch environment")
+    rank = distributed.process_index()
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic, cudnn.benchmark = True, False
+    dev = resolve_device()
+    out = {"counts": {}}
+
+    def rows(b, t):
+        return shard_batch(b, t.mesh).to(dev)
+
+    for workload in ("denoiser", "swap", "balance"):
+        LAUNCHES.clear()
+        out[workload] = _dp_step(workload, dev, rows, SP_BATCH, DP_SIZE,
+                                 spatial_parallel=2)
+        torch.cuda.synchronize()
+        out["counts"][f"sp_gloo_{workload}_64"] = dict(LAUNCHES)
+    # remat: the recompute, in the autograd engine's own thread on the
+    # card, issues the halo exchanges again inside the backward.
+    for policy in ("dots", "full"):
+        LAUNCHES.clear()
+        got = _dp_step("denoiser", dev, rows, SP_BATCH, DP_SIZE,
+                       spatial_parallel=2, remat=policy)
+        torch.cuda.synchronize()
+        out["counts"][f"sp_gloo_remat_{policy}_64"] = dict(LAUNCHES)
+        out[f"remat_{policy}"] = max(
+            float((got[k].double() - v.double()).abs().max())
+            if isinstance(v, torch.Tensor) else abs(got[k] - v)
+            for k, v in out["denoiser"].items())
+    out["denoiser_32"] = _dp_step("denoiser", dev, rows, SP_BATCH, 32,
+                                  spatial_parallel=2)
+    census = census_of_train_step("denoiser", image_size=DP_SIZE,
+                                  batch_size=SP_BATCH, encoder_name="resnet18",
+                                  compute_dtype="float32", spatial=2)
+    out["census"] = census_summary(census)
+    out["violations"] = census_violations(census, spatial=True)
+    cfg = config_from_dict(DenoiserConfig, dict(
+        input_image_list_path=str(workdir / "frames_64" / "images.txt"),
+        batch_size=SP_BATCH, image_size=DP_SIZE, encoder_name="resnet18",
+        compute_dtype="float32", max_epochs=3, spatial_parallel=2,
+        log_images=False, seed=SEED, log_dir=str(workdir / "sp_runs"),
+        checkpoint_dir=str(workdir / "sp_ck")))
+    LAUNCHES.clear()
+    state, trainer, ctx = fit_denoiser(cfg, max_steps=4, verbose=False,
+                                       decode_fn=np.load)
+    torch.cuda.synchronize()
+    out["counts"]["sp_gloo_fit_denoiser_64"] = dict(LAUNCHES)
+    out["fit"] = {"step": state.step, "mesh": (trainer.mesh.data,
+                                               trainer.mesh.spatial),
+                  "weights": [t.cpu() for t in
+                              state.model.state_dict().values()]}
+    cudnn.deterministic, cudnn.benchmark = False, True
+    out["full"] = _sp_full_width(dev, rank)
+    out["counts"]["sp_gloo_denoiser_448"] = out["full"]["counts"]
+    torch.save(out, workdir / f"sp_rank{rank}.pt")
+    distributed.shutdown()
+
+
+def _sp_worker_nccl(workdir: Path) -> None:
+    """20d, one of four ranks, a card each, over NCCL
+    (``--spatial-cards``): the 64^2 float64 steps at data 1 x spatial 4
+    (the denoiser; its stride-32 level gathered) and data 2 x spatial 2
+    (the denoiser and the swap pair), a K = 2 graph of the data 2 x
+    spatial 2 denoiser against two eager steps, and the full-width
+    denoiser at both layouts."""
+    from denoising_diffusion_deep_fake_tpu_torch.device import (
+        resolve_device)
+    from denoising_diffusion_deep_fake_tpu_torch.parallel import (
+        distributed)
+    from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
+        shard_batch)
+    from denoising_diffusion_deep_fake_tpu_torch.training.state import (
+        model_states)
+
+    check(distributed.maybe_initialize_from_env(),
+          "20d: no D3F_* launch environment")
+    check(torch.distributed.get_backend() == "nccl", "20d: not NCCL")
+    rank = distributed.process_index()
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic, cudnn.benchmark = True, False
+    dev = resolve_device()
+
+    def rows(b, t):
+        return shard_batch(b, t.mesh).to(dev)
+
+    out = {"s4": _dp_step("denoiser", dev, rows, SP_BATCH, DP_SIZE,
+                          spatial_parallel=4),
+           "d2s2": _dp_step("denoiser", dev, rows, 4, DP_SIZE,
+                            spatial_parallel=2),
+           "swap_d2s2": _dp_step("swap", dev, rows, 4, DP_SIZE,
+                                 spatial_parallel=2)}
+    rng = np.random.default_rng(SEED + 103)
+    group = [torch.from_numpy(rng.integers(0, 256, (4, DP_SIZE, DP_SIZE, 3),
+                                           np.uint8)) for _ in range(2)]
+    eager_t, graph_t = (_dp_trainer("denoiser", dev, 4, DP_SIZE,
+                                    spatial_parallel=2) for _ in "ab")
+    eager_s, graph_s = (t.init_state(seed=SEED) for t in (eager_t, graph_t))
+    for b in group:
+        eager_t.train_step(eager_s, rows(b, eager_t))
+    graph_t.make_super_step(2)(graph_s, *(rows(b, graph_t) for b in group))
+    torch.cuda.synchronize()
+    out["graph_max_diff"] = max(float((a - b).abs().max()) for a, b in zip(
+        *(list(model_states(s)[0].model.state_dict().values())
+          for s in (eager_s, graph_s))))
+    cudnn.deterministic, cudnn.benchmark = False, True
+    out["full_s4"] = _sp_full_width(dev, rank, spatial=4, graph_k=16)
+    out["full_d2s2"] = _sp_full_width(dev, rank, spatial=2, graph_k=16)
+    torch.save(out, workdir / f"sp_nccl_rank{rank}.pt")
+    distributed.shutdown()
+
+
+def spatial_cards(root: Path, dev, card: str) -> None:
+    """20d (``--spatial-cards``, four cards): spatial parallelism over
+    NCCL, each rank on a card of its own, against the one-process steps
+    on card 0."""
+    t0 = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    _launch_ranks("spatial_nccl", root, 4, timeout_s=600)
+    ranks = [torch.load(root / f"sp_nccl_rank{r}.pt", weights_only=False)
+             for r in range(4)]
+    log(f"    (ranks {time.perf_counter() - t0:.1f} s)")
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic, cudnn.benchmark = True, False
+    for key, workload, batch in (("s4", "denoiser", SP_BATCH),
+                                 ("d2s2", "denoiser", 4),
+                                 ("swap_d2s2", "swap", 4)):
+        with (_row_share_loss(2) if workload == "swap"
+              else contextlib.nullcontext()):
+            one = _dp_step(workload, dev, lambda b, t: b.to(dev), batch,
+                           DP_SIZE)
+        _dp_compare(f"{key} {DP_SIZE}^2 x{batch}", ranks[0][key], one,
+                    phase="20d", ranks="4 NCCL ranks on 4 cards")
+        check(all(torch.equal(a, b) if isinstance(a, torch.Tensor)
+                  else a == b for r in ranks[1:] for a, b in zip(
+                      r[key].values(), ranks[0][key].values())),
+              f"20d {key}: the ranks' states differ")
+    graphs = [r["graph_max_diff"] for r in ranks]
+    check(graphs == [0.0] * 4, f"20d K = 2 graph of the data 2 x spatial 2 "
+          f"denoiser: its weights differ from two eager steps' by {graphs}")
+    log("  20d K = 2 graph of the data 2 x spatial 2 denoiser, halos "
+        f"captured: bit-equal to two eager steps on every rank [{card}]")
+    cudnn.deterministic, cudnn.benchmark = False, True
+    for key, what, layout in (("full_s4", "data 1 x spatial 4", (1, 4)),
+                              ("full_d2s2", "data 2 x spatial 2", (2, 2))):
+        full = [r[key] for r in ranks]
+        _sp_hold_full_width(full, *layout, dev, card, f"20d {what}")
+        step_ms = max(f["step_ms"] for f in full)
+        halo = full[0]["census"].get("collective-permute", {})
+        reduce = full[0]["census"].get("all-reduce", {})
+        busy = full[0].get("busy_ms", 0.0)
+        log(f"  20d {what}, 448^2 x16 resnet34 bf16 over NCCL: "
+            f"{16 / step_ms * 1e3:.1f} imgs/s ({step_ms:.1f} ms a step, "
+            f"host clock, mean of 5), first losses "
+            f"{[round(f['first_loss'], 6) for f in full]}, peak memory "
+            f"{[round(f['peak_gb'], 2) for f in full]} GB; rank 0 kernels "
+            f"{busy:.3f} ms a step (idle {1 - busy / step_ms:.1%}); a step: "
+            f"{halo.get('count', 0)} halo exchanges, "
+            f"{halo.get('total_mib', 0):.3f} MiB a rank, "
+            f"{reduce.get('count', 0)} all-reduces, "
+            f"{reduce.get('total_mib', 0):.3f} MiB; one exchange of the "
+            f"stem's rows {full[0]['halo_ms']:.3f} ms of host; K = 16 "
+            f"graph {16 / max(f['graph_step_ms'] for f in full) * 1e3:.1f} "
+            f"imgs/s [{card}]")
+        check(all(not f["violations"] for f in full),
+              f"20d census: {[f['violations'] for f in full]}")
+    log(f"  phase 20d took {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def spatial_parallel(root: Path, dev, launches, card: str,
+                     main_run: dict) -> tuple[dict, dict]:
+    """Phase 20: 20a the noise kernels' row window; 20b two ranks on the
+    one card over gloo with spatial_parallel: 2 against the one-process
+    step; 20c the full-width denoiser over those two ranks. Returns the
+    launch counts by path and 20a's times."""
+    t20 = time.perf_counter()
+    log("[20a] the noise kernels' row window")
+    times = noise_row_window(dev, card)
+    log(f"    ({time.perf_counter() - t20:.1f} s)")
+
+    log("[20b, 20c] two ranks on the one card over gloo, "
+        "spatial_parallel: 2")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    root.mkdir(parents=True, exist_ok=True)
+    write_frames(root / "frames_64", 16, DP_SIZE, SEED + 102)
+    _launch_ranks("spatial", root, 2, timeout_s=400)
+    ranks = [torch.load(root / f"sp_rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    log(f"    (ranks {time.perf_counter() - t0:.1f} s)")
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        for workload, size in (("denoiser", DP_SIZE), ("swap", DP_SIZE),
+                               ("balance", DP_SIZE), ("denoiser_32", 32)):
+            kind = workload.split("_")[0]
+            with (_row_share_loss(2) if kind == "swap"
+                  else contextlib.nullcontext()):
+                one = _dp_step(kind, dev, lambda b, t: b.to(dev), SP_BATCH,
+                               size)
+            _dp_compare(f"{workload} {size}^2", ranks[0][workload], one,
+                        phase="20b", ranks="2 spatial ranks (gloo)")
+            check(all(torch.equal(a, b) if isinstance(a, torch.Tensor)
+                      else a == b for a, b in zip(
+                          ranks[0][workload].values(),
+                          ranks[1][workload].values())),
+                  f"20b {workload}: the ranks' states differ")
+        plain = _dp_step("swap", dev, lambda b, t: b.to(dev), SP_BATCH,
+                         DP_SIZE)
+        parted = max(float((ranks[0]["swap"][k].double() - v.double()).abs()
+                           .max() / v.double().abs().max())
+                     for k, v in plain.items() if k.startswith("1.grad."))
+        log(f"  20b swap pair: held against one process with its loss in "
+            f"the ranks' 2 row shares; against the plain one-process step "
+            f"model b's gradients part by {parted:.2e} of a tensor's "
+            f"largest at most (the loss's row order, lr 1e-3) [{card}]")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    for policy in ("dots", "full"):
+        diffs = [r[f"remat_{policy}"] for r in ranks]
+        check(diffs == [0.0, 0.0], f"20b remat {policy}: the spatial step "
+              f"differs from the one without remat by {diffs}")
+    log("  20b remat dots and full over S = 2: each rank's step bit-equal "
+        f"to its step without remat [{card}]")
+    for r in ranks:
+        check(not r["violations"], f"20b census: {r['violations']}")
+        check(r["census"].get("collective-permute", {}).get("count", 0) > 0,
+              "20b: the spatial step exchanged no halo")
+        check(r["fit"]["step"] == 4 and tuple(r["fit"]["mesh"]) == (1, 2),
+              f"20b fit_denoiser: {r['fit']['step']} steps on "
+              f"{r['fit']['mesh']}")
+    check(all(torch.equal(a, b) for a, b in zip(
+        ranks[0]["fit"]["weights"], ranks[1]["fit"]["weights"])),
+        "20b fit_denoiser: the ranks' weights differ")
+    census = ranks[0]["census"]
+    log("  20b census of one 64^2 x2 fp32 step over S = 2: " + ", ".join(
+        f"{op} {c['count']} calls, {c['total_mib']:.3f} MiB (largest "
+        f"{c['max_mib']:.3f})" for op, c in census.items()))
+    log("  20b: fit_denoiser from 64^2 .npy frames through the host "
+        "loader, 4 steps on a (1, 2) mesh, the ranks' weights equal; "
+        f"launches by path {ranks[0]['counts']}")
+
+    log("[20c] 448^2 x16 resnet34 bf16 over S = 2 against one process")
+    full = [r["full"] for r in ranks]
+    _sp_hold_full_width(full, 1, 2, dev, card, "20c")
+    step_ms = max(f["step_ms"] for f in full)
+    busy = full[0].get("busy_ms", 0.0)
+    halo = full[0]["census"].get("collective-permute", {})
+    reduce = full[0]["census"].get("all-reduce", {})
+    log(f"  20c: {16 / step_ms * 1e3:.1f} imgs/s ({step_ms:.1f} ms a step, "
+        f"host clock, mean of 5, two ranks sharing the card) beside phase "
+        f"5's {16 / main_run['step_ms'] * 1e3:.1f} in one process [{card}]")
+    log(f"  20c peak memory: rank 0 {full[0]['peak_gb']:.2f} GB, rank 1 "
+        f"{full[1]['peak_gb']:.2f} GB, beside phase 5's one-process "
+        f"{main_run['peak_gb']:.2f} GB [{card}]")
+    log(f"  20c rank 0: kernels {busy:.3f} ms a step, device idle "
+        f"{1 - busy / step_ms:.1%} of its step" if busy > 0 else
+        "  20c: the profiler saw no device time")
+    log(f"  20c a step: {halo.get('count', 0)} halo exchanges, "
+        f"{halo.get('total_mib', 0):.3f} MiB sent a rank (through the host:"
+        f" gloo), {reduce.get('count', 0)} all-reduces, "
+        f"{reduce.get('total_mib', 0):.3f} MiB; one halo exchange of the "
+        f"stem's rows (16 x 64 x 224 bf16 each way) costs the host "
+        f"{full[0]['halo_ms']:.3f} ms [{card}]")
+    check(not full[0]["violations"], f"20c census: {full[0]['violations']}")
+    log(f"  phase 20 took {time.perf_counter() - t20:.1f} s [{card}]")
+    counts = {**ranks[0]["counts"]}
+    return counts, times
+
+
 def dp_worker(argv: list) -> int:
-    """``--dp-worker nccl|gloo WORKDIR [DATA]``: one rank of phase 19."""
+    """``--dp-worker nccl|gloo|spatial WORKDIR [DATA]``: one rank of phase
+    19 (20b and 20c for ``spatial``)."""
     mode, workdir = argv[0], Path(argv[1])
     card = card_line()
     if mode == "nccl":
         _dp_worker_nccl(workdir, Path(argv[2]), card)
+    elif mode == "spatial":
+        _sp_worker_gloo(workdir)
+    elif mode == "spatial_nccl":
+        _sp_worker_nccl(workdir)
     else:
         _dp_worker_gloo(workdir, card)
+    return 0
+
+
+def spatial_cards_main() -> int:
+    """``--spatial-cards``: build the kernels, then phase 20d alone."""
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import _build
+
+    faulthandler.dump_traceback_later(1100, exit=True)
+    check(torch.cuda.device_count() >= 4, f"--spatial-cards: needs 4 "
+          f"cards, {torch.cuda.device_count()} here")
+    card = card_line()
+    log(card)
+    sources = sorted({k[0][:-3] for k in KERNELS.values()})
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
+    log("[20d] spatial parallelism over NCCL, four ranks on four cards")
+    with tempfile.TemporaryDirectory() as tmp:
+        spatial_cards(Path(tmp) / "sp_nccl", torch.device("cuda", 0), card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 
@@ -5626,12 +6342,17 @@ def main() -> int:
                         "here")
     parser.add_argument("--dp-worker", nargs="+", default=None,
                         help=argparse.SUPPRESS)
+    parser.add_argument("--spatial-cards", action="store_true",
+                        help="instead of the phases, check spatial "
+                        "parallelism over NCCL on four cards")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     if args.dp_worker:
         return dp_worker(args.dp_worker)
+    if args.spatial_cards:
+        return spatial_cards_main()
     t_start = time.perf_counter()
     # A hang anywhere prints every thread's stack and exits non-zero within
     # the script's 1200 s limit.
@@ -5842,6 +6563,11 @@ def main() -> int:
             "images.txt", dev, _build.LAUNCHES, card, main_run, graph_rates,
             npy_rates)
 
+        log("[20] spatial parallelism: the noise kernels' row window, two "
+            "ranks on the one card over gloo with spatial_parallel: 2")
+        sp_paths, window_ms = spatial_parallel(
+            Path(tmp) / "sp", dev, _build.LAUNCHES, card, main_run)
+
     paths = {"denoiser_448": main_run["counts"],
              "twopass_640": twopass_run["counts"],
              "balancer_448": balance_counts,
@@ -5850,7 +6576,7 @@ def main() -> int:
              "serve_ddim_448": ddim_counts, **loop_paths, **i420_paths,
              **graph_paths, **cache_paths, **family_paths, **jpeg_paths,
              **knob_paths, **other_paths, **efficientnet_paths,
-             **dp_paths}
+             **dp_paths, **sp_paths}
     first_path = {"affine_warp_fused": "denoiser_448",
                   "warp_axis_pass": "twopass_640",
                   "fused_noise_blend": "denoiser_448",
@@ -5860,6 +6586,7 @@ def main() -> int:
         by_path = {p: c[k] for p, c in paths.items() if c.get(k)}
         extra = ({"device_offset_ms": offset_ms[k]} if k in offset_ms
                  else {})
+        extra.update(window_ms.get(k, {}))
         kernels.append(dict(
             name=k, route="cuda", source=f"{CSRC}/{src}",
             replaces=f"{REPO}/{tpu}", launches=by_path[first_path[k]],

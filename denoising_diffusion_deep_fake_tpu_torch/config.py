@@ -10,9 +10,10 @@ config.py``: ``BaseConfig``, ``DeepFakeConfig``, ``DenoiserConfig``,
 ``yaml`` is imported only by ``read_yaml_file_into_dict``: the GPU machine
 may lack PyYAML, and ``chip_smoke.py`` builds its config from a dict.
 
-Every knob of the schema is ported; ``spatial_parallel > 1`` is kept (so
-configs load unchanged) and refused by the trainers' mesh
-(``parallel/mesh.py``, ROADMAP A9b).
+Every knob of the schema is ported; ``spatial_parallel > 1`` runs the
+resnet family's U-Net over ``data_parallel * spatial_parallel`` processes
+(``parallel/``); the trainers' mesh refuses it for any other encoder and
+for ``patchify_stem > 1`` (``parallel/mesh.py``, ROADMAP A9c).
 """
 
 from __future__ import annotations
@@ -86,6 +87,10 @@ class BaseConfig:
         if self.batch_size % self.data_parallel != 0:
             raise ValueError(
                 "batch_size must divide evenly across data_parallel")
+        if (self.image_size is not None
+                and self.image_size % self.spatial_parallel != 0):
+            raise ValueError(
+                "image_size must divide evenly across spatial_parallel")
         if self.upload_format not in ("rgb", "i420"):
             raise ValueError(f"upload_format must be 'rgb' or 'i420', got "
                              f"{self.upload_format!r}")

@@ -32,6 +32,16 @@ terms of size ``mean / sigma`` in fp32, a per-channel error large enough
 to move a conv's gradient by several percent where a channel's mean is
 far from 0. Outside a group nothing of this runs.
 
+With ``spatial_parallel > 1`` (``parallel/halo.py``) a rank holds H rows
+of its data row's images: ``Conv2d`` and the stem's ``MaxPool2d`` exchange
+their halos with the neighbouring ranks and pad only at the global edges;
+batch norm's sums run over the ranks that hold distinct rows, the world
+at a sharded level (the same reduction as above: every rank holds its own
+share of the global batch's pixels) and the data group at a level the
+encoder gathered and runs replicated (``halo.batch_norm_group``); the
+encoder gathers the rows before the first stride whose rows stop
+dividing. With no spatial layout open every module is exactly as above.
+
 An EMA shadow runs train-mode BN without writing its running statistics
 (``freeze_running_stats_``): it normalises with the batch's statistics, and
 its own statistics move only through the EMA blend, as the JAX package
@@ -51,8 +61,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from denoising_diffusion_deep_fake_tpu_torch.parallel import halo
 from denoising_diffusion_deep_fake_tpu_torch.parallel.collectives import (
-    all_reduce_,
+    group_all_reduce_,
 )
 from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
     training_mesh,
@@ -88,12 +99,30 @@ RESNET_SPECS = {
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing in the input's dtype with fp32 weights."""
+    """``nn.Conv2d`` computing in the input's dtype with fp32 weights; on a
+    rank's H rows (``parallel/halo.py``) with its halos."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        layout = halo.active()
+        if layout is not None:
+            return halo.conv2d(x, self.weight.to(x.dtype), bias,
+                               self.stride, self.padding, self.dilation,
+                               self.groups, layout)
         return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
                         self.padding, self.dilation, self.groups)
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """``nn.MaxPool2d``; on a rank's H rows with its halos, ``-inf`` at
+    the global edges."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        layout = halo.active()
+        if layout is None:
+            return super().forward(x)
+        return halo.max_pool2d(x, self.kernel_size, self.stride,
+                               self.padding, layout)
 
 
 class BatchNorm2d(nn.Module):
@@ -134,8 +163,14 @@ class BatchNorm2d(nn.Module):
     def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
         """Train-mode BN over the global batch of a process group (the
         module docstring); every rank has as many rows."""
+        replicated = halo.batch_norm_group()
+        if replicated is None:
+            mesh = training_mesh()
+            group, shares = mesh.group, mesh.world
+        else:
+            group, shares = replicated
         y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
-                                              self.eps, training_mesh())
+                                              self.eps, group, shares)
         if self.update_running_stats:
             with torch.no_grad():
                 m = self.momentum
@@ -149,27 +184,28 @@ def _per_channel(v: torch.Tensor) -> torch.Tensor:
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
-    """``(y, mean, var)`` of train-mode batch norm over the ranks' rows
-    together, in fp32 (float64 for a float64 ``x``); ``mean`` and ``var``
-    (the global statistics) carry no
+    """``(y, mean, var)`` of train-mode batch norm over the rows of the
+    ``shares`` ranks of ``group`` together, in fp32 (float64 for a float64
+    ``x``); ``mean`` and ``var`` (the global statistics) carry no
     gradient. The weight's and bias's gradients are this rank's sums: the
-    gradient average (``all_reduce_grads_``) makes them the global
+    gradient reduction (``all_reduce_grads_``) makes them the global
     ones."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, mesh):
+    def forward(ctx, x, weight, bias, eps, group, shares):
         c = x.shape[1]
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        count = xf.numel() // c * mesh.world
-        sums = all_reduce_(torch.cat([xf.sum(dim=(0, 2, 3)),
-                                      xf.square().sum(dim=(0, 2, 3))]), mesh)
+        count = xf.numel() // c * shares
+        sums = group_all_reduce_(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                            xf.square().sum(dim=(0, 2, 3))]),
+                                 group)
         mean = sums[:c] / count
         var = (sums[c:] / count - mean.square()).clamp_min(0.0)
         invstd = torch.rsqrt(var + eps)
         xhat = (xf - _per_channel(mean)) * _per_channel(invstd)
         y = xhat * _per_channel(weight) + _per_channel(bias)
         ctx.save_for_backward(xhat, invstd, weight)
-        ctx.mesh, ctx.count = mesh, count
+        ctx.group, ctx.count = group, count
         ctx.mark_non_differentiable(mean, var)
         return y.to(x.dtype), mean, var
 
@@ -181,10 +217,10 @@ class _GlobalBatchNorm(torch.autograd.Function):
         local = torch.cat([dyf.sum(dim=(0, 2, 3)),
                            (dyf * xhat).sum(dim=(0, 2, 3))])
         grad_bias, grad_weight = local[:c], local[c:]
-        sums = all_reduce_(local.clone(), ctx.mesh) / ctx.count
+        sums = group_all_reduce_(local.clone(), ctx.group) / ctx.count
         dx = _per_channel(weight * invstd) * (
             dyf - _per_channel(sums[:c]) - xhat * _per_channel(sums[c:]))
-        return dx.to(dy.dtype), grad_weight, grad_bias, None, None
+        return dx.to(dy.dtype), grad_weight, grad_bias, None, None, None
 
 
 def freeze_running_stats_(model: nn.Module) -> nn.Module:
@@ -266,7 +302,7 @@ class ResNetEncoder(nn.Module):
         self.conv1 = Conv2d(in_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
-        self.maxpool = nn.MaxPool2d(kernel_size=3, stride=2, padding=1)
+        self.maxpool = MaxPool2d(kernel_size=3, stride=2, padding=1)
         inplanes = 64
         for stage, (n_blocks, width) in enumerate(
                 zip(spec.blocks, spec.widths)):
@@ -288,11 +324,15 @@ class ResNetEncoder(nn.Module):
             w * self.spec.expansion for w in self.spec.widths)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """The pyramid; on a rank's H rows, each level's rows gathered
+        before a stride they stop dividing (``halo.gather_before_stride``;
+        the features keep the rows as they were)."""
         features = [x]
         y = self.relu(self.bn1(self.conv1(x)))
         features.append(y)
-        y = self.maxpool(y)
-        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
-            y = layer(y)
+        y = self.maxpool(halo.gather_before_stride(y, 2))
+        for i, layer in enumerate((self.layer1, self.layer2, self.layer3,
+                                   self.layer4)):
+            y = layer(halo.gather_before_stride(y, 2) if i else y)
             features.append(y)
         return features

@@ -20,6 +20,15 @@ Port of ``denoising_diffusion_deep_fake_tpu/models/unet.py:122-202,
 in_channels=3, classes=3, activation=None)``, the reference's only model).
 It has no noise-level conditioning: a blind x0-predictor.
 
+Spatial parallelism (``spatial_parallel > 1``, ``parallel/halo.py``): in
+a step's ``halo.row_sharded`` scope ``Unet.forward`` runs on the rank's H
+rows; its convolutions exchange halos (the decoder's ``Conv2dReLU`` and
+the head are the encoder's ``Conv2d``), the x2 nearest upsample and the
+skip concatenation stay local to the rank, and at the level where the
+encoder gathered its rows the decoder takes the rank's rows back
+(``DecoderBlock``). Only the resnet family is ported: any other encoder,
+and ``PatchifiedUnet``, raise there (ROADMAP A9c).
+
 Layout: ``Unet.forward`` takes and returns NHWC, like the flax model. It
 casts the input to the compute dtype and returns fp32 (unet.py:181, 202).
 Inside, it works on the NCHW view of the NHWC batch, which is
@@ -86,6 +95,10 @@ from denoising_diffusion_deep_fake_tpu_torch.models.vgg import (
 from denoising_diffusion_deep_fake_tpu_torch.models.xception import (
     XceptionEncoder,
 )
+from denoising_diffusion_deep_fake_tpu_torch.parallel import halo
+from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
+    refuse_unported_spatial,
+)
 
 
 DECODER_CHANNELS = (256, 128, 64, 32, 16)
@@ -146,7 +159,7 @@ class DecoderBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor | None
                 ) -> torch.Tensor:
-        y = F.interpolate(x, scale_factor=2, mode="nearest")
+        y = halo.take_back(F.interpolate(x, scale_factor=2, mode="nearest"))
         if skip is not None:
             y = torch.cat([y, skip.to(y.dtype)], dim=1)
         return self.conv2(self.conv1(y))
@@ -197,15 +210,19 @@ class Unet(nn.Module):
                 drop_masks: torch.Tensor | None = None) -> torch.Tensor:
         """``drop_masks``: the stochastic-depth masks, ``(n, B)`` for the
         ``n = len(drop_keep_probs())`` blocks that drop, or None."""
+        mesh = halo.sharding_mesh()
+        if mesh is not None:
+            refuse_unported_spatial(mesh.spatial, self.encoder_name)
         x = x_nhwc.permute(0, 3, 1, 2).to(self.dtype)
-        if drop_masks is None:
-            features = self.encoder(x)
-        elif not self.drop_keep_probs():
-            raise ValueError(f"the {self.encoder_name} encoder has no block "
-                             "that drops; drop_masks must be None")
-        else:
-            features = self.encoder(x, drop_masks)
-        y = self.segmentation_head(self.decoder(features))
+        with halo.unet_forward(x.shape[2]):
+            if drop_masks is None:
+                features = self.encoder(x)
+            elif not self.drop_keep_probs():
+                raise ValueError(f"the {self.encoder_name} encoder has no "
+                                 "block that drops; drop_masks must be None")
+            else:
+                features = self.encoder(x, drop_masks)
+            y = self.segmentation_head(self.decoder(features))
         return y.permute(0, 2, 3, 1).to(torch.float32)
 
     def drop_keep_probs(self) -> tuple[float, ...]:
@@ -259,6 +276,9 @@ class PatchifiedUnet(nn.Module):
     def forward(self, x_nhwc: torch.Tensor,
                 drop_masks: torch.Tensor | None = None) -> torch.Tensor:
         p = self.patch
+        mesh = halo.sharding_mesh()
+        if mesh is not None:
+            refuse_unported_spatial(mesh.spatial, self.encoder_name, p)
         if x_nhwc.shape[1] % (32 * p) or x_nhwc.shape[2] % (32 * p):
             raise ValueError(
                 f"patchify_stem={p}: H/W must be divisible by {32 * p} "

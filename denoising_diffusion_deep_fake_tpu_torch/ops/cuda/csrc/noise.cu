@@ -32,6 +32,15 @@
 // vector accesses: the pointers are then off a group's alignment). At
 // base 0 every launch is what it was without one.
 //
+// The row window: a spatial rank holds rows s*H/S .. (s+1)*H/S - 1 of each
+// of its images, so its elements are not one run of the global batch but
+// B runs of run_len = (H/S) * W * C elements, one every run_stride = H * W
+// * C. Run j (blockIdx.y) starts at global element element_base + j *
+// run_stride and at local element j * run_len, with its own first group
+// and shift: W * C need not be a multiple of 4, so a run may start inside
+// a Philox group. A launch of one run (run_len = n) is the contiguous
+// launch above, bit for bit.
+//
 // Rounding: every fp32 operation rounds on its own (the __f*_rn intrinsics,
 // and the file is built with -fmad=false), as PyTorch's elementwise ops do,
 // and logf / sincosf / sqrtf are CUDA's accurate versions (no fast math).
@@ -94,13 +103,13 @@ constexpr long long U8_MAX_N = 0x7FFFFFFFLL;
 enum Kind { KIND_F32 = 0, KIND_U8 = 2 };
 
 struct BlendParams {
-  long long n;            // elements
   long long per_sample;   // H * W * C
   int vec;                // pointers aligned for one vector access a group
   unsigned long long offset;
   const long long* offset_at;  // the offset on the device (AT kernels)
-  unsigned long long gbase;    // element_base / 4: the first global group
-  int shift;                   // element_base % 4: lanes of group 0 skipped
+  unsigned long long base;     // element_base: run 0's first global element
+  long long run_len;           // elements of a run (n for one run)
+  long long run_stride;        // global elements from one run to the next
   uint32_t k0, k1;        // seed words
   const float* ratios;    // (B,)
   float mean255[MAX_C];
@@ -160,38 +169,58 @@ __device__ __forceinline__ float blend(float x, float eps, float r) {
                    __fmul_rn(__fsqrt_rn(r), eps));
 }
 
+// Run blockIdx.y of a launch: its first global group, the lanes of that
+// group below the run (shift), and its first local element.
+struct Run {
+  unsigned long long gbase;
+  long long local0;
+  int shift;
+};
+
+__device__ __forceinline__ Run this_run(const BlendParams& p) {
+  const long long j = blockIdx.y;
+  const unsigned long long start =
+      p.base + (unsigned long long)j * (unsigned long long)p.run_stride;
+  return {start >> 2, j * p.run_len, (int)(start & 3)};
+}
+
 template <bool AT>
 __global__ void __launch_bounds__(THREADS)
 noise_blend_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
                        BlendParams p) {
+  const Run run = this_run(p);
+  const long long n = p.run_len;
+  x += run.local0;
+  out += run.local0;
   const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
-  // Local index of the group's lane 0: below 0 for the lanes of a shared
-  // first group that belong to the rows before the launch's.
-  const long long i0 = 4 * g - p.shift;
-  if (i0 >= p.n) return;
-  const float4 e4 = normals4(p.gbase + (unsigned long long)g,
+  // Index in the run of the group's lane 0: below 0 for the lanes of a
+  // shared first group that belong to the rows before the run's.
+  const long long i0 = 4 * g - run.shift;
+  if (i0 >= n) return;
+  const float4 e4 = normals4(run.gbase + (unsigned long long)g,
                              stream_offset<AT>(p), p);
   const float eps[4] = {e4.x, e4.y, e4.z, e4.w};
-  const bool full = i0 >= 0 && i0 + 4 <= p.n;
+  const bool full = i0 >= 0 && i0 + 4 <= n;
+  const bool vec = p.vec && run.shift == 0;
 
   float v[4];
-  if (p.vec && full) {
+  if (vec && full) {
     const float4 q = *reinterpret_cast<const float4*>(x + i0);
     v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
   } else {
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      v[k] = i0 + k >= 0 && i0 + k < p.n ? x[i0 + k] : 0.f;
+      v[k] = i0 + k >= 0 && i0 + k < n ? x[i0 + k] : 0.f;
   }
 
   // Sample of the first element in the launch; the next follow on.
-  const long long first = i0 < 0 ? 0 : i0;
+  const long long first = run.local0 + (i0 < 0 ? 0 : i0);
   long long b = first / p.per_sample;
   long long rem = first - b * p.per_sample;
   float r[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const bool ok = i0 + k >= 0 && i0 + k < p.n;
+    const bool ok = i0 + k >= 0 && i0 + k < n;
     r[k] = ok ? p.ratios[b] : 0.f;
     if (ok && ++rem == p.per_sample) {
       rem = 0;
@@ -202,27 +231,28 @@ noise_blend_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
 #pragma unroll
   for (int k = 0; k < 4; ++k) o[k] = blend(v[k], eps[k], r[k]);
 
-  if (p.vec && full) {
+  if (vec && full) {
     *reinterpret_cast<float4*>(out + i0) = make_float4(o[0], o[1], o[2], o[3]);
   } else {
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      if (i0 + k >= 0 && i0 + k < p.n) out[i0 + k] = o[k];
+      if (i0 + k >= 0 && i0 + k < n) out[i0 + k] = o[k];
   }
 }
 
-// sqrt(1 - r) and sqrt(r) for element i's sample, in the blocks whose
-// elements straddle samples; out of line, since no other block calls it.
+// sqrt(1 - r) and sqrt(r) for the sample of element i of a run that starts
+// at local element local0, in the blocks whose elements straddle samples;
+// out of line, since no other block calls it.
 __device__ __noinline__ float2 sample_factors(const float* ratios, uint32_t i,
-                                              uint32_t n,
+                                              uint32_t n, uint32_t local0,
                                               uint32_t per_sample) {
-  const float r = i < n ? ratios[i / per_sample] : 0.f;
+  const float r = i < n ? ratios[(local0 + i) / per_sample] : 0.f;
   return make_float2(__fsqrt_rn(__fsub_rn(1.0f, r)), __fsqrt_rn(r));
 }
 
 // out = sqrt(1 - r[b]) * table[c][x] + sqrt(r[b]) * eps over a uint8 batch
-// of C channels; n < 2^31 (the host checks it). Group g of the launch is
-// global group gbase + g, whose lane 0 is local element 4 g - shift: in
+// of C channels; n < 2^31 (the host checks it). Group g of a run is global
+// group gbase + g, whose lane 0 is element 4 g - shift of the run: in
 // 32-bit arithmetic the skipped lanes of group 0 wrap to 2^32 - 3 or above,
 // past any n, so the one test `i < n` skips them.
 template <int C, bool AT>
@@ -230,8 +260,13 @@ __global__ void __launch_bounds__(U8_THREADS, 65536 / (64 * U8_THREADS))
 normalise_noise_blend_u8_kernel(const uint8_t* __restrict__ x,
                                 float* __restrict__ out, BlendParams p) {
   __shared__ float table[C][256];
-  const uint32_t n = (uint32_t)p.n, per_sample = (uint32_t)p.per_sample;
-  const uint32_t shift = (uint32_t)p.shift;
+  const Run run = this_run(p);
+  const uint32_t n = (uint32_t)p.run_len, per_sample = (uint32_t)p.per_sample;
+  const uint32_t local0 = (uint32_t)run.local0;
+  x += local0;
+  out += local0;
+  const uint32_t shift = (uint32_t)run.shift;
+  const bool vec = p.vec && shift == 0;
   const uint32_t first = blockIdx.x * (U8_GROUPS * U8_THREADS);
   const uint32_t g0 = first + threadIdx.x;
 
@@ -240,7 +275,7 @@ normalise_noise_blend_u8_kernel(const uint8_t* __restrict__ x,
 #pragma unroll
   for (int j = 0; j < U8_GROUPS; ++j) {
     const uint32_t i0 = 4 * (g0 + j * U8_THREADS) - shift;
-    if (p.vec && i0 + 4 <= n) {
+    if (vec && i0 + 4 <= n) {
       bytes[j] = *reinterpret_cast<const uint32_t*>(x + i0);
     } else {
       bytes[j] = 0;
@@ -249,11 +284,12 @@ normalise_noise_blend_u8_kernel(const uint8_t* __restrict__ x,
         if (i0 + k < n) bytes[j] |= (uint32_t)x[i0 + k] << (8 * k);
     }
   }
-  // One ratio for the block unless its elements straddle samples.
-  const uint32_t lo = first == 0 ? 0 : 4 * first - shift;
+  // One ratio for the block unless its elements straddle samples (a block
+  // of a window's run past the run's end takes its last element's).
+  const uint32_t lo = min(first == 0 ? 0 : 4 * first - shift, n - 1);
   const uint32_t hi = min(n, 4 * (first + U8_GROUPS * U8_THREADS) - shift) - 1;
-  const uint32_t b = lo / per_sample;
-  const bool one_sample = hi - b * per_sample < per_sample;
+  const uint32_t b = (local0 + lo) / per_sample;
+  const bool one_sample = local0 + hi - b * per_sample < per_sample;
   const float r = p.ratios[b];
 
 #pragma unroll
@@ -270,7 +306,7 @@ normalise_noise_blend_u8_kernel(const uint8_t* __restrict__ x,
     const uint32_t g = g0 + j * U8_THREADS;
     const uint32_t i0 = 4 * g - shift;
     if (4 * g >= n + shift) break;
-    const float4 e4 = normals4(p.gbase + g, offset, p);
+    const float4 e4 = normals4(run.gbase + g, offset, p);
     const float eps[4] = {e4.x, e4.y, e4.z, e4.w};
     // i0 + 4C wraps a skipped lane 0 back to its channel below the launch.
     const int c0 = (int)((i0 + 4u * C) % C);
@@ -279,10 +315,11 @@ normalise_noise_blend_u8_kernel(const uint8_t* __restrict__ x,
     for (int k = 0; k < 4; ++k) {
       const float v = table[(c0 + k) % C][(bytes[j] >> (8 * k)) & 0xFF];
       float2 f = make_float2(keep, mix);
-      if (!one_sample) f = sample_factors(p.ratios, i0 + k, n, per_sample);
+      if (!one_sample)
+        f = sample_factors(p.ratios, i0 + k, n, local0, per_sample);
       o[k] = __fadd_rn(__fmul_rn(f.x, v), __fmul_rn(f.y, eps[k]));
     }
-    if (p.vec && i0 + 4 <= n) {
+    if (vec && i0 + 4 <= n) {
       *reinterpret_cast<float4*>(out + i0) =
           make_float4(o[0], o[1], o[2], o[3]);
     } else {
@@ -294,11 +331,11 @@ normalise_noise_blend_u8_kernel(const uint8_t* __restrict__ x,
 }
 
 template <int C, bool AT>
-void launch_u8(long long groups, const uint8_t* x, float* out,
+void launch_u8(long long groups, unsigned runs, const uint8_t* x, float* out,
                const BlendParams& p, cudaStream_t s) {
   const long long span = (long long)U8_GROUPS * U8_THREADS;
-  normalise_noise_blend_u8_kernel<C, AT>
-      <<<(unsigned)((groups + span - 1) / span), U8_THREADS, 0, s>>>(x, out,
+  const dim3 grid((unsigned)((groups + span - 1) / span), runs);
+  normalise_noise_blend_u8_kernel<C, AT><<<grid, U8_THREADS, 0, s>>>(x, out,
                                                                      p);
 }
 
@@ -320,20 +357,22 @@ unsigned grid_for(long long groups) {
   return (unsigned)((groups + THREADS - 1) / THREADS);
 }
 
+// `groups`: the Philox groups of the longest run; `runs`: blockIdx.y.
 template <bool AT>
-void launch_blend(int in_kind, int chans, long long groups, const void* x,
-                  float* out, const BlendParams& p, cudaStream_t s) {
+void launch_blend(int in_kind, int chans, long long groups, unsigned runs,
+                  const void* x, float* out, const BlendParams& p,
+                  cudaStream_t s) {
   const uint8_t* x8 = static_cast<const uint8_t*>(x);
   if (in_kind == KIND_U8) {
     switch (chans) {
-      case 1: launch_u8<1, AT>(groups, x8, out, p, s); break;
-      case 2: launch_u8<2, AT>(groups, x8, out, p, s); break;
-      case 3: launch_u8<3, AT>(groups, x8, out, p, s); break;
-      default: launch_u8<4, AT>(groups, x8, out, p, s); break;
+      case 1: launch_u8<1, AT>(groups, runs, x8, out, p, s); break;
+      case 2: launch_u8<2, AT>(groups, runs, x8, out, p, s); break;
+      case 3: launch_u8<3, AT>(groups, runs, x8, out, p, s); break;
+      default: launch_u8<4, AT>(groups, runs, x8, out, p, s); break;
     }
   } else {
-    noise_blend_f32_kernel<AT><<<grid_for(groups), THREADS, 0, s>>>(
-        static_cast<const float*>(x), out, p);
+    noise_blend_f32_kernel<AT><<<dim3(grid_for(groups), runs), THREADS, 0,
+                                 s>>>(static_cast<const float*>(x), out, p);
   }
 }
 
@@ -342,7 +381,8 @@ int noise_blend(int in_kind, const void* x, float* out, long long n,
                 long long per_sample, int chans, const float* ratios,
                 const float* norm, unsigned long long seed,
                 unsigned long long offset, const long long* offset_at,
-                unsigned long long element_base, void* stream) {
+                unsigned long long element_base, long long run_len,
+                long long run_stride, void* stream) {
   if (n <= 0 || per_sample <= 0 || n % per_sample || chans <= 0 ||
       per_sample % chans || chans > MAX_C)
     return (int)cudaErrorInvalidValue;
@@ -350,23 +390,30 @@ int noise_blend(int in_kind, const void* x, float* out, long long n,
     return (int)cudaErrorInvalidValue;
   if (in_kind != KIND_U8 && in_kind != KIND_F32)
     return (int)cudaErrorInvalidValue;
+  if (run_len <= 0 || n % run_len || run_len % chans || run_stride < 0 ||
+      (run_len < n && run_stride < run_len) || n / run_len > 65535)
+    return (int)cudaErrorInvalidValue;
+  const unsigned runs = (unsigned)(n / run_len);
+  // One run: its own shift; several: any shift when the stride moves it.
   const int shift = (int)(element_base & 3);
-  const long long groups = (n + shift + 3) / 4;
+  const long long groups =
+      runs == 1 || run_stride % 4 == 0 ? (run_len + shift + 3) / 4
+                                       : (run_len + 6) / 4;
   if (groups > (long long)THREADS * 0x7FFFFFFFLL ||
       (in_kind == KIND_U8 && n > U8_MAX_N))
     return (int)cudaErrorInvalidValue;
   if (offset_at && (uintptr_t)offset_at % 8)
     return (int)cudaErrorInvalidValue;
   BlendParams p;
-  p.n = n;
   p.per_sample = per_sample;
   const size_t in_align = in_kind == KIND_U8 ? 4 : 16;
-  p.vec = shift == 0 && (uintptr_t)x % in_align == 0 &&
-          (uintptr_t)out % 16 == 0;
+  p.vec = (uintptr_t)x % in_align == 0 && (uintptr_t)out % 16 == 0 &&
+          (runs == 1 || run_len % 4 == 0);
   p.offset = offset;
   p.offset_at = offset_at;
-  p.gbase = element_base >> 2;
-  p.shift = shift;
+  p.base = element_base;
+  p.run_len = run_len;
+  p.run_stride = run_stride;
   p.k0 = (uint32_t)seed;
   p.k1 = (uint32_t)(seed >> 32);
   p.ratios = ratios;
@@ -376,9 +423,9 @@ int noise_blend(int in_kind, const void* x, float* out, long long n,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (offset_at)
-    launch_blend<true>(in_kind, chans, groups, x, out, p, s);
+    launch_blend<true>(in_kind, chans, groups, runs, x, out, p, s);
   else
-    launch_blend<false>(in_kind, chans, groups, x, out, p, s);
+    launch_blend<false>(in_kind, chans, groups, runs, x, out, p, s);
   return (int)cudaGetLastError();
 }
 
@@ -403,7 +450,8 @@ int philox_words(uint32_t* out, long long groups, unsigned long long seed,
 }  // namespace
 
 // One blend over a contiguous (B, H, W, C) batch of n = B * per_sample
-// elements, the first of which is element `element_base` of the stream.
+// elements in runs of run_len (run_len = n: one run), run j's first
+// element being element `element_base + j * run_stride` of the stream.
 // in_kind 2 (uint8) needs `norm`, a host array of 2 * chans floats
 // (mean*255 then std*255), and n < 2^31; in_kind 0 (fp32) takes NULL.
 // `ratios` is a device array of B floats. Returns 0 or the CUDA error of
@@ -414,9 +462,11 @@ extern "C" int d3f_noise_blend(int in_kind, const void* x, float* out,
                                unsigned long long seed,
                                unsigned long long offset,
                                unsigned long long element_base,
+                               long long run_len, long long run_stride,
                                void* stream) {
   return noise_blend(in_kind, x, out, n, per_sample, chans, ratios, norm,
-                     seed, offset, nullptr, element_base, stream);
+                     seed, offset, nullptr, element_base, run_len,
+                     run_stride, stream);
 }
 
 // The same blend with the offset read by the kernel from `offset_at`, an
@@ -428,10 +478,12 @@ extern "C" int d3f_noise_blend_at(int in_kind, const void* x, float* out,
                                   const float* norm, unsigned long long seed,
                                   const long long* offset_at,
                                   unsigned long long element_base,
+                                  long long run_len, long long run_stride,
                                   void* stream) {
   if (!offset_at) return (int)cudaErrorInvalidValue;
   return noise_blend(in_kind, x, out, n, per_sample, chans, ratios, norm,
-                     seed, 0, offset_at, element_base, stream);
+                     seed, 0, offset_at, element_base, run_len, run_stride,
+                     stream);
 }
 
 // The Philox words of groups group_base .. group_base + groups - 1 into

@@ -31,6 +31,14 @@ W * C`` and draws the noise of its own rows of the global batch, the noise
 the one-process step gives them (``parallel/mesh.py``). The base need not
 be a multiple of 4: the kernels and the plain versions then start inside
 a Philox group.
+
+``sample_stride`` is the row window of a spatial rank, which holds rows
+``s * H/S .. (s + 1) * H/S - 1`` of each image: the batch is then ``B``
+runs of ``(H/S) * W * C`` elements, sample ``b``'s first at global element
+``element_base + b * sample_stride`` (``H * W * C`` of the whole image).
+Each run starts at its own Philox group and lane (``W * C`` need not be a
+multiple of 4). None, or the batch's own ``H * W * C``, is one run: the
+launch without a window.
 """
 
 from __future__ import annotations
@@ -191,13 +199,33 @@ def _blend(x: torch.Tensor, eps: torch.Tensor, ratios: torch.Tensor
     return torch.sqrt(1.0 - r) * x + torch.sqrt(r) * eps
 
 
+def _runs(x: torch.Tensor, sample_stride: int | None) -> tuple[int, int]:
+    """``(run length, run stride)`` of a launch on the NHWC ``x``: one run
+    of every element, or one run a sample ``sample_stride`` apart."""
+    per_sample = x[0].numel() if x.shape[0] else 0
+    if sample_stride is None or sample_stride == per_sample:
+        return x.numel(), 0
+    if sample_stride < per_sample:
+        raise ValueError(f"sample_stride {sample_stride} is below a "
+                         f"sample's {per_sample} elements")
+    return per_sample, int(sample_stride)
+
+
 def _noise_like(x: torch.Tensor, seed: int, offset,
                 noise: torch.Tensor | None,
-                element_base: int = 0) -> torch.Tensor:
+                element_base: int = 0,
+                sample_stride: int | None = None) -> torch.Tensor:
     if noise is not None:
         return noise.to(torch.float32)
-    return normal_plain(x.numel(), seed=seed, offset=offset, device=x.device,
-                        element_base=element_base).reshape(x.shape)
+    run, stride = _runs(x, sample_stride)
+    if run == x.numel():
+        return normal_plain(x.numel(), seed=seed, offset=offset,
+                            device=x.device,
+                            element_base=element_base).reshape(x.shape)
+    return torch.cat([
+        normal_plain(run, seed=seed, offset=offset, device=x.device,
+                     element_base=element_base + j * stride)
+        for j in range(x.shape[0])]).reshape(x.shape)
 
 
 def fused_normalise_noise_blend_plain(batch_u8: torch.Tensor,
@@ -205,26 +233,29 @@ def fused_normalise_noise_blend_plain(batch_u8: torch.Tensor,
                                       norm: list[float], *, seed: int,
                                       offset=0,
                                       noise: torch.Tensor | None = None,
-                                      element_base: int = 0
+                                      element_base: int = 0,
+                                      sample_stride: int | None = None
                                       ) -> torch.Tensor:
     """Plain version: normalise (a true division), then blend with
     ``noise`` or with the kernel's stream of ``(seed, offset)`` from
-    element ``element_base`` on."""
+    element ``element_base`` on (in runs ``sample_stride`` apart)."""
     c = batch_u8.shape[-1]
     m255 = torch.tensor(norm[:c], dtype=torch.float32, device=batch_u8.device)
     s255 = torch.tensor(norm[c:], dtype=torch.float32, device=batch_u8.device)
     x = (batch_u8.to(torch.float32) - m255) / s255
-    return _blend(x, _noise_like(x, seed, offset, noise, element_base),
-                  ratios)
+    return _blend(x, _noise_like(x, seed, offset, noise, element_base,
+                                 sample_stride), ratios)
 
 
 def fused_noise_blend_plain(x: torch.Tensor, ratios: torch.Tensor, *,
                             seed: int, offset=0,
                             noise: torch.Tensor | None = None,
-                            element_base: int = 0) -> torch.Tensor:
+                            element_base: int = 0,
+                            sample_stride: int | None = None
+                            ) -> torch.Tensor:
     """Plain version of the fp32 blend."""
-    return _blend(x, _noise_like(x, seed, offset, noise, element_base),
-                  ratios)
+    return _blend(x, _noise_like(x, seed, offset, noise, element_base,
+                                 sample_stride), ratios)
 
 
 def _noise_lib() -> ctypes.CDLL:
@@ -235,7 +266,7 @@ def _noise_lib() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
             ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_ulonglong,
-            ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
         lib.d3f_noise_blend.restype = ctypes.c_int
         lib.d3f_philox_words.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong,
@@ -261,12 +292,14 @@ def _require_cuda(*devices) -> None:
 
 def launch_blend(x: torch.Tensor, out: torch.Tensor, ratios: torch.Tensor,
                  norm: list[float] | None, *, seed: int, offset,
-                 element_base: int = 0) -> None:
+                 element_base: int = 0,
+                 sample_stride: int | None = None) -> None:
     """Launch one blend of ``csrc/noise.cu`` on the current stream from
     ``x`` (uint8 with ``norm``, at most ``U8_MAX_ELEMENTS`` elements, or
     fp32 without) into the contiguous fp32 ``out`` of the same shape; an
     int ``offset`` by value, a device int64 through the kernels'
-    device-offset form."""
+    device-offset form; ``sample_stride`` the row window (module
+    docstring)."""
     if x.dim() != 4:
         raise ValueError(f"expected an NHWC batch, got {tuple(x.shape)}")
     b, h, w, c = x.shape
@@ -290,6 +323,10 @@ def launch_blend(x: torch.Tensor, out: torch.Tensor, ratios: torch.Tensor,
     if norm is not None and len(norm) != 2 * c:
         raise ValueError("norm needs a mean and a std per channel")
     at = _device_offset(offset, x.device)
+    run, stride = _runs(x, sample_stride)
+    if b > 65535 and run < x.numel():
+        raise ValueError(f"a row window launches a run a sample: at most "
+                         f"65535 samples, got {b}")
     x = x.contiguous()
     r = ratios.to(torch.float32).contiguous()
     c_norm = None if norm is None else (ctypes.c_float * len(norm))(*norm)
@@ -298,7 +335,7 @@ def launch_blend(x: torch.Tensor, out: torch.Tensor, ratios: torch.Tensor,
                else (lib.d3f_noise_blend_at, at.data_ptr()))
     err = fn(kind, x.data_ptr(), out.data_ptr(), x.numel(), h * w * c, c,
              r.data_ptr(), c_norm, int(seed) & _MASK64, off,
-             _base(element_base),
+             _base(element_base), run, stride,
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"noise blend kernel launch failed: CUDA error "
@@ -307,14 +344,16 @@ def launch_blend(x: torch.Tensor, out: torch.Tensor, ratios: torch.Tensor,
 
 def fused_normalise_noise_blend(batch_u8: torch.Tensor, ratios: torch.Tensor,
                                 mean, std, *, seed: int, offset=0,
-                                element_base: int = 0) -> torch.Tensor:
+                                element_base: int = 0,
+                                sample_stride: int | None = None
+                                ) -> torch.Tensor:
     """Fused ``normalise -> + noise`` over a uint8 NHWC batch.
 
     ``ratios``: ``(B,)`` per-sample noise ratios in [0, 1]; ``mean``/``std``
     per channel (or one value) on the 0-1 scale; ``seed`` keys the random
     stream and ``offset`` (the step) picks a disjoint part of it;
-    ``element_base`` places the batch in a larger one (module docstring).
-    Returns the fp32 noisy batch.
+    ``element_base`` and ``sample_stride`` place the batch in a larger one
+    (module docstring). Returns the fp32 noisy batch.
     """
     if batch_u8.dtype != torch.uint8:
         raise TypeError(f"expected uint8, got {batch_u8.dtype}")
@@ -322,17 +361,18 @@ def fused_normalise_noise_blend(batch_u8: torch.Tensor, ratios: torch.Tensor,
     if batch_u8.device.type == "cpu":
         return fused_normalise_noise_blend_plain(
             batch_u8, ratios, norm, seed=seed, offset=offset,
-            element_base=element_base)
+            element_base=element_base, sample_stride=sample_stride)
     out = torch.empty(batch_u8.shape, dtype=torch.float32,
                       device=batch_u8.device)
     launch_blend(batch_u8, out, ratios, norm, seed=seed, offset=offset,
-                 element_base=element_base)
+                 element_base=element_base, sample_stride=sample_stride)
     LAUNCHES["fused_normalise_noise_blend"] += 1
     return out
 
 
 def fused_noise_blend(x: torch.Tensor, ratios: torch.Tensor, *, seed: int,
-                      offset=0, element_base: int = 0) -> torch.Tensor:
+                      offset=0, element_base: int = 0,
+                      sample_stride: int | None = None) -> torch.Tensor:
     """Fused VP noise blend of a normalised fp32 NHWC batch: the noise stage
     of ``blend_random_amount_of_noise`` with the noise drawn in the kernel
     (the ratios still come from the caller)."""
@@ -340,20 +380,23 @@ def fused_noise_blend(x: torch.Tensor, ratios: torch.Tensor, *, seed: int,
         raise TypeError(f"expected float32, got {x.dtype}")
     if x.device.type == "cpu":
         return fused_noise_blend_plain(x, ratios, seed=seed, offset=offset,
-                                       element_base=element_base)
+                                       element_base=element_base,
+                                       sample_stride=sample_stride)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     launch_blend(x, out, ratios, None, seed=seed, offset=offset,
-                 element_base=element_base)
+                 element_base=element_base, sample_stride=sample_stride)
     LAUNCHES["fused_noise_blend"] += 1
     return out
 
 
 def fused_noise_for_balance(batch_u8: torch.Tensor, ratio: float, mean, std,
-                            seed: int, offset=0,
-                            element_base: int = 0) -> torch.Tensor:
+                            seed: int, offset=0, element_base: int = 0,
+                            sample_stride: int | None = None
+                            ) -> torch.Tensor:
     """Balance-workload wrapper: one fixed ratio for the whole batch."""
     ratios = torch.full((batch_u8.shape[0],), ratio, dtype=torch.float32,
                         device=batch_u8.device)
     return fused_normalise_noise_blend(batch_u8, ratios, mean, std,
                                        seed=seed, offset=offset,
-                                       element_base=element_base)
+                                       element_base=element_base,
+                                       sample_stride=sample_stride)

@@ -86,10 +86,18 @@ def grid_to_display(batch: torch.Tensor, nrow: int = 3) -> torch.Tensor:
     return torch.clamp(grid * 0.5 + 0.5, 0.0, 1.0)
 
 
-def panel_grid_u8(batch: torch.Tensor, nrow: int = 3) -> torch.Tensor:
+def panel_grid_u8(batch: torch.Tensor, nrow: int = 3, *,
+                  mesh=None) -> torch.Tensor:
     """The display grid quantised to uint8 on the batch's device: a panel
-    leaves the step as one small grid instead of the whole fp32 batch."""
-    g = grid_to_display(batch.detach().to(torch.float32), nrow=nrow)
+    leaves the step as one small grid instead of the whole fp32 batch. On
+    a spatial rank's H rows of ``mesh`` the grid's images are gathered
+    over the data row first (every rank of it must call)."""
+    batch = batch.detach()
+    if mesh is not None and mesh.spatial > 1:
+        from denoising_diffusion_deep_fake_tpu_torch.parallel.collectives \
+            import gather_rows
+        batch = gather_rows(batch[:nrow * nrow], mesh, dim=1)
+    g = grid_to_display(batch.to(torch.float32), nrow=nrow)
     return (g * 255.0).to(torch.uint8)
 
 

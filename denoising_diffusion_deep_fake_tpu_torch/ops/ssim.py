@@ -14,6 +14,15 @@ JAX package pins the blur to ``Precision.HIGHEST`` because bf16-rounded maps
 diverge training (ssim.py:57-63). On the GPU, cuDNN runs fp32 convolutions
 in TF32 while ``torch.backends.cudnn.allow_tf32`` is True (PyTorch's
 default), so the trainer turns it off (training/denoiser.py).
+
+On a spatial rank's H rows (``mesh`` with ``spatial > 1``,
+``parallel/mesh.py``) the blur's valid padding reads ``window_size // 2``
+rows beyond the rank's on each side: they come from the neighbours
+(``parallel/collectives.py``'s ``exchange_rows``), and the global edges
+take none, so the first and last ranks hold ``window_size // 2`` fewer
+map rows than the others. Each rank then returns its rows' share of the
+result, the sum of its map over the global count: the shares of a data
+row add up to its SSIM, never a mean of the ranks' means.
 """
 
 from __future__ import annotations
@@ -23,6 +32,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from denoising_diffusion_deep_fake_tpu_torch.parallel.collectives import (
+    exchange_rows,
+)
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,15 +76,24 @@ def _blur(x_nchw: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 def ssim(x: torch.Tensor, y: torch.Tensor, *, value_range: float = 1.0,
          window_size: int = 11, sigma: float = 1.5, k1: float = 0.01,
-         k2: float = 0.03, reduce_batch: bool = True) -> torch.Tensor:
+         k2: float = 0.03, reduce_batch: bool = True,
+         mesh=None) -> torch.Tensor:
     """SSIM between NHWC batches in ``[0, value_range]``: a scalar (mean
-    over the batch) or, with ``reduce_batch=False``, per image ``(B,)``."""
+    over the batch) or, with ``reduce_batch=False``, per image ``(B,)``;
+    on a spatial rank's rows of ``mesh``, its share of either (module
+    docstring)."""
     if x.shape != y.shape:
         raise ValueError(f"shape mismatch: {tuple(x.shape)} vs "
                          f"{tuple(y.shape)}")
     x = x.to(torch.float32)
     y = y.to(torch.float32)
     c = x.shape[-1]
+    spatial = 1 if mesh is None else mesh.spatial
+    if spatial > 1:
+        height, half = x.shape[1] * spatial, window_size // 2
+        xy = exchange_rows(torch.cat([x, y], dim=-1), half, half, mesh,
+                           dim=1, pad=None)
+        x, y = xy[..., :c], xy[..., c:]
     kernel = gaussian_kernel(window_size, sigma, device=x.device)
     c1 = (k1 * value_range) ** 2
     c2 = (k2 * value_range) ** 2
@@ -88,5 +110,10 @@ def ssim(x: torch.Tensor, y: torch.Tensor, *, value_range: float = 1.0,
     sigma_xy = exy - mu_xy
     ss = ((2.0 * mu_xy + c1) * (2.0 * sigma_xy + c2)) / (
         (mu_xx + mu_yy + c1) * (sigma_x + sigma_y + c2))
+    if spatial > 1:
+        # The global map's elements a sample: (H - w + 1) (W - w + 1) C.
+        count = (height - window_size + 1) * ss.shape[3] * ss.shape[1]
+        per_image = ss.sum(dim=(1, 2, 3)) / count
+        return per_image.sum() / ss.shape[0] if reduce_batch else per_image
     per_image = ss.mean(dim=(1, 2, 3))
     return per_image.mean() if reduce_batch else per_image

@@ -1,6 +1,8 @@
-"""Data parallelism over ``torch.distributed`` (ROADMAP A9): the process
-group (``distributed``), the rank's rows (``mesh``), the collectives the
-port issues (``collectives``) and their census (``audit``)."""
+"""Data and spatial parallelism over ``torch.distributed`` (ROADMAP A9,
+A9b): the process group (``distributed``), the rank's rows of the batch
+and of each image (``mesh``), the collectives the port issues
+(``collectives``), the halo geometry of H-sharded convolutions
+(``halo``) and the census (``audit``)."""
 
 from denoising_diffusion_deep_fake_tpu_torch.parallel.distributed import (
     data_shard,
@@ -16,6 +18,7 @@ from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
     Mesh,
     create_mesh,
     shard_batch,
+    shard_rows,
     shard_state,
     training_mesh,
 )
@@ -25,6 +28,7 @@ __all__ = [
     "create_mesh",
     "training_mesh",
     "shard_batch",
+    "shard_rows",
     "shard_state",
     "initialize",
     "maybe_initialize_from_env",

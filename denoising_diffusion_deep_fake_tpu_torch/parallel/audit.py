@@ -9,7 +9,10 @@ policy is JAX's, with its limits: gradients must be reduced, no halo
 exchange (``collective-permute``) without spatial sharding, and no
 all-gather or all-to-all above 16 MiB (a full tensor gathered). The port
 adds one kind, ``broadcast`` (the loop's ``want_images``, the state's
-start), which the policy does not judge.
+start), which the policy does not judge. A spatial step's halo exchanges
+are issued by the port too (``parallel/halo.py``), so its census counts
+them as ``collective-permute`` beside the all-reduces, with JAX's policy
+as it stands: halos allowed, no all-gather above 16 MiB.
 """
 
 from __future__ import annotations
@@ -94,13 +97,15 @@ def census_summary(census: dict[str, CollectiveStats]) -> dict:
 def census_of_train_step(workload: str, *, image_size: int, batch_size: int,
                          encoder_name: str = "resnet34",
                          compute_dtype: str = "bfloat16", device=None,
-                         seed: int = 0) -> dict[str, CollectiveStats]:
+                         seed: int = 0, spatial: int = 1
+                         ) -> dict[str, CollectiveStats]:
     """Run one real train step of ``workload`` (``denoiser``, ``swap`` or
     ``balance``) at the global ``batch_size`` on this rank's rows of a
     random uint8 batch (drawn from ``seed``, the same on every rank), and
-    return the census of the collectives it issued. Call it on every rank
-    of a process group (outside one it records nothing); the counterpart
-    of JAX's ``lower_train_step_hlo``."""
+    return the census of the collectives it issued, with the batch's
+    H rows over ``spatial`` ranks (``spatial_parallel``). Call it on every
+    rank of a process group (outside one it records nothing); the
+    counterpart of JAX's ``lower_train_step_hlo``."""
     from denoising_diffusion_deep_fake_tpu_torch.config import (
         BalanceConfig,
         DeepFakeConfig,
@@ -114,7 +119,7 @@ def census_of_train_step(workload: str, *, image_size: int, batch_size: int,
 
     common = dict(batch_size=batch_size, image_size=image_size,
                   learning_rate=1e-3, encoder_name=encoder_name,
-                  compute_dtype=compute_dtype,
+                  compute_dtype=compute_dtype, spatial_parallel=spatial,
                   noise_exponential_sampling_lambda=8.0)
     if workload == "swap":
         from denoising_diffusion_deep_fake_tpu_torch.training.deep_fake import (

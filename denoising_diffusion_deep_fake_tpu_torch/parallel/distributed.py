@@ -19,8 +19,11 @@ rank ("Duplicate GPU detected"). Process ``p`` drives
 ``cuda:{p % device_count}`` (``device.resolve_device`` reads the rank).
 
 Batch-size convention, as JAX's: a config's ``batch_size`` is the GLOBAL
-batch; each process loads ``batch_size // process_count()`` images a step
-from its shard of the manifest (``data_shard``). JAX assembles the global
+batch; each process loads ``batch_size // data`` images a step from its
+data row's shard of the manifest (``data_shard``), where ``data =
+process_count() // spatial_parallel``: the ``spatial_parallel`` ranks of
+a data row load the same images, whole, and each keeps its H rows of them
+after the warp (``parallel/mesh.py``). JAX assembles the global
 array from each process's slice (``global_batch_from_local``); the port has
 no such step: a process's local batch already is its shard of the global
 batch, and the collectives (``parallel/collectives.py``) join the ranks.
@@ -82,8 +85,11 @@ def initialize(coordinator_address: str, num_processes: int,
 
 
 def shutdown() -> None:
-    """Close the default process group, if one is open."""
+    """Close the default process group, if one is open, and forget its
+    sub-groups."""
     if dist.is_initialized():
+        from denoising_diffusion_deep_fake_tpu_torch.parallel import mesh
+        mesh._SUBGROUPS.clear()
         dist.destroy_process_group()
 
 
@@ -130,20 +136,33 @@ def local_device_index() -> int:
     return process_index() % max(torch.cuda.device_count(), 1)
 
 
-def local_batch_size(global_batch_size: int) -> int:
-    """Per-process share of the global batch (must divide evenly)."""
+def data_rows(spatial: int = 1) -> int:
+    """The data axis: the processes over ``spatial`` (must divide)."""
     n = process_count()
+    if n % spatial:
+        raise ValueError(f"spatial_parallel={spatial} does not divide "
+                         f"process_count {n}")
+    return n // spatial
+
+
+def local_batch_size(global_batch_size: int, spatial: int = 1) -> int:
+    """A data row's share of the global batch (must divide evenly)."""
+    n = data_rows(spatial)
     if global_batch_size % n:
         raise ValueError(
             f"global batch_size {global_batch_size} must be divisible by "
-            f"process_count {n}")
+            f"process_count {n}" if spatial == 1 else
+            f"global batch_size {global_batch_size} must be divisible by "
+            f"the data axis {n} (process_count {process_count()} over "
+            f"spatial_parallel {spatial})")
     return global_batch_size // n
 
 
-def data_shard() -> tuple[int, int] | None:
-    """(process_index, process_count) for ImageLoader sharding; None if 1."""
-    n = process_count()
-    return (process_index(), n) if n > 1 else None
+def data_shard(spatial: int = 1) -> tuple[int, int] | None:
+    """(data index, data rows) for ImageLoader sharding; None if 1. The
+    ``spatial`` ranks of a data row get the same shard."""
+    n = data_rows(spatial)
+    return (process_index() // spatial, n) if n > 1 else None
 
 
 def fetch_local(tree):

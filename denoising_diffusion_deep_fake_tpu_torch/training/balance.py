@@ -47,6 +47,15 @@ JAX (``balance.py:185-226``): every rank scores the whole unsharded batch
 (eval-mode BN issues no collective), so every rank gets every image's
 loss.
 
+Spatial parallelism (``spatial_parallel: S``, the resnet family): a rank
+keeps its H rows of its data row's uint8 images before the uint8 noise
+kernel, which runs with the rows' window (``noise_window``); the U-Net,
+the loss and the backward run on the rows, the loss is the rank's share.
+Scoring stays replicated over the data axis, and each rank of a data row
+scores its H rows of every image: ``l1_difficulty_loss`` sums the
+images' shares over the data row, so every rank still gets every
+image's loss.
+
 A train step is ``step_core`` at the offset ``step_scalars`` gives, then
 ``advance``; ``make_super_step`` runs K of them a call (``steps_per_call``,
 one CUDA graph on the card: ``training/multi_step.py``), the uint8 (or
@@ -77,9 +86,12 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
 from denoising_diffusion_deep_fake_tpu_torch.parallel.collectives import (
     mean_metrics,
 )
+from denoising_diffusion_deep_fake_tpu_torch.parallel import halo
 from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
+    config_mesh,
+    noise_window,
     shard_batch,
-    training_mesh,
+    shard_rows,
 )
 from denoising_diffusion_deep_fake_tpu_torch.training.denoiser import panels
 from denoising_diffusion_deep_fake_tpu_torch.training.multi_step import (
@@ -124,7 +136,7 @@ class BalanceTrainer:
     def __init__(self, cfg: BalanceConfig, *, steps_per_epoch: int,
                  image_size: int, device=None):
         cfg.validate()
-        self.mesh = training_mesh(cfg.data_parallel, cfg.spatial_parallel)
+        self.mesh = config_mesh(cfg)
         self.cfg = cfg
         self.image_size = image_size
         self.steps_per_epoch = steps_per_epoch
@@ -146,26 +158,31 @@ class BalanceTrainer:
 
     def _images(self, batch_u8: torch.Tensor, offset,
                 noise: torch.Tensor | None, upload_format: str = "rgb",
-                rank: int = 0):
+                mesh=None, replicated: bool = False):
         """(clean normalised batch, noisy batch) of a uint8 batch in
         ``upload_format``; ``offset`` an int or a device int64, the noise
-        that of rows ``rank * B ..`` of a global batch of such batches."""
+        that of the batch's place in ``mesh``'s global batch (its rows
+        with ``spatial > 1``: the batch's own are cut first; a batch
+        every data row holds, ``replicated``, is the global batch); the
+        whole batch's when None."""
         cfg = self.cfg
         batch = unpack_upload(batch_u8.to(self.device, non_blocking=True),
                               upload_format)
+        if mesh is not None:
+            batch = shard_rows(batch, mesh)
         image = normalise_batch(batch, cfg.mean, cfg.std)
-        element_base = rank * image.numel()
+        window = ({"element_base": 0, "sample_stride": None}
+                  if mesh is None else
+                  noise_window(mesh, image, replicated=replicated))
         if noise is None and batch.dtype == torch.uint8:
             noisy = fused_noise_for_balance(batch, cfg.ratio_of_noise,
                                             cfg.mean, cfg.std, cfg.seed,
-                                            offset=offset,
-                                            element_base=element_base)
+                                            offset=offset, **window)
         elif noise is None:
             ratios = torch.full((batch.shape[0],), cfg.ratio_of_noise,
                                 dtype=torch.float32, device=self.device)
             noisy = fused_noise_blend(image, ratios, seed=cfg.seed,
-                                      offset=offset,
-                                      element_base=element_base)
+                                      offset=offset, **window)
         else:
             noisy = blend_fixed_amount_of_noise(
                 image, cfg.ratio_of_noise, noise=noise.to(self.device))
@@ -205,9 +222,10 @@ class BalanceTrainer:
         batch's (the module docstring)."""
         mesh = self.mesh
         lb = batch_u8.shape[0]
-        image, noisy = self._images(batch_u8, scalars["offset"],
-                                    shard_batch(noise, mesh),
-                                    self.cfg.upload_format, mesh.rank)
+        image, noisy = self._images(
+            batch_u8, scalars["offset"],
+            shard_rows(shard_batch(noise, mesh), mesh),
+            self.cfg.upload_format, mesh)
         if drop_masks is None:
             drop_masks = draw_drop_masks(self.drop_keep, lb * mesh.data,
                                          generator)
@@ -217,7 +235,7 @@ class BalanceTrainer:
                                      mesh=mesh)
         metrics = mean_metrics({"loss": loss}, mesh)
         if with_images:
-            return metrics, panels(image, noisy, pred)
+            return metrics, panels(image, noisy, pred, mesh)
         return metrics
 
     def make_super_step(self, k: int):
@@ -231,14 +249,21 @@ class BalanceTrainer:
 
     def make_validation_step(self):
         """Per-batch difficulty scoring: ``(state, batch_u8, *, offset,
-        noise=None) -> (B,)`` fp32 L1 losses, eval-mode BN."""
+        noise=None) -> (B,)`` fp32 L1 losses, eval-mode BN; with
+        ``spatial > 1`` on the rank's H rows of every image, the scores
+        summed over the data row."""
+        mesh = self.mesh if self.mesh.spatial > 1 else None
+
         def val_step(state: ModelState, batch_u8: torch.Tensor, *,
                      offset: int, noise: torch.Tensor | None = None
                      ) -> torch.Tensor:
-            image, noisy = self._images(batch_u8, offset, noise)
+            image, noisy = self._images(batch_u8, offset,
+                                        shard_rows(noise, self.mesh),
+                                        mesh=mesh, replicated=True)
             state.model.eval()
-            with torch.inference_mode():
-                return l1_difficulty_loss(state.model(noisy), image)
+            with torch.inference_mode(), halo.row_sharded(mesh):
+                return l1_difficulty_loss(state.model(noisy), image,
+                                          mesh=mesh)
 
         return val_step
 

@@ -48,6 +48,14 @@ the rank's first global element; batch norm, the shadows' train-mode
 forwards included, is global; the gradients are averaged and every metric
 is the global mean.
 
+Spatial parallelism (``spatial_parallel: S``, as in
+``training/denoiser.py``): each rank warps and jitters its data row's
+whole images, then keeps its H rows of the real batches; the shadows'
+fake forwards and the gradient forwards run on those rows with their
+halos (``parallel/halo.py``), the noise kernel with the rows' window,
+``swap_difference`` and the losses are the rank's shares, and the panels
+are gathered over the data row.
+
 ``with_images`` also returns the TensorBoard panels under the JAX tags
 (``:239-287`` there), each the step's own tensor through ``panel_grid_u8``:
 a uint8 3x3 grid made on the device.
@@ -90,9 +98,12 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.noise import (
 from denoising_diffusion_deep_fake_tpu_torch.parallel.collectives import (
     mean_metrics,
 )
+from denoising_diffusion_deep_fake_tpu_torch.parallel import halo
 from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
+    config_mesh,
+    noise_window,
     shard_batch,
-    training_mesh,
+    shard_rows,
 )
 from denoising_diffusion_deep_fake_tpu_torch.training.ema import (
     EmaConfig,
@@ -128,7 +139,7 @@ class DeepFakeTrainer:
     def __init__(self, cfg: DeepFakeConfig, *, steps_per_epoch: int,
                  image_size: int, device=None):
         cfg.validate()
-        self.mesh = training_mesh(cfg.data_parallel, cfg.spatial_parallel)
+        self.mesh = config_mesh(cfg)
         self.cfg = cfg
         self.image_size = image_size
         self.steps_per_epoch = steps_per_epoch
@@ -177,7 +188,7 @@ class DeepFakeTrainer:
                      ) -> torch.Tensor:
         """Shadow forward: train-mode BN, no stat writes, no gradient."""
         state.ema_model.train()
-        with torch.no_grad():
+        with torch.no_grad(), halo.row_sharded(self.mesh):
             return state.ema_model(x)
 
     def _masks(self, name: str, b: int, drop_masks: dict | None,
@@ -203,10 +214,10 @@ class DeepFakeTrainer:
         r = shard_batch(r, mesh).to(self.device)
         if noise is None:
             return fused_noise_blend(x, r.reshape(b), seed=self.cfg.seed,
-                                     offset=offset,
-                                     element_base=mesh.rank * x.numel())
-        return blend_noise(x, shard_batch(noise[name], mesh).to(self.device),
-                           r.reshape(b, 1, 1, 1))
+                                     offset=offset, **noise_window(mesh, x))
+        return blend_noise(
+            x, shard_rows(shard_batch(noise[name], mesh), mesh).to(
+                self.device), r.reshape(b, 1, 1, 1))
 
     def train_step(self, states: dict[str, ModelState],
                    batch_a_u8: torch.Tensor, batch_b_u8: torch.Tensor, *,
@@ -298,7 +309,7 @@ class DeepFakeTrainer:
                     real[name], {k: v.to(self.device) for k, v in
                                  shard_batch(params, mesh).items()},
                     *stats[name])
-
+        real = shard_rows(real, mesh)
         lrs = {"a": scalars["lr"], "b": scalars["lr_b"]}
         metrics, panels = {}, {}
         if cfg.mode == "denoise":
@@ -314,9 +325,9 @@ class DeepFakeTrainer:
                 metrics[f"loss_denoise/train_{name}"] = loss
                 if with_images:
                     panels[f"denoise_1_model_input/{name}"] = (
-                        panel_grid_u8(noisy))
+                        panel_grid_u8(noisy, mesh=mesh))
                     panels[f"denoise_2_model_prediction/{name}"] = (
-                        panel_grid_u8(pred))
+                        panel_grid_u8(pred, mesh=mesh))
         else:
             # Swap: a learns from b's shadow's fakes, then b from a's
             # shadow's, each shadow updated just before it makes its fake.
@@ -326,8 +337,8 @@ class DeepFakeTrainer:
                     for k in ("decay", "weight", "gate")
                     if f"{k}_{other}" in scalars})
                 fake = self._ema_forward(states[other], real[name])
-                metrics[f"swap_difference/{name}"] = mse_loss(real[name],
-                                                              fake)
+                metrics[f"swap_difference/{name}"] = mse_loss(
+                    real[name], fake, mesh=mesh)
                 noisy = self._noisy(fake, name, scalars[f"offset_{name}"],
                                     ratios, noise, generator)
                 masks = self._masks(name, noisy.shape[0], drop_masks,
@@ -338,11 +349,11 @@ class DeepFakeTrainer:
                 metrics[f"loss_swap/train_{name}"] = loss
                 if with_images:
                     panels.update({
-                        f"swap_1_real/{name}": panel_grid_u8(real[name]),
-                        f"swap_2_fake/{name}_to_fake": panel_grid_u8(fake),
-                        f"swap_3_model_input/{name}": panel_grid_u8(noisy),
-                        f"swap_4_model_prediction/{name}": panel_grid_u8(
-                            pred)})
+                        tag: panel_grid_u8(x, mesh=mesh) for tag, x in (
+                            (f"swap_1_real/{name}", real[name]),
+                            (f"swap_2_fake/{name}_to_fake", fake),
+                            (f"swap_3_model_input/{name}", noisy),
+                            (f"swap_4_model_prediction/{name}", pred))})
         metrics = mean_metrics(metrics, mesh)
         return (metrics, panels) if with_images else metrics
 

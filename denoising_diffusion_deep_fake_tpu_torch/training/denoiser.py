@@ -45,7 +45,18 @@ keeps its rows (``shard_batch``); the noise kernel starts at the rank's
 first global element (``element_base``); batch norm takes global
 statistics, the gradients are averaged and the loss is the global batch's
 mean. So the step is the one-process step of the global batch. Injected
-numbers are global arrays, cut the same way. The warp route stays
+numbers are global arrays, cut the same way.
+
+Spatial parallelism (``spatial_parallel: S``, ``data_parallel * S``
+processes, the resnet family): the warp gathers source rows from anywhere
+in the image, so each rank of a data row warps (and jitters: contrast
+takes a per-image mean) its data row's whole images, with the fused warp
+as it is, and only then keeps its H rows (``shard_rows``; JAX's warp
+followed by its ``spatial_activation_constraint`` pin). The noise kernel
+runs on those rows with their row window (``noise_window``); injected
+noise is cut the same way. The U-Net, the loss and the backward run on
+the rows (``train_one_model``), the loss is the rank's share, and the
+panels are gathered over the data row. The warp route stays
 ``select_warp_method``'s at any world size: a rank-local kernel launch has
 none of the partitioning limits that make JAX route around Pallas with
 several devices.
@@ -89,8 +100,10 @@ from denoising_diffusion_deep_fake_tpu_torch.parallel.collectives import (
     mean_metrics,
 )
 from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
+    config_mesh,
+    noise_window,
     shard_batch,
-    training_mesh,
+    shard_rows,
 )
 from denoising_diffusion_deep_fake_tpu_torch.training.multi_step import (
     make_super_step,
@@ -116,7 +129,7 @@ class DenoiserTrainer:
     def __init__(self, cfg: DenoiserConfig, *, steps_per_epoch: int,
                  image_size: int, device=None):
         cfg.validate()
-        self.mesh = training_mesh(cfg.data_parallel, cfg.spatial_parallel)
+        self.mesh = config_mesh(cfg)
         self.cfg = cfg
         self.image_size = image_size
         self.steps_per_epoch = steps_per_epoch
@@ -209,6 +222,7 @@ class DenoiserTrainer:
                              shard_batch(jitter_params, mesh).items()}
             image = color_jitter_normalised(image, jitter_params, cfg.mean,
                                             cfg.std)
+        image = shard_rows(image, mesh)
         if ratios is None:
             ratios = sample_truncated_exponential(
                 (gb, 1, 1, 1), cfg.noise_exponential_sampling_lambda,
@@ -217,9 +231,10 @@ class DenoiserTrainer:
         if noise is None:
             noisy = fused_noise_blend(image, ratios.reshape(b), seed=cfg.seed,
                                       offset=scalars["offset"],
-                                      element_base=mesh.rank * image.numel())
+                                      **noise_window(mesh, image))
         else:
-            noisy = blend_noise(image, shard_batch(noise, mesh),
+            noisy = blend_noise(image,
+                                shard_rows(shard_batch(noise, mesh), mesh),
                                 ratios.reshape(b, 1, 1, 1))
         if drop_masks is None:
             drop_masks = draw_drop_masks(self.drop_keep, gb, generator)
@@ -229,7 +244,7 @@ class DenoiserTrainer:
                                      mesh)
         metrics = mean_metrics({"loss": loss}, mesh)
         if with_images:
-            return metrics, panels(image, noisy, pred)
+            return metrics, panels(image, noisy, pred, mesh)
         return metrics
 
     def make_super_step(self, k: int):
@@ -254,8 +269,9 @@ class DenoiserTrainer:
 
 
 def panels(image: torch.Tensor, noisy: torch.Tensor,
-           pred: torch.Tensor) -> dict:
-    """The single-model trainers' panels under the JAX tags."""
-    return {tag: panel_grid_u8(x) for tag, x in
+           pred: torch.Tensor, mesh=None) -> dict:
+    """The single-model trainers' panels under the JAX tags (the rows
+    gathered over a data row of ``mesh``)."""
+    return {tag: panel_grid_u8(x, mesh=mesh) for tag, x in
             (("image", image), ("image_noisy", noisy),
              ("image_prediction", pred))}

@@ -89,7 +89,11 @@ the step's collectives too (batch norm's statistics, the gradient
 average, the metrics' mean), which NCCL allows: each replay runs them
 again on every rank. Gloo's collectives cannot be captured, so a K-step
 call on CUDA tensors under gloo (several ranks on one card) raises; on
-the CPU nothing changes.
+the CPU nothing changes. With ``spatial_parallel > 1`` the step also
+issues the halo exchanges (NCCL's ``batch_isend_irecv``) and the row
+gathers, which the capture takes as it takes NCCL's collectives (four
+ranks on four cards: ``chip_smoke.py --spatial-cards 4``); under gloo it
+raises as above.
 """
 
 from __future__ import annotations

@@ -44,9 +44,11 @@ cannot be made raises: there is no way back to the host loader.
 
 Data parallelism (JAX ``:280-293, :359-368, :407-414``): each ``fit_*``
 first opens the process group when the ``D3F_*`` launch variables are set
-(``parallel/distributed.py``); each rank then loads its shard of the
-manifest at the local batch size (``batch_size // processes``), builds its
-cache from that shard, makes every rank's states rank 0's after the init
+(``parallel/distributed.py``); each rank then loads its data row's shard
+of the manifest at the local batch size (``batch_size // data``, ``data =
+processes // spatial_parallel``: the spatial ranks of a data row load the
+same whole images and keep their H rows after the warp), builds its cache
+from that shard, makes every rank's states rank 0's after the init
 or the restore (``shard_state``), and runs the loop in lockstep
 (``training/loop.py``), the primary alone printing, logging and saving.
 The balancer scores the whole unsharded dataset on every rank, through
@@ -307,10 +309,12 @@ def fit_deep_fake(cfg: DeepFakeConfig, *, resume_from: str | None = None,
                   decode_fn=None):
     """Train the two-identity workload; returns (states, trainer, context)."""
     hparams, verbose = _start(cfg, verbose, device)
-    loaders = [ImageLoader(path, local_batch_size(cfg.batch_size),
-                           image_size=cfg.image_size, seed=cfg.seed + i,
+    lb = local_batch_size(cfg.batch_size, cfg.spatial_parallel)
+    loaders = [ImageLoader(path, lb, image_size=cfg.image_size,
+                           seed=cfg.seed + i,
                            class_balanced=cfg.class_balanced_sampling,
-                           decode_fn=decode_fn, shard=data_shard())
+                           decode_fn=decode_fn,
+                           shard=data_shard(cfg.spatial_parallel))
                for i, path in enumerate((cfg.data_path_a, cfg.data_path_b))]
     paired = PairedLoader(*loaders)
     trainer = DeepFakeTrainer(cfg,
@@ -364,10 +368,12 @@ def fit_denoiser(cfg: DenoiserConfig, *, max_steps: int | None = None,
     """Train the single-model denoiser; returns (state, trainer, context)."""
     hparams, verbose = _start(cfg, verbose, device)
     loader = ImageLoader(cfg.input_image_list_path,
-                         local_batch_size(cfg.batch_size),
+                         local_batch_size(cfg.batch_size,
+                                          cfg.spatial_parallel),
                          image_size=cfg.image_size, seed=cfg.seed,
                          class_balanced=cfg.class_balanced_sampling,
-                         decode_fn=decode_fn, shard=data_shard())
+                         decode_fn=decode_fn,
+                         shard=data_shard(cfg.spatial_parallel))
     trainer = DenoiserTrainer(cfg,
                               steps_per_epoch=_steps_per_epoch(cfg, loader),
                               image_size=loader.image_size, device=device)
@@ -392,9 +398,12 @@ def fit_balance(cfg: BalanceConfig, *, max_steps: int | None = None,
     image, log the class histogram and write the balanced manifest;
     returns (state, trainer, context)."""
     hparams, verbose = _start(cfg, verbose, device)
-    loader = ImageLoader(cfg.data_path, local_batch_size(cfg.batch_size),
+    loader = ImageLoader(cfg.data_path,
+                         local_batch_size(cfg.batch_size,
+                                          cfg.spatial_parallel),
                          image_size=cfg.image_size, seed=cfg.seed,
-                         decode_fn=decode_fn, shard=data_shard())
+                         decode_fn=decode_fn,
+                         shard=data_shard(cfg.spatial_parallel))
     # Scoring: the whole dataset in manifest order, no remainder dropped,
     # so every image gets a class; not sharded: the classes come from a
     # min-max over the whole dataset, so every rank scores everything.
@@ -411,7 +420,7 @@ def fit_balance(cfg: BalanceConfig, *, max_steps: int | None = None,
     ctx = LoopContext(cfg, hparams, workload="balance", mesh=trainer.mesh)
 
     def score(epoch: int) -> None:
-        if caches and data_shard() is None:
+        if caches and data_shard(cfg.spatial_parallel) is None:
             # Its rows are in manifest order, as val_loader's.
             indices, losses = trainer.score_dataset_from_cache(
                 state, caches[0], epoch=epoch)

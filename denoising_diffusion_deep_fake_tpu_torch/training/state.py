@@ -11,7 +11,7 @@ train-mode BN writes no running statistics: they move only through
 
 ``train_one_model`` is the update every trainer shares (JAX
 ``training/deep_fake.py:150-166``): train-mode forward,
-``mse_ssim_loss``, backward, the gradient average over the ranks of a
+``mse_ssim_loss``, backward, the gradient reduction over the ranks of a
 process group (``parallel/collectives.py``; nothing outside one), Adam.
 It leaves the host counters alone: a
 trainer advances ``step`` (and ``ema_step``) after its step, by one or, after
@@ -51,6 +51,7 @@ from denoising_diffusion_deep_fake_tpu_torch.models.unet import (
     init_unet_,
 )
 from denoising_diffusion_deep_fake_tpu_torch.ops.losses import mse_ssim_loss
+from denoising_diffusion_deep_fake_tpu_torch.parallel import halo
 from denoising_diffusion_deep_fake_tpu_torch.parallel.collectives import (
     all_reduce_grads_,
 )
@@ -286,19 +287,23 @@ def train_one_model(state: ModelState, noisy: torch.Tensor,
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """One update of ``state``'s tensors in place: ``mse_ssim_loss(
     model(noisy, drop_masks), target)`` in train mode, the forward under the
-    ``remat`` policy, backward, the gradients averaged over ``mesh``'s
-    ranks (``parallel/mesh.py``; none when None), Adam at ``lr`` (a float,
-    or an fp32 device tensor; the optimizer's own when None). The host
-    ``step`` is the caller's to advance. Returns the loss of this rank's
-    rows as a device scalar and the prediction."""
+    ``remat`` policy, backward, the gradients reduced over ``mesh``'s
+    ranks (``parallel/collectives.py``'s rule; none when None), Adam at
+    ``lr`` (a float, or an fp32 device tensor; the optimizer's own when
+    None). With ``spatial > 1`` the forward, the loss and the backward
+    (a recompute included) run on the rank's H rows (``parallel/
+    halo.py``). The host ``step`` is the caller's to advance. Returns the
+    loss of this rank's rows (its share of its data row's, ``ops/
+    losses.py``) as a device scalar and the prediction."""
     model, optimizer = state.model, state.optimizer
     model.train()
     optimizer.zero_grad(set_to_none=True)
     forward = maybe_remat(model, remat)
-    pred = (forward(noisy) if drop_masks is None
-            else forward(noisy, drop_masks))
-    loss = mse_ssim_loss(pred, target)
-    loss.backward()
+    with halo.row_sharded(mesh):
+        pred = (forward(noisy) if drop_masks is None
+                else forward(noisy, drop_masks))
+        loss = mse_ssim_loss(pred, target, mesh=mesh)
+        loss.backward()
     all_reduce_grads_(model, mesh)
     if lr is not None:
         set_learning_rate(optimizer, lr)

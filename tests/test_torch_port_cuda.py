@@ -537,7 +537,7 @@ def test_uint8_noise_refuses_two_to_the_31_elements_before_a_launch(cuda):
     # Null pointers: a launch would fault, so a return code of
     # cudaErrorInvalidValue (1) shows the entry refused first.
     assert nk._noise_lib().d3f_noise_blend(2, None, None, n, n // 4, 4, None,
-                                           norm, 0, 0, 0, None) == 1
+                                           norm, 0, 0, 0, n, 0, None) == 1
     torch.cuda.synchronize()
     # The wrapper says why, before it looks at the output.
     x = torch.zeros((1, 1, 1, 1), dtype=torch.uint8, device=cuda).expand(

@@ -160,25 +160,47 @@ def test_batch_and_coordinator_checks(monkeypatch):
 
 
 def test_mesh_refusals():
+    """One process refuses a data or spatial axis above 1 (it drives one
+    device); spatial_parallel > 1 refuses the families outside the resnet
+    family and the patchified U-Net, naming ROADMAP A9c."""
     with pytest.raises(ValueError, match="launch 2 processes"):
         create_mesh(2)
-    with pytest.raises(NotImplementedError, match="A9b"):
+    with pytest.raises(ValueError, match="launch 2 processes"):
         create_mesh(None, spatial=2)
+    with pytest.raises(ValueError, match="launch 4 processes"):
+        create_mesh(2, spatial=2, encoder_name="resnet50")
+    for name in ("efficientnet-b0", "densenet121"):
+        with pytest.raises(NotImplementedError, match="A9c"):
+            create_mesh(None, spatial=2, encoder_name=name)
+    with pytest.raises(NotImplementedError, match="A9c"):
+        create_mesh(None, spatial=2, encoder_name="resnet18", patchify=2)
 
 
 @pytest.mark.parametrize("trainer", [DenoiserTrainer, DeepFakeTrainer,
                                      BalanceTrainer])
 def test_trainers_refuse_spatial_and_one_process_data_parallel(trainer):
+    """What still refuses spatial_parallel > 1 in each trainer: the
+    families outside the resnet family and patchify_stem (A9c), JAX's
+    i420 and device-cache refusals; and one process for a data axis."""
     cls = {DenoiserTrainer: config.DenoiserConfig,
            DeepFakeTrainer: config.DeepFakeConfig,
            BalanceTrainer: config.BalanceConfig}[trainer]
     base = dict(input_image_list_path="x", data_path="x", data_path_a="a",
                 data_path_b="b", batch_size=4, encoder_name="resnet18")
     fields = {f.name for f in dataclasses.fields(cls)}
-    for knobs, err, match in ((dict(spatial_parallel=2), NotImplementedError,
-                               "A9b"),
-                              (dict(data_parallel=2), ValueError,
-                               "launch 2 processes")):
+    spatial = dict(spatial_parallel=2)
+    for knobs, err, match in (
+            (dict(spatial, encoder_name="efficientnet-b0"),
+             NotImplementedError, "A9c"),
+            (dict(spatial, encoder_name="densenet121"), NotImplementedError,
+             "A9c"),
+            (dict(spatial, patchify_stem=2), NotImplementedError, "A9c"),
+            (dict(spatial, upload_format="i420"), ValueError, "i420"),
+            (dict(spatial, data_cache="device"), ValueError,
+             "data_cache='host' with spatial_parallel"),
+            (dict(spatial, image_size=63), ValueError, "spatial_parallel"),
+            (dict(spatial), ValueError, "launch 2 processes"),
+            (dict(data_parallel=2), ValueError, "launch 2 processes")):
         cfg = config.config_from_dict(cls, {
             k: v for k, v in {**base, **knobs}.items() if k in fields},
             validate=False)
