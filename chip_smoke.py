@@ -152,7 +152,7 @@ Phases, in order; any failure exits non-zero:
 14. the resnet encoder family and reference checkpoints in and out: (a)
    a 64^2 fp32 denoiser step on the GPU against the CPU for resnet50,
    resnext50_32x4d and wide_resnet50_2 (1e-4 relative); (b) the denoiser
-   at 448^2 x16 bf16 with each of those encoders (3 warm-up and 10 timed
+   at 448^2 x16 bf16 with each of those encoders (2 warm-up and 5 timed
    steps, a profile of 3 more: imgs/s beside phase 5's resnet34, kernels
    and idle share a step, peak memory, one fused warp and one fp32 noise
    launch a step), then one eval forward at 448^2 x16 bf16 of resnet101,
@@ -206,10 +206,10 @@ Phases, in order; any failure exits non-zero:
    the denoiser at 448^2 x16 resnet34 bf16 with each remat policy, eager
    (3 + 10 steps, a profile of 3) and at K = 16 (2 groups): imgs/s,
    kernels ms a step, peak memory; the jitter on against off; the 640^2
-   x4 route with ``remat: dots``; (d) ``main.py profile --steps 20
+   x4 route with ``remat: dots``; (d) ``main.py profile --steps 8
    --report`` in a subprocess on 15c's JPEG manifest with jitter and
    ``remat: dots``: the report names ``warp_fused_kernel`` and
-   ``noise_blend_f32_kernel`` with 20 launches each, its categories sum
+   ``noise_blend_f32_kernel`` with 8 launches each, its categories sum
    to its busy time within 1%, the trace directory is removed; (e) the
    deep-fake pair at 448^2 in swap mode with jitter and ``remat: dots``
    at K = 8 (2 groups) beside 12c's rate.
@@ -219,7 +219,7 @@ Phases, in order; any failure exits non-zero:
    se_resnext50_32x4d, mobilenet_v2, xception, inceptionv4,
    inceptionresnetv2 and dpn68b; (b) the denoiser at 448^2 x16 bf16
    (configs/denoiser.yml, only ``encoder_name`` changed) with each of
-   those but vgg11 (3 warm-up and 10 timed steps, a profile of 3 more:
+   those but vgg11 (2 warm-up and 5 timed steps, a profile of 3 more:
    imgs/s beside phase 5's resnet34, kernels and idle share a step, peak
    memory, one fused warp and one fp32 noise launch a step), then one eval
    forward at 448^2 x16 bf16 of each of the other 20 names; every name's
@@ -301,7 +301,32 @@ Phases, in order; any failure exits non-zero:
    spatial 2 (the denoiser, the swap pair) against the one-process step
    on card 0, a K = 2 graph of the data 2 x spatial 2 denoiser
    bit-equal to two eager steps, and 20c's full-width denoiser and its
-   checks at both layouts, eager and as K = 16 graphs.
+   checks at both layouts, eager and as K = 16 graphs, then 21c's
+   efficientnet-b0 and patchified resnet34 at data 1 x spatial 4, eager
+   and as K = 16 graphs (halos and SE sums captured; cuDNN's autotuning
+   off, as in 21c);
+21. spatial parallelism for the nine other encoder families and the
+   patchified U-Net: (a) the noise kernels' row windows at the shapes
+   (b) and (c) launch that 20a did not check (64^2 x2 over S = 2),
+   bit-equal and within one ulp; (b) two ``--dp-worker
+   spatial_families`` ranks on the one card over gloo, 64^2, a global
+   batch of 2, float64 U-Nets, ``cudnn.deterministic``: a denoiser step
+   of vgg11_bn, densenet121, se_resnext50_32x4d, efficientnet-b0 (drop
+   on), mobilenet_v2, xception, inceptionv4, inceptionresnetv2, dpn68
+   and resnet18 with ``patchify_stem: 2``, and b0's swap pair and
+   balancer, each held against the one-process step on the card at the
+   CPU test's tolerances (the swap pair's with its loss in row shares) by
+   the rank that computed that step before it joined the group, both
+   ranks' states bit-equal (digests); the census of a b0 step with its
+   SE sums; (c)
+   efficientnet-b0 and resnet34 with ``patchify_stem: 2`` at 448^2 x16
+   bf16 over the two ranks: the fp32 first forward against one
+   process's and with a broken exchange, the first loss, 3 + 5 steps
+   (imgs/s), rank 0's kernels and idle a step, halos and SE sums a
+   step, each rank's peak memory beside 18c's one process; cuDNN's
+   autotuning off there and in the one process held against them (b0's
+   first step at a rank's shapes would autotune for over a minute, and
+   the two ranks' steps are host-bound).
 
 Every profile of the script is a ``utils/profiling.py`` trace read by its
 ``analyze_trace``. It prints one JSON line of per-kernel results, then, as its last line,
@@ -320,6 +345,7 @@ import contextlib
 import dataclasses
 import faulthandler
 import gc
+import hashlib
 import http.client
 import json
 import math
@@ -3605,7 +3631,7 @@ def family_full_width(dev, launches, card: str, main_run: dict,
                       stepped=FAMILY_STEPPED, forward=FAMILY_FORWARD,
                       tag: str = "14b") -> dict:
     """Phases 14b and 17b: the denoiser at 448^2 x16 bf16 for each
-    ``stepped`` name (3 warm-up and 10 timed steps, a profile of 3 more),
+    ``stepped`` name (2 warm-up and 5 timed steps, a profile of 3 more),
     then one eval forward at 448^2 x16 bf16 of each ``forward`` name; every
     parameter count against ``PARAM_COUNTS``. Returns the launch counts by
     path."""
@@ -3639,10 +3665,10 @@ def family_full_width(dev, launches, card: str, main_run: dict,
         out = denoise(state, x)
         check(out.shape == x.shape and torch.isfinite(out).all().item(),
               f"{name}: the eval forward is not finite")
-        ms = time_ms(lambda: denoise(state, x), iters=20, warmup=3)
+        ms = time_ms(lambda: denoise(state, x), iters=5, warmup=1)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
         log(f"  {tag} {name}: {n:,} params, eval forward 448^2 x16 bf16 "
-            f"{ms:.3f} ms (mean of 20 back to back, {16 / ms * 1e3:.1f} "
+            f"{ms:.3f} ms (mean of 5 back to back, {16 / ms * 1e3:.1f} "
             f"imgs/s), peak memory {peak_gb:.2f} GB above the "
             f"{held_gb:.2f} GB held before [{card}]")
         del trainer, state, out
@@ -3653,7 +3679,7 @@ def family_full_width(dev, launches, card: str, main_run: dict,
 def stepped_full_width(dev, launches, card: str, name: str, **overrides
                        ) -> tuple[dict, str]:
     """One name of phases 14b, 17b and 18c: the denoiser at 448^2 x16
-    bf16 (``overrides`` on ``make_trainer``'s config), 3 warm-up and 10
+    bf16 (``overrides`` on ``make_trainer``'s config), 2 warm-up and 5
     timed steps, one fused warp and one fp32 noise launch a step, a
     profile of 3 more; the parameter count against ``PARAM_COUNTS``
     (unpatchified). Returns the run and its report row."""
@@ -3665,13 +3691,14 @@ def stepped_full_width(dev, launches, card: str, name: str, **overrides
                            dtype="bfloat16", **overrides)
     run = drive(dev, launches, card, single_path(trainer, size=448,
                                                  batch=16),
-                warmup=3, steps=10,
+                warmup=2, steps=5,
                 per_step={"affine_warp_fused": 1, "fused_noise_blend": 1})
     n = param_count(run["state"].model)
     if not overrides:
         check(n == PARAM_COUNTS[name], f"{name} has {n} parameters, not "
               f"{PARAM_COUNTS[name]}")
     profile_steps(run, dev, None)
+    run["own_peak_gb"] = run["peak_gb"] - held_gb
     idle = (f"idle {1 - run['busy_ms'] / run['step_ms']:.1%}"
             if run["busy_ms"] > 0 else "idle not measured")
     label = name + "".join(f" {k}={v}" for k, v in overrides.items())
@@ -4671,11 +4698,16 @@ def remat_full_width(dev, launches, card: str, twopass_run: dict) -> tuple:
     return counts, rows
 
 
+# 16d's profiled steps (each step's trace is ~7 MB to write and parse).
+PROFILE_CLI_STEPS = 8
+
+
 def profile_cli(root: Path, codec_root: Path, dev, card: str) -> dict:
     """16d: ``main.py profile --report`` in a subprocess on 15c's JPEG
     manifest (or frames written the same way), 448^2 x16, with
     ``color_jitter`` and ``remat: dots``: the report parses, names both
-    port kernels of the path with 20 launches each, its categories sum
+    port kernels of the path with ``PROFILE_CLI_STEPS`` launches each,
+    its categories sum
     to its busy time within 1%; the trace directory is removed after.
     Returns the launches the report counts, by wrapper."""
     root.mkdir(parents=True, exist_ok=True)
@@ -4700,7 +4732,8 @@ def profile_cli(root: Path, codec_root: Path, dev, card: str) -> dict:
     out = subprocess.run(
         [sys.executable, "-m", "denoising_diffusion_deep_fake_tpu_torch.main",
          "profile", "--config", str(config), "--input_list", str(manifest),
-         "--steps", "20", "--trace_dir", str(trace_dir), "--report"],
+         "--steps", str(PROFILE_CLI_STEPS), "--trace_dir", str(trace_dir),
+         "--report"],
         capture_output=True, text=True, timeout=300,
         cwd=Path(__file__).resolve().parent)
     took = time.perf_counter() - t0
@@ -4718,12 +4751,15 @@ def profile_cli(root: Path, codec_root: Path, dev, card: str) -> dict:
     port = plane["port_kernels"]
     launched = {fn: port.get(fn, {}).get("launches", 0)
                 for fn in ("warp_fused_kernel", "noise_blend_f32_kernel")}
-    check(launched == {"warp_fused_kernel": 20, "noise_blend_f32_kernel": 20},
-          f"16d: the report's launches {launched}, not 20 each")
+    check(launched == {"warp_fused_kernel": PROFILE_CLI_STEPS,
+                       "noise_blend_f32_kernel": PROFILE_CLI_STEPS},
+          f"16d: the report's launches {launched}, not "
+          f"{PROFILE_CLI_STEPS} each")
     busy = plane["ops_busy_ms_per_step"]
     cats = plane["category_ms_per_step"]
     total = sum(cats.values())
-    log(f"  16d profile --steps 20 --report (subprocess, {took:.1f} s, "
+    log(f"  16d profile --steps {PROFILE_CLI_STEPS} --report (subprocess, "
+        f"{took:.1f} s, "
         f"trace {trace_bytes / 1e6:.1f} MB): card busy {busy:.3f} ms a step, "
         f"module wall {plane['module_wall_ms_per_step']:.3f}, gap "
         f"{plane['in_module_gap_ms_per_step']:.3f}; categories sum "
@@ -5052,14 +5088,16 @@ def drop_graphs(dev, launches) -> dict:
     return counts
 
 
-def efficientnet_full_width(dev, launches, card: str, main_run: dict
-                            ) -> dict:
+def efficientnet_full_width(dev, launches, card: str, main_run: dict,
+                            peaks: dict | None = None) -> dict:
     """Phase 18c: the denoiser at 448^2 x16 bf16 eager with
     efficientnet-b0, b4 and b7 (stochastic depth on) and resnet34 with
-    ``patchify_stem: 2`` (3 warm-up and 10 timed steps, one fused warp
+    ``patchify_stem: 2`` (2 warm-up and 5 timed steps, one fused warp
     and one fp32 noise launch a step, a profile of 3 more with its cuDNN
     layout conversions, peak memory), and b0 and the patchified resnet34
-    at K = 16, beside phase 5's rate. Returns the launch counts by path."""
+    at K = 16, beside phase 5's rate. Returns the launch counts by path;
+    ``peaks`` gets each run's peak memory above what was held before it,
+    by path."""
     counts = {}
     rows = [f"resnet34 (phase 5) {16 / main_run['step_ms'] * 1e3:.1f} "
             f"imgs/s"]
@@ -5076,6 +5114,8 @@ def efficientnet_full_width(dev, launches, card: str, main_run: dict
         key = (f"{name.replace('-', '_')}_448" if not overrides
                else f"patchify2_{name}_448")
         counts[key] = run["counts"]
+        if peaks is not None:
+            peaks[key] = run["own_peak_gb"]
         rows.append(row)
         if name == B0:
             check(run["trainer"].drop_keep is not None,
@@ -5143,14 +5183,15 @@ def batch_slot_check(ckpt: Path, dev, card: str) -> None:
 
 
 def efficientnet_and_patchify(root: Path, data: dict, dev, launches,
-                              card: str, main_run: dict, ckpt: Path
-                              ) -> dict:
+                              card: str, main_run: dict, ckpt: Path,
+                              peaks: dict | None = None) -> dict:
     """Phase 18: 18a 64^2 fp32 steps on the GPU against the CPU
     (efficientnet-b0 with injected drop masks, resnet18 patchified), 18b
     K-step graphs against eager steps with drop on, 18c full-width
     rates, 18d the eight names' eval forwards and a b4 .ckpt round trip,
     18e the balancer with b0, 18f the batch-slot measurement on ``ckpt``
-    (8d's states). Returns the launch counts by path."""
+    (8d's states). Returns the launch counts by path (18c's peaks into
+    ``peaks``)."""
     from denoising_diffusion_deep_fake_tpu_torch.models.unet import (
         EFFICIENTNET_NAMES)
 
@@ -5165,7 +5206,8 @@ def efficientnet_and_patchify(root: Path, data: dict, dev, launches,
     log(f"    ({time.perf_counter() - t0:.1f} s)")
     log("[18c] 448^2 x16 bf16 denoiser: efficientnet-b0/b4/b7, b0 at K = "
         "16, resnet34 patchify_stem 2")
-    counts.update(efficientnet_full_width(dev, launches, card, main_run))
+    counts.update(efficientnet_full_width(dev, launches, card, main_run,
+                                          peaks))
     log(f"    ({time.perf_counter() - t0:.1f} s)")
     log("[18d] eval forwards of the eight names at 448^2 x16 bf16; an "
         "efficientnet-b4 .ckpt in and out")
@@ -5275,7 +5317,8 @@ def noise_element_base(dev, card: str) -> None:
 def _dp_trainer(workload: str, dev, batch: int = DP_BATCH,
                 size: int = DP_SIZE, **extra):
     """Phase 19c's trainers: 64^2, a global batch of 4, resnet18, fp32
-    (20b's at its own batch, size and knobs in ``extra``)."""
+    (20b's and 21b's at their own batch, size and knobs in ``extra``, the
+    encoder too)."""
     common = dict(dict(batch_size=batch, image_size=size,
                        learning_rate=1e-3, encoder_name="resnet18",
                        compute_dtype="float32"), **extra)
@@ -5284,16 +5327,18 @@ def _dp_trainer(workload: str, dev, batch: int = DP_BATCH,
                               ema_update_after_step=0, **common)
     if workload == "balance":
         return make_balancer(dev, **common)
-    return make_trainer(dev, encoder="resnet18", batch=batch, size=size,
-                        dtype="float32", **extra)
+    extra = dict(extra)
+    return make_trainer(dev, encoder=extra.pop("encoder_name", "resnet18"),
+                        batch=batch, size=size, dtype="float32", **extra)
 
 
 def _dp_step(workload: str, dev, rows, batch: int = DP_BATCH,
-             size: int = DP_SIZE, **extra) -> dict:
+             size: int = DP_SIZE, to_host: bool = True, **extra) -> dict:
     """One step of ``workload`` from seed-made weights, the U-Nets in
     float64 (fp32 gradients of a 64^2 U-Net are too ill-conditioned for
     1e-5: a decoder BN's bias gradient is a sum that nearly cancels),
-    on ``rows(global batch, trainer)``; every tensor after it, by name."""
+    on ``rows(global batch, trainer)``; every tensor after it, by name,
+    on the host (where it is, without ``to_host``)."""
     from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
         shard_state)
     from denoising_diffusion_deep_fake_tpu_torch.training.state import (
@@ -5306,6 +5351,8 @@ def _dp_step(workload: str, dev, rows, batch: int = DP_BATCH,
         for model in (state.model, state.ema_model):
             if model is not None:
                 model.double().dtype = torch.float64
+            if hasattr(model, "unet"):   # patchified: the inner U-Net too
+                model.unet.dtype = torch.float64
     shard_state(states, trainer.mesh)
     rng = np.random.default_rng(SEED + 91)
     batches = [rows(torch.from_numpy(rng.integers(
@@ -5317,15 +5364,18 @@ def _dp_step(workload: str, dev, rows, batch: int = DP_BATCH,
     out["lr"] = trainer.cfg.learning_rate
     for i, state in enumerate(model_states(states)):
         for name, t in state.model.state_dict().items():
-            out[f"{i}.model.{name}"] = t.cpu()
+            out[f"{i}.model.{name}"] = t
         if state.has_ema:
             for name, t in state.ema_model.state_dict().items():
-                out[f"{i}.shadow.{name}"] = t.cpu()
+                out[f"{i}.shadow.{name}"] = t
         for name, p in state.model.named_parameters():
-            out[f"{i}.grad.{name}"] = p.grad.cpu()
+            out[f"{i}.grad.{name}"] = p.grad
             for k, v in state.optimizer.state[p].items():
                 if k != "step":
-                    out[f"{i}.adam_{k}.{name}"] = v.cpu()
+                    out[f"{i}.adam_{k}.{name}"] = v
+    if to_host:
+        out = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+               for k, v in out.items()}
     return out
 
 
@@ -5359,12 +5409,14 @@ def _dp_compare(what: str, dp: dict, one: dict, phase: str = "19c",
             continue
         scale = float(want.double().abs().max())
         err = float(diff.max())
-        worst = max(worst, err / scale if scale else err)
+        if scale > 1e-10:   # else rounding noise, held at 1e-12 below
+            worst = max(worst, err / scale)
         check(err <= 1e-5 * scale + 1e-12,
               f"{what} {k}: {err} against {scale}")
     log(f"  {what}: {ranks} against one process on the card: "
         f"losses within 1e-5, BN buffers, gradients, Adam moments and "
-        f"shadows within {worst:.2e} of their largest")
+        f"shadows within {worst:.2e} of their largest (those of rounding "
+        f"noise, below 1e-10, within 1e-12)")
 
 
 def _dp_worker_gloo(workdir: Path, card: str) -> None:
@@ -5737,7 +5789,12 @@ def _sp_prediction(state, mesh, x: torch.Tensor) -> torch.Tensor:
     return pred
 
 
-def noise_row_window(dev, card: str) -> dict:
+# 20a's (shape, spatial axes) of the row window's checks.
+ROW_WINDOWS = (((16, 448, 448, 3), (2, 4)), ((6, 45, 45, 3), (3,)))
+
+
+def noise_row_window(dev, card: str, windows=ROW_WINDOWS,
+                     phase: str = "20a") -> dict:
     """Phase 20a: both noise kernels, by value and by device offset, on a
     spatial rank's rows with their row window (``sample_stride``) against
     those rows of the launch on the whole batch: bit-equal, and within one
@@ -5745,7 +5802,8 @@ def noise_row_window(dev, card: str) -> dict:
     x6 over S = 3 (W * C = 135: runs start inside a Philox group). At
     448^2 x16, S = 2, rank 1's windowed launch is timed by graph replay,
     by value and by device offset, beside one contiguous run of as many
-    elements. Returns those times by kernel."""
+    elements. Returns those times by kernel. ``windows`` and ``phase``:
+    other shapes, for another phase."""
     from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import (
         noise_kernel as nk)
     from denoising_diffusion_deep_fake_tpu_torch.ops.cuda._build import (
@@ -5757,8 +5815,7 @@ def noise_row_window(dev, card: str) -> dict:
     seed, offset = 12345, (1 << 33) + 7
     times = {}
     with moved_launches():
-        for shape, spatials in (((16, 448, 448, 3), (2, 4)),
-                                ((6, 45, 45, 3), (3,))):
+        for shape, spatials in windows:
             b, h, w, c = shape
             x = torch.from_numpy(rng.standard_normal(shape).astype(
                 np.float32)).to(dev)
@@ -5788,7 +5845,8 @@ def noise_row_window(dev, card: str) -> dict:
                             torch.cuda.synchronize()
                             check(torch.equal(got, whole[:, r * n:
                                                          (r + 1) * n]),
-                                  f"20a {name} {shape} S = {spatial} rank "
+                                  f"{phase} {name} {shape} S = {spatial} "
+                                  f"rank "
                                   f"{r} {form}: the windowed rows differ "
                                   "from the whole launch's")
                             if r == spatial - 1 and form == "by value":
@@ -5803,7 +5861,7 @@ def noise_row_window(dev, card: str) -> dict:
                                             nk.noise_constants(*HALF, 3),
                                             seed=seed, offset=offset,
                                             **window))
-                                compare_ulp(got, plain, f"20a {name} "
+                                compare_ulp(got, plain, f"{phase} {name} "
                                             f"{shape} S = {spatial} rank {r}"
                                             f" (first run at element "
                                             f"{window['element_base']}, % 4 ="
@@ -5828,8 +5886,8 @@ def noise_row_window(dev, card: str) -> dict:
                             offset=at, **window)),
                         "contiguous_ms": graph_ms(launch(offset=offset))}
                     t = times[name]
-                    log(f"  20a {name} on rank 1's rows of 448^2 x16 over "
-                        f"S = 2 (16 runs of 224 x 448 x 3, graph replay): "
+                    log(f"  {phase} {name} on rank 1's rows of 448^2 x16 "
+                        f"over S = 2 (16 runs of 224 x 448 x 3, graph replay): "
                         f"windowed {t['row_window_ms']:.4f} ms by value, "
                         f"{t['row_window_device_offset_ms']:.4f} ms by "
                         f"device offset; one contiguous run of as many "
@@ -5841,14 +5899,17 @@ def noise_row_window(dev, card: str) -> dict:
 
 
 def _sp_full_width(dev, rank: int, spatial: int = 2,
-                   graph_k: int | None = None) -> dict:
-    """20c (20d) on one rank: phase 5's denoiser (448^2 x16, resnet34,
-    bf16) with ``spatial_parallel`` from phase 5's seed: the first forward
-    on ``_sp_probe_inputs``' rows in fp32 and in bf16, each with its
-    exchanges and broken (``_halo_fault``); the first step's loss on a
-    fixed batch, 2 more warm-up and 5 timed steps, the peak memory, a
-    profile (rank 0), the census of one step and the host's cost of one
-    halo exchange; with
+                   graph_k: int | None = None, encoder: str = "resnet34",
+                   knobs: dict | None = None,
+                   dtypes=("float32", "bfloat16"),
+                   exchange_cost: bool = True) -> dict:
+    """20c (20d, 21c) on one rank: phase 5's denoiser (448^2 x16, bf16;
+    ``encoder`` and the config ``knobs``) with ``spatial_parallel`` from
+    phase 5's seed: the first forward on ``_sp_probe_inputs``' rows in each
+    of ``dtypes``, with its exchanges and broken (``_halo_fault``); the
+    first step's loss on a fixed batch, 2 more warm-up and 5 timed steps,
+    the peak memory, a profile (rank 0), the census of one step and, with
+    ``exchange_cost``, the host's cost of one halo exchange; with
     ``graph_k`` (NCCL), one group of K steps as a graph (capture and
     replay), then 2 timed groups."""
     import torch.distributed as dist
@@ -5862,11 +5923,15 @@ def _sp_full_width(dev, rank: int, spatial: int = 2,
     from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
         shard_batch, shard_rows)
 
+    marks = [("start", time.perf_counter())]
     preds = {}
     for dtype in ("float32", "bfloat16"):  # bf16's trainer is stepped below
-        trainer = make_trainer(dev, encoder="resnet34", batch=16, size=448,
-                               dtype=dtype, spatial_parallel=spatial)
+        trainer = make_trainer(dev, encoder=encoder, batch=16, size=448,
+                               dtype=dtype, spatial_parallel=spatial,
+                               **(knobs or {}))
         state = trainer.init_state(seed=SEED)
+        if dtype not in dtypes:
+            continue
         x = shard_rows(shard_batch(_sp_probe_inputs()[0], trainer.mesh),
                        trainer.mesh).to(dev)
         preds[f"pred_{dtype}"] = _sp_prediction(state, trainer.mesh, x)
@@ -5881,6 +5946,7 @@ def _sp_full_width(dev, rank: int, spatial: int = 2,
         0, 256, (16, 448, 448, 3), np.uint8)), trainer.mesh).to(dev)
         for _ in range(3)]
     torch.cuda.synchronize()
+    marks.append(("forwards", time.perf_counter()))
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
     out = {"first_loss": float(trainer.train_step(state,
@@ -5898,6 +5964,7 @@ def _sp_full_width(dev, rank: int, spatial: int = 2,
     out["counts"] = dict(LAUNCHES)
     out["last_loss"] = float(loss)
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    marks.append(("steps", time.perf_counter()))
     check(out["counts"] == {"affine_warp_fused": 8, "fused_noise_blend": 8},
           f"20c rank {rank}: launches {out['counts']} in 8 steps")
     with collectives.recording() as calls:
@@ -5906,6 +5973,7 @@ def _sp_full_width(dev, rank: int, spatial: int = 2,
     census = collective_census(calls)
     out["census"] = census_summary(census)
     out["violations"] = census_violations(census, spatial=True)
+    marks.append(("census", time.perf_counter()))
     lb = batches[0].shape[0]
     run = dict(single_path(trainer, size=448, batch=lb, state=state),
                step_ms=out["step_ms"])
@@ -5918,18 +5986,20 @@ def _sp_full_width(dev, rank: int, spatial: int = 2,
         for _ in range(4):  # profile_steps' steps, on every rank
             run["step"](u8)
         torch.cuda.synchronize()
-    # The host's cost of one halo exchange: the stem's output rows (64
-    # channels, 112 of 224 rows, 224 wide, bf16), one row each way.
-    x = torch.randn((16, 64, 112, 224), device=dev).to(
-        torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    collectives.exchange_rows(x, 1, 1, trainer.mesh, dim=2, pad=0.0)
-    torch.cuda.synchronize()
-    dist.barrier()
-    t0 = time.perf_counter()
-    for _ in range(20):
+    marks.append(("profile", time.perf_counter()))
+    if exchange_cost:
+        # The host's cost of one halo exchange: the stem's output rows (64
+        # channels, 112 of 224 rows, 224 wide, bf16), one row each way.
+        x = torch.randn((16, 64, 112, 224), device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
         collectives.exchange_rows(x, 1, 1, trainer.mesh, dim=2, pad=0.0)
-    torch.cuda.synchronize()
-    out["halo_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            collectives.exchange_rows(x, 1, 1, trainer.mesh, dim=2, pad=0.0)
+        torch.cuda.synchronize()
+        out["halo_ms"] = (time.perf_counter() - t0) / 20 * 1e3
     if graph_k:
         step = trainer.make_super_step(graph_k)
         group = [batches[i % 3] for i in range(graph_k)]
@@ -5941,16 +6011,21 @@ def _sp_full_width(dev, rank: int, spatial: int = 2,
             step(state, *group)
         torch.cuda.synchronize()
         out["graph_step_ms"] = (time.perf_counter() - t0) / (2 * graph_k) * 1e3
+    marks.append(("end", time.perf_counter()))
+    out["seconds"] = ", ".join(f"{b[0]} {b[1] - a[1]:.1f} s"
+                               for a, b in zip(marks, marks[1:]))
     return out
 
 
 def _sp_hold_full_width(full: list, data: int, spatial: int, dev,
-                        card: str, phase: str) -> None:
-    """20c (20d): the ranks' ``_sp_full_width`` against one process of the
-    same weights. The first forward's rows put together, with the
-    exchanges and broken, by relative L2 distance (and the loss of each
-    against the target, relative), in fp32 and in bf16; the first step's
-    loss. Fails unless the fp32 forward with exchanges is within
+                        card: str, phase: str, encoder: str = "resnet34",
+                        knobs: dict | None = None,
+                        dtypes=("float32", "bfloat16")) -> None:
+    """20c (20d, 21c): the ranks' ``_sp_full_width`` (of ``encoder`` with
+    the config ``knobs``) against one process of the same weights. The
+    first forward's rows put together, with the exchanges and broken, by
+    relative L2 distance (and the loss of each against the target,
+    relative), in each of ``dtypes``; the first step's loss. Fails unless the fp32 forward with exchanges is within
     ``SP_PRED_LIMIT``, the broken one beyond it, and every first loss
     within ``SP_LOSS_LIMIT``. In bf16 the sound forward's distance is
     logged beside the broken one's, not held: bf16 rounds each layer
@@ -5963,10 +6038,11 @@ def _sp_hold_full_width(full: list, data: int, spatial: int, dev,
     target = target.to(dev)
     gaps, ones, one_loss = {}, {}, None
     for dtype in ("float32", "bfloat16"):
-        trainer = make_trainer(dev, encoder="resnet34", batch=16, size=448,
-                               dtype=dtype)
+        trainer = make_trainer(dev, encoder=encoder, batch=16, size=448,
+                               dtype=dtype, **(knobs or {}))
         state = trainer.init_state(seed=SEED)
-        one = ones[dtype] = _sp_prediction(state, None, noisy.to(dev))
+        if dtype in dtypes:
+            ones[dtype] = _sp_prediction(state, None, noisy.to(dev))
         if dtype == "bfloat16":
             rng = np.random.default_rng(SEED + 101)
             u8 = torch.from_numpy(rng.integers(0, 256, (16, 448, 448, 3),
@@ -5974,6 +6050,9 @@ def _sp_hold_full_width(full: list, data: int, spatial: int, dev,
             one_loss = float(trainer.train_step(state, u8)["loss"])
             del u8
         del trainer, state
+        if dtype not in dtypes:
+            continue
+        one = ones[dtype]
         one_fit = float(mse_ssim_loss(one.to(dev), target))
         for key in ("pred", "fault"):
             got = torch.cat([torch.cat([full[d * spatial + s][
@@ -5983,7 +6062,7 @@ def _sp_hold_full_width(full: list, data: int, spatial: int, dev,
             gaps[key, dtype] = (float((got - one).norm() / one.norm()),
                                 abs(fit - one_fit) / abs(one_fit))
     losses = [abs(f["first_loss"] - one_loss) / abs(one_loss) for f in full]
-    for dtype in ("float32", "bfloat16"):
+    for dtype in dtypes:
         (sound, sound_fit), (broken, broken_fit) = (gaps["pred", dtype],
                                                     gaps["fault", dtype])
         log(f"  {phase} first forward, 448^2 x16 {dtype}, the ranks' rows "
@@ -5992,10 +6071,11 @@ def _sp_hold_full_width(full: list, data: int, spatial: int, dev,
             + f", its loss {sound_fit:.3e} relative; with every halo "
             f"zero-filled (a broken exchange) {broken:.3e}, its loss "
             f"{broken_fit:.3e} [{card}]")
-    bf16, fp32 = ones["bfloat16"], ones["float32"]
-    log(f"  {phase} one process's bf16 forward against its fp32 one: "
-        f"relative L2 {float((bf16 - fp32).norm() / fp32.norm()):.3e} "
-        f"[{card}]")
+    if len(ones) == 2:
+        bf16, fp32 = ones["bfloat16"], ones["float32"]
+        log(f"  {phase} one process's bf16 forward against its fp32 one: "
+            f"relative L2 {float((bf16 - fp32).norm() / fp32.norm()):.3e} "
+            f"[{card}]")
     log(f"  {phase} first step's loss (bf16) {full[0]['first_loss']:.6f} "
         f"against {one_loss:.6f} in one process ({max(losses):.2e} "
         f"relative at most over the ranks, limit {SP_LOSS_LIMIT:g}) [{card}]")
@@ -6091,7 +6171,9 @@ def _sp_worker_nccl(workdir: Path) -> None:
     (the denoiser; its stride-32 level gathered) and data 2 x spatial 2
     (the denoiser and the swap pair), a K = 2 graph of the data 2 x
     spatial 2 denoiser against two eager steps, and the full-width
-    denoiser at both layouts."""
+    denoiser at both layouts; then 21c's efficientnet-b0 and patchified
+    resnet34 at full width at data 1 x spatial 4 (the forward in fp32),
+    eager and as K = 16 graphs, halos and SE sums captured."""
     from denoising_diffusion_deep_fake_tpu_torch.device import (
         resolve_device)
     from denoising_diffusion_deep_fake_tpu_torch.parallel import (
@@ -6134,6 +6216,13 @@ def _sp_worker_nccl(workdir: Path) -> None:
     cudnn.deterministic, cudnn.benchmark = False, True
     out["full_s4"] = _sp_full_width(dev, rank, spatial=4, graph_k=16)
     out["full_d2s2"] = _sp_full_width(dev, rank, spatial=2, graph_k=16)
+    cudnn.benchmark = False   # as 21c's ranks
+    for key, encoder, knobs in SP_FULL_FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[f"full_s4_{key}"] = _sp_full_width(
+            dev, rank, spatial=4, graph_k=16, encoder=encoder, knobs=knobs,
+            dtypes=("float32",), exchange_cost=False)
     torch.save(out, workdir / f"sp_nccl_rank{rank}.pt")
     distributed.shutdown()
 
@@ -6169,15 +6258,25 @@ def spatial_cards(root: Path, dev, card: str) -> None:
     log("  20d K = 2 graph of the data 2 x spatial 2 denoiser, halos "
         f"captured: bit-equal to two eager steps on every rank [{card}]")
     cudnn.deterministic, cudnn.benchmark = False, True
-    for key, what, layout in (("full_s4", "data 1 x spatial 4", (1, 4)),
-                              ("full_d2s2", "data 2 x spatial 2", (2, 2))):
+    cases = [("full_s4", "resnet34", {}, (1, 4)),
+             ("full_d2s2", "resnet34", {}, (2, 2))]
+    cases += [(f"full_s4_{key}", encoder, knobs, (1, 4))
+              for key, encoder, knobs in SP_FULL_FAMILIES]
+    for key, encoder, knobs, layout in cases:
+        what = (f"{encoder}" + "".join(f" {k}={v}" for k, v in knobs.items())
+                + f" data {layout[0]} x spatial {layout[1]}")
         full = [r[key] for r in ranks]
-        _sp_hold_full_width(full, *layout, dev, card, f"20d {what}")
+        resnet = encoder == "resnet34" and not knobs
+        cudnn.benchmark = resnet   # 21c's models as their ranks ran them
+        _sp_hold_full_width(full, *layout, dev, card, f"20d {what}",
+                            encoder=encoder, knobs=knobs,
+                            dtypes=(("float32", "bfloat16") if resnet
+                                    else ("float32",)))
         step_ms = max(f["step_ms"] for f in full)
         halo = full[0]["census"].get("collective-permute", {})
         reduce = full[0]["census"].get("all-reduce", {})
         busy = full[0].get("busy_ms", 0.0)
-        log(f"  20d {what}, 448^2 x16 resnet34 bf16 over NCCL: "
+        log(f"  20d {what}, 448^2 x16 bf16 over NCCL: "
             f"{16 / step_ms * 1e3:.1f} imgs/s ({step_ms:.1f} ms a step, "
             f"host clock, mean of 5), first losses "
             f"{[round(f['first_loss'], 6) for f in full]}, peak memory "
@@ -6185,10 +6284,13 @@ def spatial_cards(root: Path, dev, card: str) -> None:
             f"{busy:.3f} ms a step (idle {1 - busy / step_ms:.1%}); a step: "
             f"{halo.get('count', 0)} halo exchanges, "
             f"{halo.get('total_mib', 0):.3f} MiB a rank, "
-            f"{reduce.get('count', 0)} all-reduces, "
-            f"{reduce.get('total_mib', 0):.3f} MiB; one exchange of the "
-            f"stem's rows {full[0]['halo_ms']:.3f} ms of host; K = 16 "
-            f"graph {16 / max(f['graph_step_ms'] for f in full) * 1e3:.1f} "
+            f"{reduce.get('count', 0)} all-reduces "
+            f"({reduce.get('spatial_sums', 0)} SE sums), "
+            f"{reduce.get('total_mib', 0):.3f} MiB; "
+            + (f"one exchange of the stem's rows {full[0]['halo_ms']:.3f} "
+               f"ms of host; " if "halo_ms" in full[0] else "")
+            + f"K = 16 graph "
+            f"{16 / max(f['graph_step_ms'] for f in full) * 1e3:.1f} "
             f"imgs/s [{card}]")
         check(all(not f["violations"] for f in full),
               f"20d census: {[f['violations'] for f in full]}")
@@ -6298,15 +6400,229 @@ def spatial_parallel(root: Path, dev, launches, card: str,
     return counts, times
 
 
+# ------------------------- phase 21: spatial parallelism, the families
+
+
+# 21b's cases at 64^2, (key, workload, encoder, patchify_stem): the CPU
+# test's names (tests/test_torch_port_spatial_families.py), one a family
+# and the patchified resnet18, each stepped, and efficientnet-b0's swap
+# pair and balancer.
+SP_FAMILY_CASES = (
+    *((name, "denoiser", name, 1) for name in (
+        "vgg11_bn", "densenet121", "se_resnext50_32x4d", B0, "mobilenet_v2",
+        "xception", "inceptionv4", "inceptionresnetv2", "dpn68")),
+    ("resnet18_patchify2", "denoiser", "resnet18", 2),
+    (f"{B0}_swap", "swap", B0, 1),
+    (f"{B0}_balance", "balance", B0, 1),
+)
+# 21c's models at configs/denoiser.yml's width, (key, encoder, knobs); the
+# keys are 18c's paths without their size.
+SP_FULL_FAMILIES = (("efficientnet_b0", B0, {}),
+                    ("patchify2_resnet34", "resnet34", {"patchify_stem": 2}))
+# The row windows the noise kernels take in 21b and 21c: (the global
+# shape, the spatial axis).
+SP_FAMILY_WINDOWS = (((SP_BATCH, DP_SIZE, DP_SIZE, 3), 2),
+                     ((16, 448, 448, 3), 2))
+
+
+def _checksum(step: dict) -> str:
+    """A digest of a ``_dp_step`` result's bits: each tensor's bits summed
+    as integers (wrapping), which is cheap for 62M parameters."""
+    digest = hashlib.sha256()
+    for k, v in step.items():
+        if isinstance(v, torch.Tensor):
+            bits = {8: torch.int64, 4: torch.int32, 2: torch.int16,
+                    1: torch.int8}[v.element_size()]
+            v = int(v.reshape(-1).view(bits).sum())
+        digest.update(f"{k}={v!r};".encode())
+    return digest.hexdigest()
+
+
+def _sp_families_worker(workdir: Path) -> None:
+    """21b and 21c, one of two ranks on the one card over gloo with
+    spatial_parallel: 2. Before it joins the group, the rank takes the
+    one-process steps of every other case of ``SP_FAMILY_CASES`` (rank r
+    the r-th, r + 2-th, ...), kept on the card; in the group, each case's
+    64^2 float64 step (its launches and a digest of its bits, under
+    ``cudnn.deterministic``), held by the rank that has its one-process
+    step (``_dp_compare``, which logs it and fails the rank otherwise);
+    the census of an fp32 b0 step; then ``SP_FULL_FAMILIES`` at full
+    width (``_sp_full_width``, the forward in fp32), cuDNN's autotuning
+    off."""
+    import os
+
+    from denoising_diffusion_deep_fake_tpu_torch.device import (
+        resolve_device)
+    from denoising_diffusion_deep_fake_tpu_torch.ops.cuda._build import (
+        LAUNCHES)
+    from denoising_diffusion_deep_fake_tpu_torch.parallel import (
+        distributed)
+    from denoising_diffusion_deep_fake_tpu_torch.parallel.audit import (
+        census_of_train_step, census_summary, census_violations)
+    from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
+        shard_batch)
+
+    rank = int(os.environ["D3F_PROCESS_ID"])
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic, cudnn.benchmark = True, False
+    dev = resolve_device()
+    out, refs = {"counts": {}, "sums": {}}, {}
+    t0 = time.perf_counter()
+    for key, workload, encoder, patchify in SP_FAMILY_CASES[rank::2]:
+        with (_row_share_loss(2) if workload == "swap"
+              else contextlib.nullcontext()):
+            refs[key] = _dp_step(workload, dev, lambda b, t: b.to(dev),
+                                 SP_BATCH, DP_SIZE, to_host=False,
+                                 encoder_name=encoder,
+                                 patchify_stem=patchify)
+    out["refs_s"] = time.perf_counter() - t0
+    check(distributed.maybe_initialize_from_env(backend="gloo"),
+          "21b: no D3F_* launch environment")
+    check(distributed.process_index() == rank, "21b: the rank moved")
+    dev = resolve_device()
+    t0 = time.perf_counter()
+    for key, workload, encoder, patchify in SP_FAMILY_CASES:
+        LAUNCHES.clear()
+        step = _dp_step(workload, dev, lambda b, t: shard_batch(
+            b, t.mesh).to(dev), SP_BATCH, DP_SIZE, to_host=False,
+            spatial_parallel=2, encoder_name=encoder, patchify_stem=patchify)
+        torch.cuda.synchronize()
+        out["counts"][f"sp_gloo_{key.replace('-', '_')}_64"] = dict(
+            LAUNCHES)
+        out["sums"][key] = _checksum(step)
+        if key in refs:
+            _dp_compare(f"{key} 64^2", step, refs.pop(key), phase="21b",
+                        ranks=f"2 spatial ranks (gloo), held on rank {rank}")
+        del step
+    census = census_of_train_step("denoiser", image_size=DP_SIZE,
+                                  batch_size=SP_BATCH, encoder_name=B0,
+                                  compute_dtype="float32", spatial=2)
+    out["census"] = census_summary(census)
+    out["violations"] = census_violations(census, spatial=True)
+    out["steps_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    # No autotuning at full width: b0's first step at a rank's shapes
+    # autotunes its depthwise convolutions for over a minute, and the step
+    # is host-bound (the halos and sums cross the host under gloo).
+    cudnn.deterministic, cudnn.benchmark = False, False
+    out["full"] = {}
+    for key, encoder, knobs in SP_FULL_FAMILIES:
+        full = out["full"][key] = _sp_full_width(
+            dev, rank, encoder=encoder, knobs=knobs, dtypes=("float32",),
+            exchange_cost=False)
+        out["counts"][f"sp_gloo_{key}_448"] = full["counts"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    distributed.shutdown()
+    torch.save(out, workdir / f"sp_families_rank{rank}.pt")
+
+
+def spatial_families(root: Path, dev, card: str, peaks: dict) -> dict:
+    """Phase 21: 21a the noise kernels' row windows at the shapes 21b and
+    21c launch (those 20a did not check); 21b two ranks on the one card
+    over gloo with spatial_parallel: 2, the 64^2 float64 steps of one
+    name a family, the patchified resnet18, b0's swap pair and balancer,
+    each against the one-process step on the card, and a census; 21c
+    efficientnet-b0 and the patchified resnet34 at full width over those
+    two ranks, beside 18c's one-process peaks (``peaks``). Returns the
+    launch counts by path."""
+    t21 = time.perf_counter()
+    log("[21a] the noise kernels' row windows at 21b's and 21c's shapes")
+    checked = {(shape, s) for shape, spatials in ROW_WINDOWS
+               for s in spatials}
+    missing = [(shape, (s,)) for shape, s in SP_FAMILY_WINDOWS
+               if (shape, s) not in checked]
+    if missing:
+        noise_row_window(dev, card, missing, phase="21a")
+    log(f"  21a: of the windows {[f'{w[0]} S = {w[1]}' for w in SP_FAMILY_WINDOWS]}"
+        f" 20a checked {len(SP_FAMILY_WINDOWS) - len(missing)}, 21a the "
+        f"others [{card}]")
+
+    log("[21b, 21c] two ranks on the one card over gloo, spatial_parallel: "
+        "2: the nine other families and the patchified U-Net")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    root.mkdir(parents=True, exist_ok=True)
+    _launch_ranks("spatial_families", root, 2, timeout_s=420)
+    ranks = [torch.load(root / f"sp_families_rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    log(f"    (ranks {time.perf_counter() - t0:.1f} s: the one-process "
+        f"64^2 steps {ranks[0]['refs_s']:.1f} s and "
+        f"{ranks[1]['refs_s']:.1f} s, the spatial ones and the census "
+        f"{ranks[0]['steps_s']:.1f} s; 21c "
+        + ", ".join(f"{k} {v['seconds']}" for k, v in ranks[0]["full"].items())
+        + ")")
+    for key, *_ in SP_FAMILY_CASES:
+        check(ranks[0]["sums"][key] == ranks[1]["sums"][key],
+              f"21b {key}: the ranks' states differ")
+    for r in ranks:
+        reduce = r["census"].get("all-reduce", {})
+        check(not r["violations"], f"21b census: {r['violations']}")
+        check(r["census"].get("collective-permute", {}).get("count", 0) > 0
+              and reduce.get("spatial_sums", 0) > 0,
+              f"21b: b0's spatial step exchanged no halo or summed no SE "
+              f"mean over the data row: {r['census']}")
+    log(f"  21b: the {len(SP_FAMILY_CASES)} steps of both ranks bit-equal "
+        f"(their digests), each held above; census of one 64^2 "
+        f"x2 fp32 efficientnet-b0 step over S = 2: " + ", ".join(
+            f"{op} {c['count']} calls, {c['total_mib']:.3f} MiB"
+            + (f" ({c['spatial_sums']} SE sums)" if "spatial_sums" in c
+               else "") for op, c in ranks[0]["census"].items()) + f" [{card}]")
+
+    for key, encoder, knobs in SP_FULL_FAMILIES:
+        label = f"{encoder}" + "".join(f" {k}={v}" for k, v in knobs.items())
+        log(f"[21c] 448^2 x16 {label} bf16 over S = 2 against one process")
+        full = [r["full"][key] for r in ranks]
+        t0 = time.perf_counter()
+        cudnn = torch.backends.cudnn
+        saved, cudnn.benchmark = cudnn.benchmark, False  # as the ranks
+        try:
+            _sp_hold_full_width(full, 1, 2, dev, card, f"21c {label}",
+                                encoder=encoder, knobs=knobs,
+                                dtypes=("float32",))
+        finally:
+            cudnn.benchmark = saved
+        log(f"    (one process's forward and first step "
+            f"{time.perf_counter() - t0:.1f} s)")
+        check(not full[0]["violations"],
+              f"21c census: {full[0]['violations']}")
+        step_ms = max(f["step_ms"] for f in full)
+        busy = full[0].get("busy_ms", 0.0)
+        halo = full[0]["census"].get("collective-permute", {})
+        reduce = full[0]["census"].get("all-reduce", {})
+        one_gb = peaks.get(f"{key}_448")
+        log(f"  21c {label}: {16 / step_ms * 1e3:.1f} imgs/s "
+            f"({step_ms:.1f} ms a step, host clock, mean of 5, two ranks "
+            f"sharing the card); "
+            + (f"rank 0's kernels {busy:.3f} ms a step, device idle "
+               f"{1 - busy / step_ms:.1%}; " if busy > 0 else
+               "the profiler saw no device time; ")
+            + f"a step: {halo.get('count', 0)} halo exchanges, "
+            f"{halo.get('total_mib', 0):.3f} MiB a rank (through the host: "
+            f"gloo), {reduce.get('spatial_sums', 0)} SE sums among "
+            f"{reduce.get('count', 0)} all-reduces; peak memory rank 0 "
+            f"{full[0]['peak_gb']:.2f} GB, rank 1 {full[1]['peak_gb']:.2f} "
+            f"GB, beside 18c's one process "
+            + (f"{one_gb:.2f} GB" if one_gb is not None else "(not run)")
+            + f" [{card}]")
+    log(f"  phase 21 took {time.perf_counter() - t21:.1f} s [{card}]")
+    return dict(ranks[0]["counts"])
+
+
 def dp_worker(argv: list) -> int:
-    """``--dp-worker nccl|gloo|spatial WORKDIR [DATA]``: one rank of phase
-    19 (20b and 20c for ``spatial``)."""
+    """``--dp-worker nccl|gloo|spatial|spatial_families|spatial_nccl
+    WORKDIR [DATA]``: one rank of phase 19 (20b and 20c for ``spatial``,
+    21b and 21c for ``spatial_families``, 20d for ``spatial_nccl``)."""
     mode, workdir = argv[0], Path(argv[1])
     card = card_line()
     if mode == "nccl":
         _dp_worker_nccl(workdir, Path(argv[2]), card)
     elif mode == "spatial":
         _sp_worker_gloo(workdir)
+    elif mode == "spatial_families":
+        _sp_families_worker(workdir)
     elif mode == "spatial_nccl":
         _sp_worker_nccl(workdir)
     else:
@@ -6355,8 +6671,9 @@ def main() -> int:
         return spatial_cards_main()
     t_start = time.perf_counter()
     # A hang anywhere prints every thread's stack and exits non-zero within
-    # the script's 1200 s limit.
-    faulthandler.dump_traceback_later(1100, exit=True)
+    # the script's 1200 s limit (the phases take up to ~1100 s on a slow
+    # host).
+    faulthandler.dump_traceback_later(1170, exit=True)
     from denoising_diffusion_deep_fake_tpu_torch.data import nvjpeg
     from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import _build
 
@@ -6552,9 +6869,10 @@ def main() -> int:
 
         log("[18] EfficientNet-b0..b7 with stochastic depth and the "
             "patchified U-Net")
+        full_width_peaks = {}
         efficientnet_paths = efficientnet_and_patchify(
             Path(tmp) / "efficientnet", data, dev, _build.LAUNCHES, card,
-            main_run, ckpt)
+            main_run, ckpt, full_width_peaks)
 
         log("[19] data parallelism: the noise kernels' element base, one "
             "rank over NCCL, two ranks on the one card over gloo")
@@ -6568,6 +6886,11 @@ def main() -> int:
         sp_paths, window_ms = spatial_parallel(
             Path(tmp) / "sp", dev, _build.LAUNCHES, card, main_run)
 
+        log("[21] spatial parallelism for the nine other encoder families "
+            "and the patchified U-Net: two ranks on the one card over gloo")
+        sp_family_paths = spatial_families(
+            Path(tmp) / "sp_families", dev, card, full_width_peaks)
+
     paths = {"denoiser_448": main_run["counts"],
              "twopass_640": twopass_run["counts"],
              "balancer_448": balance_counts,
@@ -6576,7 +6899,7 @@ def main() -> int:
              "serve_ddim_448": ddim_counts, **loop_paths, **i420_paths,
              **graph_paths, **cache_paths, **family_paths, **jpeg_paths,
              **knob_paths, **other_paths, **efficientnet_paths,
-             **dp_paths, **sp_paths}
+             **dp_paths, **sp_paths, **sp_family_paths}
     first_path = {"affine_warp_fused": "denoiser_448",
                   "warp_axis_pass": "twopass_640",
                   "fused_noise_blend": "denoiser_448",

@@ -10,10 +10,11 @@ config.py``: ``BaseConfig``, ``DeepFakeConfig``, ``DenoiserConfig``,
 ``yaml`` is imported only by ``read_yaml_file_into_dict``: the GPU machine
 may lack PyYAML, and ``chip_smoke.py`` builds its config from a dict.
 
-Every knob of the schema is ported; ``spatial_parallel > 1`` runs the
-resnet family's U-Net over ``data_parallel * spatial_parallel`` processes
-(``parallel/``); the trainers' mesh refuses it for any other encoder and
-for ``patchify_stem > 1`` (``parallel/mesh.py``, ROADMAP A9c).
+Every knob of the schema is ported; ``spatial_parallel > 1`` runs every
+encoder family's U-Net, and the patchified one, over ``data_parallel *
+spatial_parallel`` processes (``parallel/``). Beyond JAX's checks it needs
+``image_size / (spatial_parallel * patchify_stem)`` an even integer: a
+rank's rows split into whole patches, and the stem halves them.
 """
 
 from __future__ import annotations
@@ -137,6 +138,18 @@ class BaseConfig:
                 f"patchify_stem={self.patchify_stem} needs image_size "
                 f"divisible by {32 * self.patchify_stem} "
                 f"(got {self.image_size})")
+        split = self.spatial_parallel * self.patchify_stem
+        if (self.spatial_parallel > 1 and self.image_size is not None
+                and self.image_size % self.spatial_parallel == 0
+                and (self.image_size % split
+                     or self.image_size // split % 2)):
+            raise ValueError(
+                f"image_size {self.image_size} over spatial_parallel="
+                f"{self.spatial_parallel} with patchify_stem="
+                f"{self.patchify_stem}: image_size / (spatial_parallel * "
+                f"patchify_stem) = {self.image_size / split:g} must be an "
+                "even integer (a rank's rows split into whole patches, and "
+                "the U-Net's stem halves them)")
         if len(tuple(self.color_jitter)) != 4:
             raise ValueError(
                 "color_jitter must be (brightness, contrast, saturation, "

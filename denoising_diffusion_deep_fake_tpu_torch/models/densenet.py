@@ -19,6 +19,10 @@ conv (growth), its output concatenated onto its input. Every conv without
 bias. Init (``models/unet.py``): kaiming-normal fan-in, torchvision
 densenet's default mode.
 
+On a spatial rank's rows (``parallel/halo.py``) the stem's max pool and
+the transitions' 2x2 average pools go through ``halo``, and the encoder
+gathers its rows before each of them where they stop dividing.
+
 Module names are torchvision's (``features.denseblock{i}.denselayer{j}
 .norm1`` ...), so the state_dict has smp's keys.
 """
@@ -32,7 +36,10 @@ from torch import nn
 from denoising_diffusion_deep_fake_tpu_torch.models.resnet import (
     BatchNorm2d,
     Conv2d,
+    avg_pool2d,
+    max_pool2d,
 )
+from denoising_diffusion_deep_fake_tpu_torch.parallel import halo
 
 # name -> (block_config, growth_rate, num_init_features), torchvision's
 # densenet121/161/169/201 arguments.
@@ -104,7 +111,7 @@ class DenseNetEncoder(nn.Module):
         features = [x]
         y = F.relu(f.norm0(f.conv0(x)))
         features.append(y)
-        y = F.max_pool2d(y, 3, 2, 1)
+        y = max_pool2d(halo.gather_before_stride(y, 2), 3, 2, 1)
         for i in range(1, len(self.block_config) + 1):
             for layer in getattr(f, f"denseblock{i}").children():
                 y = layer(y)
@@ -112,7 +119,8 @@ class DenseNetEncoder(nn.Module):
                 transition = getattr(f, f"transition{i}")
                 y = F.relu(transition.norm(y))
                 features.append(y)
-                y = F.avg_pool2d(transition.conv(y), 2, 2)
+                y = avg_pool2d(halo.gather_before_stride(
+                    transition.conv(y), 2), 2, 2)
             else:
                 features.append(f.norm5(y))
         return features

@@ -28,6 +28,11 @@ where a stage that ends on a (residual, dense) pair gives
   MaxPool(3, 2, 1);
 * init (``models/unet.py``): torch's defaults, kaiming-uniform(a=sqrt(5)).
 
+On a spatial rank's rows (``parallel/halo.py``) the stem's max pool goes
+through ``halo``, and the encoder gathers its rows before it and before
+each stage's first block where they stop dividing (the pair concatenated,
+as the block itself concatenates it).
+
 The classifier ``last_linear`` is left out, as smp leaves it; module names
 are pretrainedmodels' (``features.conv2_1.c1x1_a.conv``), so the state_dict
 has smp's keys.
@@ -44,7 +49,9 @@ from torch import nn
 from denoising_diffusion_deep_fake_tpu_torch.models.resnet import (
     BatchNorm2d,
     Conv2d,
+    max_pool2d,
 )
+from denoising_diffusion_deep_fake_tpu_torch.parallel import halo
 
 
 class DPNSpec(NamedTuple):
@@ -192,12 +199,14 @@ class DPNEncoder(nn.Module):
         stem = self.features["conv1_1"]
         y = F.relu(stem.bn(stem.conv(x)))
         features.append(y)
-        y = F.max_pool2d(y, 3, 2, 1)
+        y = max_pool2d(halo.gather_before_stride(y, 2), 3, 2, 1)
         for key, block in self.features.items():
             if key in ("conv1_1", "conv5_bn_ac"):
                 continue
             if key in ("conv3_1", "conv4_1", "conv5_1"):
-                features.append(F.relu(torch.cat(y, dim=1)))
+                y = torch.cat(y, dim=1)
+                features.append(F.relu(y))
+                y = halo.gather_before_stride(y, 2)
             y = block(y)
         features.append(self.features["conv5_bn_ac"](torch.cat(y, dim=1)))
         return features

@@ -32,6 +32,13 @@ argument of ``forward``, an ``(n_drop_blocks, B)`` tensor in block order
 same order), or None for no drop. So a recompute of the forward (the
 ``remat`` policies) and a CUDA-graph replay see the masks the step drew.
 
+On a spatial rank's rows (``parallel/halo.py``) the "same" pads come
+from the global extent (``halo.same_conv2d``), the squeeze-excite mean is
+summed over the data row (``halo.spatial_mean``), and the encoder gathers
+its rows before a stage's stride-2 block where they stop dividing or
+would leave fewer than 2 a rank (the 5x5 depthwise convs' halo;
+``HALO_REACH``).
+
 The classifier head (``_conv_head``, ``_bn1``, ``_fc``) is left out, as
 smp never runs it and the JAX encoder has none. Module names are
 efficientnet-pytorch's (``_conv_stem``, ``_bn0``, ``_blocks.{i}.
@@ -50,6 +57,10 @@ from torch import nn
 from denoising_diffusion_deep_fake_tpu_torch.models.resnet import (
     BatchNorm2d,
     Conv2d,
+)
+from denoising_diffusion_deep_fake_tpu_torch.parallel import halo
+from denoising_diffusion_deep_fake_tpu_torch.parallel.halo import (
+    same_pads as _same_pads,
 )
 
 # (repeats, kernel, stride, expand_ratio, in_filters, out_filters) at b0
@@ -77,6 +88,9 @@ EFFICIENTNET_SPECS = {
 }
 
 _DROP_CONNECT_RATE = 0.2  # efficientnet-pytorch GlobalParams default
+# The widest halo of the encoder's convolutions (a 5x5 "same" conv reads 2
+# rows beyond a rank's): a spatial rank keeps at least as many rows.
+HALO_REACH = 2
 
 # smp's efficient_net_encoders stage_idxs (the 1/4, 1/8, 1/16 taps).
 _SMP_STAGE_IDXS = {
@@ -140,12 +154,6 @@ def _drop_scale(keep: float, dtype: torch.dtype) -> float:
                  / torch.tensor(keep, dtype=dtype))
 
 
-def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
-    """TF 'same' pads (before, after) of a kxk/s conv along an extent n."""
-    p = max((-(-n // s) - 1) * s + k - n, 0)
-    return p // 2, p - p // 2
-
-
 def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
@@ -153,9 +161,15 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 class SameConv2d(Conv2d):
     """A conv with TF "same" padding from the input's own extent: given to
     the conv where it is symmetric, an explicit ``F.pad`` where it is not
-    (efficientnet-pytorch's Conv2dStaticSamePadding)."""
+    (efficientnet-pytorch's Conv2dStaticSamePadding); on a rank's rows
+    from the global extent (``halo.same_conv2d``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        layout = halo.active()
+        if layout is not None:
+            return halo.same_conv2d(x, self.weight.to(x.dtype), bias,
+                                    self.stride, self.groups, layout)
         (k, _), (s, _) = self.kernel_size, self.stride
         top, bottom = _same_pads(x.shape[2], k, s)
         left, right = _same_pads(x.shape[3], k, s)
@@ -163,7 +177,6 @@ class SameConv2d(Conv2d):
         if top != bottom or left != right:
             x = F.pad(x, (left, right, top, bottom))
             padding = (0, 0)
-        bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
                         padding, self.dilation, self.groups)
 
@@ -192,6 +205,7 @@ class MBConvBlock(nn.Module):
         self._project_conv = Conv2d(hidden, cout, 1, bias=False)
         self._bn2 = _bn(cout)
         self.expand = expand
+        self.stride = stride
         self.residual = stride == 1 and cin == cout
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
@@ -200,7 +214,7 @@ class MBConvBlock(nn.Module):
         if self.expand != 1:
             y = swish(self._bn0(self._expand_conv(y)))
         y = swish(self._bn1(self._depthwise_conv(y)))
-        se = y.mean(dim=(2, 3), keepdim=True)
+        se = halo.spatial_mean(y)
         se = self._se_expand(swish(self._se_reduce(se)))
         y = y * torch.sigmoid(se)
         y = self._bn2(self._project_conv(y))
@@ -254,6 +268,8 @@ class EfficientNetEncoder(nn.Module):
         y = swish(self._bn0(self._conv_stem(x)))
         features.append(y)
         for idx, block in enumerate(self._blocks):
+            if block.stride == 2:
+                y = halo.gather_before_stride(y, 2, HALO_REACH)
             y = block(y, *masks.get(idx, ()))
             if idx + 1 in self.taps:
                 features.append(y)

@@ -21,6 +21,10 @@ channels (3, 64, 192, 320, 1088, 1536):
 * init (``models/unet.py``): torch's defaults, kaiming-uniform(a=sqrt(5))
   weights and uniform(+-1/sqrt(fan_in)) ``conv2d`` biases.
 
+On a spatial rank's rows it is inceptionv4's (``HALO_REACH`` 3: the
+block17 7x1 convs), the gathers before ``maxpool_3a``, ``maxpool_5a``,
+``mixed_6a`` and ``mixed_7a``.
+
 The classifier is left out, as smp leaves it; module names are Cadene's,
 so the state_dict has smp's keys.
 """
@@ -32,11 +36,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from denoising_diffusion_deep_fake_tpu_torch.models.inceptionv4 import (
+    HALO_REACH,
     AvgPoolValid,
     BasicConv2d,
     maxpool_3x3_s2,
 )
 from denoising_diffusion_deep_fake_tpu_torch.models.resnet import Conv2d
+from denoising_diffusion_deep_fake_tpu_torch.parallel import halo
+
+
+def _gathered(y: torch.Tensor) -> torch.Tensor:
+    return halo.gather_before_stride(y, 2, HALO_REACH)
 
 
 class ResidualBlock(nn.Module):
@@ -140,12 +150,12 @@ class InceptionResNetV2Encoder(nn.Module):
         features = [x]
         y = self.conv2d_2b(self.conv2d_2a(self.conv2d_1a(x)))
         features.append(y)
-        y = self.conv2d_4a(self.conv2d_3b(maxpool_3x3_s2(y)))
+        y = self.conv2d_4a(self.conv2d_3b(maxpool_3x3_s2(_gathered(y))))
         features.append(y)
-        y = self.repeat(self.mixed_5b(maxpool_3x3_s2(y)))
+        y = self.repeat(self.mixed_5b(maxpool_3x3_s2(_gathered(y))))
         features.append(y)
-        y = self.repeat_1(self.mixed_6a(y))
+        y = self.repeat_1(self.mixed_6a(_gathered(y)))
         features.append(y)
-        y = self.block8(self.repeat_2(self.mixed_7a(y)))
+        y = self.block8(self.repeat_2(self.mixed_7a(_gathered(y))))
         features.append(self.conv2d_7b(y))
         return features

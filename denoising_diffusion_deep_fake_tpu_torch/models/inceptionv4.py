@@ -19,6 +19,14 @@ Port of ``denoising_diffusion_deep_fake_tpu/models/inceptionv4.py``: smp's
   pools first, Mixed_5a convolves first);
 * init (``models/unet.py``): torch's defaults, kaiming-uniform(a=sqrt(5)).
 
+On a spatial rank's rows (``parallel/halo.py``) the convs and pools
+exchange their halos (a 7x1 conv 3 rows each way; the branch pool divides
+by its taps inside the global image), and the encoder gathers its rows
+before each stride-2 module (Mixed_3a, Mixed_5a, the reductions) where
+they stop dividing or would leave fewer than 3 a rank (``HALO_REACH``).
+smp's pad-1 3x3 convs and pools keep the rows as resnet's do: 448^2 over
+2 ranks runs 224 -> 112 -> 56 -> 28 -> 14 -> 7 rows a rank.
+
 The classifier ``last_linear`` is left out, as smp leaves it; module names
 are Cadene's (``features.6.branch1.0.conv``), so the state_dict has smp's
 keys.
@@ -33,9 +41,17 @@ from torch import nn
 from denoising_diffusion_deep_fake_tpu_torch.models.resnet import (
     BatchNorm2d,
     Conv2d,
+    avg_pool2d,
+    max_pool2d,
 )
+from denoising_diffusion_deep_fake_tpu_torch.parallel import halo
 
 INCEPTION_EPS = 1e-3
+# The widest halo of the inceptions' convolutions (a 7x1 conv reads 3 rows
+# beyond a rank's): a spatial rank keeps at least as many rows.
+HALO_REACH = 3
+# The modules that halve the rows.
+STRIDED = ("mixed_3a", "mixed_5a", "reduction_a", "reduction_b")
 
 
 class BasicConv2d(nn.Module):
@@ -55,12 +71,12 @@ class AvgPoolValid(nn.Module):
     """``AvgPool2d(3, 1, 1, count_include_pad=False)``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.avg_pool2d(x, 3, 1, 1, count_include_pad=False)
+        return avg_pool2d(x, 3, 1, 1, count_include_pad=False)
 
 
 def maxpool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """``MaxPool2d(3, stride=2)`` after smp's pad-1 patch."""
-    return F.max_pool2d(x, 3, 2, 1)
+    return max_pool2d(x, 3, 2, 1)
 
 
 class Mixed(nn.Module):
@@ -166,6 +182,8 @@ class InceptionV4Encoder(nn.Module):
         for i, module in enumerate(self.features):
             if i in STAGE_IDXS:
                 features.append(x)
+            if getattr(module, "kind", None) in STRIDED:
+                x = halo.gather_before_stride(x, 2, HALO_REACH)
             x = module(x)
         features.append(x)
         return features

@@ -14,6 +14,9 @@ channels (3, 16, 24, 32, 96, 1280) at strides (1, 2, 4, 8, 16, 32).
 * ReLU6; every conv without bias. Init (``models/unet.py``):
   kaiming-normal fan-out.
 
+On a spatial rank's rows (``parallel/halo.py``) the encoder gathers its
+rows before each stride-2 ``InvertedResidual`` where they stop dividing.
+
 Module names are torchvision's (``features.{i}.conv.{k}[.{j}]``), so the
 state_dict has smp's keys.
 """
@@ -27,6 +30,7 @@ from denoising_diffusion_deep_fake_tpu_torch.models.resnet import (
     BatchNorm2d,
     Conv2d,
 )
+from denoising_diffusion_deep_fake_tpu_torch.parallel import halo
 
 # (expand ratio t, out channels c, repeats n, first stride s)
 _INVERTED_RESIDUAL_SETTING = (
@@ -60,6 +64,7 @@ class InvertedResidual(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int, expand_ratio: int):
         super().__init__()
         hidden = int(round(cin * expand_ratio))
+        self.stride = stride
         self.use_residual = stride == 1 and cin == cout
         layers = ([] if expand_ratio == 1
                   else [ConvBNReLU6(cin, hidden, kernel=1)])
@@ -97,6 +102,8 @@ class MobileNetV2Encoder(nn.Module):
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         features = [x]
         for i, module in enumerate(self.features):
+            if getattr(module, "stride", 1) == 2:
+                x = halo.gather_before_stride(x, 2)
             x = module(x)
             if i in _STAGE_ENDS:
                 features.append(x)

@@ -12,7 +12,8 @@ Numerics follow the flax model, not ``torch.nn`` defaults:
 
 * convolutions run in the model's compute dtype: the fp32 weight is cast to
   the input's dtype (flax ``dtype=bfloat16``), and the output keeps it;
-* batch norm (``BatchNorm2d`` below) takes its statistics in fp32 and
+* batch norm (``BatchNorm2d`` below) takes its statistics in fp32
+  (float64 for a float64 input, in one process as in a group) and
   returns the compute dtype, and updates its running statistics as flax
   does: momentum 0.9 on the old value and the *biased* batch variance
   ``E[x^2] - E[x]^2`` (``torch.nn.BatchNorm2d`` would use momentum 0.1 on
@@ -33,8 +34,11 @@ to move a conv's gradient by several percent where a channel's mean is
 far from 0. Outside a group nothing of this runs.
 
 With ``spatial_parallel > 1`` (``parallel/halo.py``) a rank holds H rows
-of its data row's images: ``Conv2d`` and the stem's ``MaxPool2d`` exchange
-their halos with the neighbouring ranks and pad only at the global edges;
+of its data row's images: ``Conv2d``, ``MaxPool2d`` and the functional
+``max_pool2d`` / ``avg_pool2d`` below exchange their halos with the
+neighbouring ranks and pad only at the global edges (the nine other
+families build on them; ``halo.py`` has the geometry of each of their
+ops, and ``halo.spatial_mean`` their squeeze-excite means);
 batch norm's sums run over the ranks that hold distinct rows, the world
 at a sharded level (the same reduction as above: every rank holds its own
 share of the global batch's pixels) and the data group at a level the
@@ -113,16 +117,35 @@ class Conv2d(nn.Conv2d):
                         self.padding, self.dilation, self.groups)
 
 
-class MaxPool2d(nn.MaxPool2d):
-    """``nn.MaxPool2d``; on a rank's H rows with its halos, ``-inf`` at
+def max_pool2d(x: torch.Tensor, kernel, stride, padding=0,
+               ceil_mode: bool = False) -> torch.Tensor:
+    """``F.max_pool2d``; on a rank's H rows with its halos, ``-inf`` at
     the global edges."""
+    layout = halo.active()
+    if layout is None:
+        return F.max_pool2d(x, kernel, stride, padding, ceil_mode=ceil_mode)
+    return halo.max_pool2d(x, kernel, stride, padding, layout, ceil_mode)
+
+
+def avg_pool2d(x: torch.Tensor, kernel, stride, padding=0,
+               count_include_pad: bool = True) -> torch.Tensor:
+    """``F.avg_pool2d``; on a rank's H rows with its halos, zeros at the
+    global edges and, without ``count_include_pad``, each window divided
+    by its taps inside the global image."""
+    layout = halo.active()
+    if layout is None:
+        return F.avg_pool2d(x, kernel, stride, padding,
+                            count_include_pad=count_include_pad)
+    return halo.avg_pool2d(x, kernel, stride, padding, layout,
+                           count_include_pad)
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """``nn.MaxPool2d`` through ``max_pool2d``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        layout = halo.active()
-        if layout is None:
-            return super().forward(x)
-        return halo.max_pool2d(x, self.kernel_size, self.stride,
-                               self.padding, layout)
+        return max_pool2d(x, self.kernel_size, self.stride, self.padding,
+                          self.ceil_mode)
 
 
 class BatchNorm2d(nn.Module):
@@ -150,7 +173,8 @@ class BatchNorm2d(nn.Module):
             return self._global_forward(x)
         if self.update_running_stats:
             with torch.no_grad():
-                xf = x.detach().to(torch.float32)
+                xf = x.detach().to(torch.promote_types(x.dtype,
+                                                       torch.float32))
                 mean = xf.mean(dim=(0, 2, 3))
                 var = (xf.square().mean(dim=(0, 2, 3))
                        - mean.square()).clamp_min(0.0)

@@ -25,6 +25,12 @@ pretrainedmodels ``SENet`` staged as smp's ``SENetEncoder``:
 * init (``models/unet.py``): torch's defaults, kaiming-uniform(a=sqrt(5))
   weights and uniform(+-1/sqrt(fan_in)) SE biases.
 
+On a spatial rank's rows (``parallel/halo.py``) the SE mean is summed
+over the data row (``halo.spatial_mean``), the stem's ceil-mode pool
+reads one row below (``-inf`` past the global bottom), and the encoder
+gathers its rows before the pool and ``layer2..4`` where they stop
+dividing.
+
 The classifier (``avg_pool``, ``dropout``, ``last_linear``) is left out, as
 smp leaves it; module names are pretrainedmodels', so the state_dict has
 smp's keys.
@@ -42,7 +48,9 @@ from torch import nn
 from denoising_diffusion_deep_fake_tpu_torch.models.resnet import (
     BatchNorm2d,
     Conv2d,
+    max_pool2d,
 )
+from denoising_diffusion_deep_fake_tpu_torch.parallel import halo
 
 
 class SENetSpec(NamedTuple):
@@ -78,7 +86,7 @@ class SEModule(nn.Module):
         self.fc2 = Conv2d(channels // reduction, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.mean((2, 3), keepdim=True)
+        s = halo.spatial_mean(x)
         s = self.fc2(F.relu(self.fc1(s)))
         return x * torch.sigmoid(s)
 
@@ -168,8 +176,10 @@ class SENetEncoder(nn.Module):
             y = F.relu(l0.bn2(l0.conv2(y)))
             y = F.relu(l0.bn3(l0.conv3(y)))
         features.append(y)
-        y = F.max_pool2d(y, 3, 2, 0, ceil_mode=True)
-        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
-            y = layer(y)
+        y = max_pool2d(halo.gather_before_stride(y, 2), 3, 2, 0,
+                       ceil_mode=True)
+        for i, layer in enumerate((self.layer1, self.layer2, self.layer3,
+                                   self.layer4)):
+            y = layer(halo.gather_before_stride(y, 2) if i else y)
             features.append(y)
         return features

@@ -26,8 +26,11 @@ rows; its convolutions exchange halos (the decoder's ``Conv2dReLU`` and
 the head are the encoder's ``Conv2d``), the x2 nearest upsample and the
 skip concatenation stay local to the rank, and at the level where the
 encoder gathered its rows the decoder takes the rank's rows back
-(``DecoderBlock``). Only the resnet family is ported: any other encoder,
-and ``PatchifiedUnet``, raise there (ROADMAP A9c).
+(``DecoderBlock``). Every family's encoder routes its ops through
+``parallel/halo.py`` and gathers its rows where they stop dividing (its
+module docstring). ``PatchifiedUnet`` pixel-unshuffles the rank's rows,
+aligned to the patch since ``(H / S) % p == 0``, and runs the inner U-Net
+sharded at H / (S p) rows a rank (``config.py`` refuses an odd count).
 
 Layout: ``Unet.forward`` takes and returns NHWC, like the flax model. It
 casts the input to the compute dtype and returns fp32 (unet.py:181, 202).
@@ -96,9 +99,6 @@ from denoising_diffusion_deep_fake_tpu_torch.models.xception import (
     XceptionEncoder,
 )
 from denoising_diffusion_deep_fake_tpu_torch.parallel import halo
-from denoising_diffusion_deep_fake_tpu_torch.parallel.mesh import (
-    refuse_unported_spatial,
-)
 
 
 DECODER_CHANNELS = (256, 128, 64, 32, 16)
@@ -210,9 +210,6 @@ class Unet(nn.Module):
                 drop_masks: torch.Tensor | None = None) -> torch.Tensor:
         """``drop_masks``: the stochastic-depth masks, ``(n, B)`` for the
         ``n = len(drop_keep_probs())`` blocks that drop, or None."""
-        mesh = halo.sharding_mesh()
-        if mesh is not None:
-            refuse_unported_spatial(mesh.spatial, self.encoder_name)
         x = x_nhwc.permute(0, 3, 1, 2).to(self.dtype)
         with halo.unet_forward(x.shape[2]):
             if drop_masks is None:
@@ -277,13 +274,16 @@ class PatchifiedUnet(nn.Module):
                 drop_masks: torch.Tensor | None = None) -> torch.Tensor:
         p = self.patch
         mesh = halo.sharding_mesh()
-        if mesh is not None:
-            refuse_unported_spatial(mesh.spatial, self.encoder_name, p)
-        if x_nhwc.shape[1] % (32 * p) or x_nhwc.shape[2] % (32 * p):
+        height = x_nhwc.shape[1] * (1 if mesh is None else mesh.spatial)
+        if height % (32 * p) or x_nhwc.shape[2] % (32 * p):
             raise ValueError(
                 f"patchify_stem={p}: H/W must be divisible by {32 * p} "
-                f"(got {x_nhwc.shape[1]}x{x_nhwc.shape[2]}) so the patched "
+                f"(got {height}x{x_nhwc.shape[2]}) so the patched "
                 "encoder pyramid stays integral")
+        if x_nhwc.shape[1] % p:
+            raise ValueError(
+                f"patchify_stem={p}: a spatial rank's {x_nhwc.shape[1]} "
+                "rows do not divide into patches")
         y = self.unet(space_to_depth(x_nhwc.to(self.dtype), p), drop_masks)
         return depth_to_space(y, p)
 

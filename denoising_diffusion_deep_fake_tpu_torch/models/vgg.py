@@ -9,7 +9,9 @@ before each of the five pools plus the last pooled map, channels (64, 128,
 level: the decoder drops the full-resolution 64-channel level.
 
 Every 3x3 conv has a bias, in the ``_bn`` forms too; ReLU after each conv
-(and its BN); ``MaxPool2d(2, 2)``. The modules sit in one ``features``
+(and its BN); ``MaxPool2d(2, 2)`` (the port's, which goes through
+``parallel/halo.py`` on a spatial rank's rows; the encoder gathers the
+rows before a pool where they stop dividing). The modules sit in one ``features``
 Sequential at torchvision's indices, so the state_dict has smp's keys
 (``encoder.features.{i}.*``). Init (``models/unet.py``): kaiming-normal
 fan-out weights, zero biases.
@@ -23,7 +25,9 @@ from torch import nn
 from denoising_diffusion_deep_fake_tpu_torch.models.resnet import (
     BatchNorm2d,
     Conv2d,
+    MaxPool2d,
 )
+from denoising_diffusion_deep_fake_tpu_torch.parallel import halo
 
 # torchvision cfgs A/B/D/E (torchvision.models.vgg.cfgs).
 _VGG_LAYOUTS = {
@@ -55,7 +59,7 @@ class VGGEncoder(nn.Module):
         layers, cin = [], in_channels
         for entry in layout:
             if entry == "M":
-                layers.append(nn.MaxPool2d(2, 2))
+                layers.append(MaxPool2d(2, 2))
                 continue
             layers.append(Conv2d(cin, entry, 3, padding=1))
             if batch_norm:
@@ -67,8 +71,9 @@ class VGGEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         features = []
         for module in self.features:
-            if isinstance(module, nn.MaxPool2d):
+            if isinstance(module, MaxPool2d):
                 features.append(x)
+                x = halo.gather_before_stride(x, 2)
             x = module(x)
         features.append(x)
         return features

@@ -23,6 +23,11 @@ Port of ``denoising_diffusion_deep_fake_tpu/models/xception.py``: smp's
 * init (``models/unet.py``): N(0, sqrt(2 / (k * k * out))) whatever the
   groups, which is kaiming-normal fan-out.
 
+On a spatial rank's rows (``parallel/halo.py``) the blocks' max pools go
+through ``halo`` (the port's ``MaxPool2d``), and the encoder gathers its
+rows before each stride-2 block (block1, 2, 3 and 12: ``rep`` and
+``skip`` see one layout) where they stop dividing.
+
 The classifier ``fc`` is left out, as smp leaves it; module names are
 Cadene's, so the state_dict has smp's keys.
 """
@@ -36,7 +41,9 @@ from torch import nn
 from denoising_diffusion_deep_fake_tpu_torch.models.resnet import (
     BatchNorm2d,
     Conv2d,
+    MaxPool2d,
 )
+from denoising_diffusion_deep_fake_tpu_torch.parallel import halo
 
 # (cin, cout, reps, stride, start_with_relu, grow_first) of block1..block12.
 _XCEPTION_BLOCKS = (
@@ -102,8 +109,9 @@ class XceptionBlock(nn.Module):
             elif kind == "bn":
                 rep.append(BatchNorm2d(*args))
             else:
-                rep.append(nn.MaxPool2d(3, stride, 1))
+                rep.append(MaxPool2d(3, stride, 1))
         self.rep = nn.Sequential(*rep)
+        self.stride = stride
         self.skip = self.skipbn = None
         if stride != 1 or cin != cout:
             self.skip = Conv2d(cin, cout, 1, stride, bias=False)
@@ -142,14 +150,13 @@ class XceptionEncoder(nn.Module):
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.relu(self.bn2(self.conv2(y)))
         features.append(y)
-        y = self.block1(y)
-        features.append(y)
-        y = self.block2(y)
-        features.append(y)
-        for i in range(3, 12):
-            y = getattr(self, f"block{i}")(y)
-        features.append(y)
-        y = self.block12(y)
+        for i in range(1, 13):
+            block = getattr(self, f"block{i}")
+            if block.stride == 2:
+                y = halo.gather_before_stride(y, 2)
+            y = block(y)
+            if i in (1, 2, 11):
+                features.append(y)
         y = F.relu(self.bn3(self.conv3(y)))
         features.append(self.bn4(self.conv4(y)))
         return features

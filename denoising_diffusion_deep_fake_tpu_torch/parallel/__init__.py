@@ -1,8 +1,8 @@
 """Data and spatial parallelism over ``torch.distributed`` (ROADMAP A9,
-A9b): the process group (``distributed``), the rank's rows of the batch
+A9b, A9c): the process group (``distributed``), the rank's rows of the batch
 and of each image (``mesh``), the collectives the port issues
 (``collectives``), the halo geometry of H-sharded convolutions
-(``halo``) and the census (``audit``)."""
+and pools (``halo``) and the census (``audit``)."""
 
 from denoising_diffusion_deep_fake_tpu_torch.parallel.distributed import (
     data_shard,

@@ -12,7 +12,10 @@ adds one kind, ``broadcast`` (the loop's ``want_images``, the state's
 start), which the policy does not judge. A spatial step's halo exchanges
 are issued by the port too (``parallel/halo.py``), so its census counts
 them as ``collective-permute`` beside the all-reduces, with JAX's policy
-as it stands: halos allowed, no all-gather above 16 MiB.
+as it stands: halos allowed, no all-gather above 16 MiB. The
+squeeze-excite blocks' spatial sums (EfficientNet's and SENet's SE means
+on a rank's rows, ``collectives.spatial_sum``) are all-reduces too, counted
+apart as ``spatial_sums`` of the ``all-reduce`` row.
 """
 
 from __future__ import annotations
@@ -36,9 +39,11 @@ class CollectiveStats:
     total_bytes: int = 0
     max_bytes: int = 0
     shapes: list = dataclasses.field(default_factory=list)  # (bytes, text)
+    spatial_sums: int = 0   # of them, squeeze-excite spatial sums
 
     def add(self, nbytes: int, shape_text: str) -> None:
         self.count += 1
+        self.spatial_sums += shape_text.endswith(collectives.SPATIAL_SUM)
         self.total_bytes += nbytes
         self.max_bytes = max(self.max_bytes, nbytes)
         self.shapes.append((nbytes, shape_text))
@@ -86,12 +91,17 @@ def census_violations(census: dict[str, CollectiveStats], *, spatial: bool,
 
 
 def census_summary(census: dict[str, CollectiveStats]) -> dict:
-    """JSON-friendly summary: count, total and largest MiB of each kind."""
-    return {
+    """JSON-friendly summary: count, total and largest MiB of each kind,
+    and the spatial sums among the all-reduces where there are any."""
+    out = {
         op: {"count": st.count, "total_mib": round(st.total_bytes / 2**20, 3),
              "max_mib": round(st.max_bytes / 2**20, 3)}
         for op, st in census.items() if st.count
     }
+    for op, st in census.items():
+        if st.spatial_sums:
+            out[op]["spatial_sums"] = st.spatial_sums
+    return out
 
 
 def census_of_train_step(workload: str, *, image_size: int, batch_size: int,

@@ -41,7 +41,12 @@ these join the ranks of a data row:
   row (an all-gather; its backward sums the gradient over the data row
   and keeps the rank's rows), where the U-Net's rows stop dividing;
 * ``spatial_all_reduce_``: a sum over the data row (the balancer's
-  per-image scores).
+  per-image scores);
+* ``spatial_sum``: the same sum, differentiable (a squeeze-excite's
+  spatial mean, ``halo.spatial_mean``): its backward sums the gradient
+  over the data row too, since each rank's backward carries only its own
+  rows' loss share. Recorded as ``all-reduce``, its text marked
+  ``spatial sum``.
 
 The gradient rule: a rank's loss is its rows' share of its data row's loss
 (``ops/losses.py``: sums over global counts, so the shares of a data row
@@ -88,6 +93,10 @@ def recording():
         _RECORDERS.remove(calls)
 
 
+# The census text's mark of a squeeze-excite's spatial sum.
+SPATIAL_SUM = " spatial sum"
+
+
 def _record(kind: str, t: torch.Tensor, via: str = "") -> None:
     for calls in _RECORDERS:
         calls.append((kind, t.numel() * t.element_size(),
@@ -100,8 +109,8 @@ def group_of(mesh):
     return None if mesh is None else mesh.group
 
 
-def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    _record("all-reduce", t)
+def _all_reduce(t: torch.Tensor, group, what: str = "") -> torch.Tensor:
+    _record("all-reduce", t, what)
     dist.all_reduce(t, group=group)
     return t
 
@@ -214,6 +223,28 @@ def spatial_all_reduce_(t: torch.Tensor, mesh) -> torch.Tensor:
     if mesh is None or mesh.spatial == 1:
         return t
     return _all_reduce(t, mesh.spatial_group)
+
+
+class _SpatialSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _all_reduce(x.contiguous().clone(), mesh.spatial_group,
+                           SPATIAL_SUM)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_all_reduce(grad.contiguous().clone(),
+                            ctx.mesh.spatial_group, SPATIAL_SUM), None)
+
+
+def spatial_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of this rank's data row, a new
+    tensor; differentiable (the module docstring); ``t`` on a spatial axis
+    of 1."""
+    if mesh is None or mesh.spatial == 1:
+        return t
+    return _SpatialSum.apply(t, mesh)
 
 
 def _over_gloo() -> bool:

@@ -20,9 +20,8 @@ row gathers and the loss's sums, ``parallel/collectives.py``) and one for
 each spatial column (its ``data`` ranks: batch norm at the U-Net's levels
 that run replicated, ``parallel/halo.py``). XLA derives the halo
 exchanges from each convolution's padding; the port issues them itself
-(``parallel/halo.py``), for the resnet family's U-Net only: any other
-encoder and the patchified U-Net refuse ``spatial > 1``, naming ROADMAP
-A9c.
+(``parallel/halo.py``), for every encoder family's U-Net and the
+patchified one, so the mesh does not depend on the model.
 
 ``shard_state`` makes every rank start from rank 0's parameters, buffers
 and shadows. JAX's ``device_prefetch`` for several processes (each
@@ -80,29 +79,6 @@ class Mesh:
         return tuple(range(first, first + self.spatial))
 
 
-# ROADMAP A9c: what spatial_parallel > 1 does not reach yet.
-SPATIAL_NEXT = "ROADMAP A9c"
-
-
-def refuse_unported_spatial(spatial: int, encoder_name: str | None = None,
-                            patchify: int = 1) -> None:
-    """``spatial > 1`` is ported for the resnet family's U-Net alone."""
-    if spatial <= 1:
-        return
-    from denoising_diffusion_deep_fake_tpu_torch.models.resnet import (
-        RESNET_SPECS)
-    if patchify > 1:
-        raise NotImplementedError(
-            f"spatial_parallel={spatial} with patchify_stem={patchify}: the "
-            "patchified U-Net has no halo exchange yet (" + SPATIAL_NEXT
-            + ")")
-    if encoder_name is not None and encoder_name not in RESNET_SPECS:
-        raise NotImplementedError(
-            f"spatial_parallel={spatial} with encoder {encoder_name!r}: "
-            "only the resnet family's convolutions exchange halos yet "
-            "(" + SPATIAL_NEXT + ")")
-
-
 def _comm_device() -> torch.device:
     """Where host numbers go for a collective: the rank's GPU under NCCL,
     the CPU under gloo."""
@@ -132,16 +108,12 @@ def _subgroups(data: int, spatial: int, rank: int) -> tuple:
     return rows[rank // spatial], columns[rank % spatial]
 
 
-def create_mesh(data_parallel: int | None = None, spatial: int = 1, *,
-                encoder_name: str | None = None, patchify: int = 1) -> Mesh:
+def create_mesh(data_parallel: int | None = None, spatial: int = 1) -> Mesh:
     """The mesh of this process. In a process group of ``world`` ranks the
     data axis is ``world // spatial`` (``data_parallel`` None or equal to
-    it); outside one, ``data_parallel`` and ``spatial`` must be None or 1.
-    ``encoder_name`` and ``patchify`` name the model, which must be one
-    ``spatial > 1`` reaches (``refuse_unported_spatial``)."""
+    it); outside one, ``data_parallel`` and ``spatial`` must be None or 1."""
     if spatial <= 0:
         raise ValueError(f"spatial_parallel={spatial} must be positive")
-    refuse_unported_spatial(spatial, encoder_name, patchify)
     if dist.is_available() and dist.is_initialized():
         world = dist.get_world_size()
         if world % spatial:
@@ -169,23 +141,19 @@ def create_mesh(data_parallel: int | None = None, spatial: int = 1, *,
 
 
 def training_mesh(data_parallel: int | None = None,
-                  spatial: int = 1, *, encoder_name: str | None = None,
-                  patchify: int = 1) -> Mesh:
+                  spatial: int = 1) -> Mesh:
     """The mesh every trainer and runner builds from its config knobs: in a
     process group the data axis spans every process over ``spatial``
     whatever ``data_parallel`` says (JAX ``mesh.py:91-92``), else
     ``create_mesh``."""
     if dist.is_available() and dist.is_initialized():
         data_parallel = None
-    return create_mesh(data_parallel, spatial, encoder_name=encoder_name,
-                       patchify=patchify)
+    return create_mesh(data_parallel, spatial)
 
 
 def config_mesh(cfg) -> Mesh:
-    """``training_mesh`` of a config's knobs and model."""
-    return training_mesh(cfg.data_parallel, cfg.spatial_parallel,
-                         encoder_name=cfg.encoder_name,
-                         patchify=cfg.patchify_stem)
+    """``training_mesh`` of a config's knobs."""
+    return training_mesh(cfg.data_parallel, cfg.spatial_parallel)
 
 
 def _rows(x, part: int, parts: int, dim: int, what: str):

@@ -47,7 +47,7 @@ JAX (``balance.py:185-226``): every rank scores the whole unsharded batch
 (eval-mode BN issues no collective), so every rank gets every image's
 loss.
 
-Spatial parallelism (``spatial_parallel: S``, the resnet family): a rank
+Spatial parallelism (``spatial_parallel: S``, every model): a rank
 keeps its H rows of its data row's uint8 images before the uint8 noise
 kernel, which runs with the rows' window (``noise_window``); the U-Net,
 the loss and the backward run on the rows, the loss is the rank's share.

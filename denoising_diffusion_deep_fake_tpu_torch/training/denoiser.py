@@ -48,7 +48,7 @@ mean. So the step is the one-process step of the global batch. Injected
 numbers are global arrays, cut the same way.
 
 Spatial parallelism (``spatial_parallel: S``, ``data_parallel * S``
-processes, the resnet family): the warp gathers source rows from anywhere
+processes, every encoder family and the patchified U-Net): the warp gathers source rows from anywhere
 in the image, so each rank of a data row warps (and jitters: contrast
 takes a per-image mean) its data row's whole images, with the fused warp
 as it is, and only then keeps its H rows (``shard_rows``; JAX's warp

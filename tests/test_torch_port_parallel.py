@@ -6,8 +6,10 @@
   rank's first Philox group then starts inside the previous rank's rows).
 * ``parallel/distributed.py`` and ``parallel/mesh.py`` outside a process
   group: JAX's one-process semantics and messages, ``shard_batch``'s rows
-  for a given rank, and the refusals (``data_parallel > 1`` in one
-  process, ``spatial > 1`` naming ROADMAP A9b), in the trainers too.
+  for a given rank, and the refusals (``data_parallel > 1`` or
+  ``spatial > 1`` in one process), in the trainers too; in a stand-in
+  group of two (``fake_group``) every family and the patchified U-Net
+  build a spatial mesh and trainer.
 * ``parallel/collectives.py`` outside a group: every function is the
   identity and records nothing.
 * ``parallel/audit.py``: the census policy on hand-made calls, as JAX's
@@ -159,29 +161,54 @@ def test_batch_and_coordinator_checks(monkeypatch):
         distributed.initialize("file:///x", 2, 2, device="cpu")
 
 
-def test_mesh_refusals():
+def fake_group(monkeypatch, world: int = 2, rank: int = 0) -> None:
+    """``torch.distributed`` as rank ``rank`` of a gloo group of ``world``
+    without one: enough to build a mesh and a trainer, which issue no
+    collective (a step would)."""
+    import torch.distributed as dist
+
+    from denoising_diffusion_deep_fake_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: world)
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: rank)
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "gloo")
+    monkeypatch.setattr(dist, "new_group",
+                        lambda ranks=None, **kw: ("group", tuple(ranks)))
+    monkeypatch.setattr(mesh, "_SUBGROUPS", {})
+
+
+def test_mesh_refusals(monkeypatch):
     """One process refuses a data or spatial axis above 1 (it drives one
-    device); spatial_parallel > 1 refuses the families outside the resnet
-    family and the patchified U-Net, naming ROADMAP A9c."""
+    device); in a group of two, spatial_parallel: 2 builds the spatial
+    mesh whatever the model (the mesh no longer names one: every family
+    and the patchified U-Net exchange their halos)."""
     with pytest.raises(ValueError, match="launch 2 processes"):
         create_mesh(2)
     with pytest.raises(ValueError, match="launch 2 processes"):
         create_mesh(None, spatial=2)
     with pytest.raises(ValueError, match="launch 4 processes"):
-        create_mesh(2, spatial=2, encoder_name="resnet50")
-    for name in ("efficientnet-b0", "densenet121"):
-        with pytest.raises(NotImplementedError, match="A9c"):
-            create_mesh(None, spatial=2, encoder_name=name)
-    with pytest.raises(NotImplementedError, match="A9c"):
-        create_mesh(None, spatial=2, encoder_name="resnet18", patchify=2)
+        create_mesh(2, spatial=2)
+    for rank in (0, 1):
+        fake_group(monkeypatch, rank=rank)
+        mesh = create_mesh(None, spatial=2)
+        assert (mesh.data, mesh.spatial, mesh.spatial_index) == (1, 2, rank)
+        assert mesh.spatial_group == ("group", (0, 1))
+    with pytest.raises(ValueError, match="data_parallel=2 with "
+                       "spatial_parallel=2 in a process group of 2"):
+        create_mesh(2, spatial=2)
 
 
 @pytest.mark.parametrize("trainer", [DenoiserTrainer, DeepFakeTrainer,
                                      BalanceTrainer])
-def test_trainers_refuse_spatial_and_one_process_data_parallel(trainer):
-    """What still refuses spatial_parallel > 1 in each trainer: the
-    families outside the resnet family and patchify_stem (A9c), JAX's
-    i420 and device-cache refusals; and one process for a data axis."""
+def test_trainers_refuse_spatial_and_one_process_data_parallel(
+        trainer, monkeypatch):
+    """What still refuses spatial_parallel > 1 in each trainer: JAX's i420
+    and device-cache refusals, an image size the spatial axis does not
+    divide, an odd image_size / (spatial_parallel * patchify_stem), and
+    one process for a data or spatial axis. In a group of two,
+    efficientnet-b0, densenet121 and patchify_stem: 2 build a spatial
+    trainer."""
     cls = {DenoiserTrainer: config.DenoiserConfig,
            DeepFakeTrainer: config.DeepFakeConfig,
            BalanceTrainer: config.BalanceConfig}[trainer]
@@ -189,23 +216,36 @@ def test_trainers_refuse_spatial_and_one_process_data_parallel(trainer):
                 data_path_b="b", batch_size=4, encoder_name="resnet18")
     fields = {f.name for f in dataclasses.fields(cls)}
     spatial = dict(spatial_parallel=2)
+
+    def cfg(knobs):
+        return config.config_from_dict(cls, {
+            k: v for k, v in {**base, **knobs}.items() if k in fields},
+            validate=False)
+
     for knobs, err, match in (
-            (dict(spatial, encoder_name="efficientnet-b0"),
-             NotImplementedError, "A9c"),
-            (dict(spatial, encoder_name="densenet121"), NotImplementedError,
-             "A9c"),
-            (dict(spatial, patchify_stem=2), NotImplementedError, "A9c"),
             (dict(spatial, upload_format="i420"), ValueError, "i420"),
             (dict(spatial, data_cache="device"), ValueError,
              "data_cache='host' with spatial_parallel"),
             (dict(spatial, image_size=63), ValueError, "spatial_parallel"),
+            (dict(spatial, image_size=62), ValueError,
+             r"image_size / \(spatial_parallel \* patchify_stem\) = 31 "
+             "must be an even integer"),
+            (dict(image_size=384, patchify_stem=2, spatial_parallel=64),
+             ValueError, "= 3 must be an even integer"),
+            (dict(image_size=192, patchify_stem=2, spatial_parallel=64),
+             ValueError, "= 1.5 must be an even integer"),
             (dict(spatial), ValueError, "launch 2 processes"),
             (dict(data_parallel=2), ValueError, "launch 2 processes")):
-        cfg = config.config_from_dict(cls, {
-            k: v for k, v in {**base, **knobs}.items() if k in fields},
-            validate=False)
         with pytest.raises(err, match=match):
-            trainer(cfg, steps_per_epoch=1, image_size=SIZE, device="cpu")
+            trainer(cfg(knobs), steps_per_epoch=1, image_size=SIZE,
+                    device="cpu")
+    fake_group(monkeypatch)
+    for knobs in (dict(spatial, encoder_name="efficientnet-b0"),
+                  dict(spatial, encoder_name="densenet121"),
+                  dict(spatial, patchify_stem=2, image_size=128)):
+        built = trainer(cfg(knobs), steps_per_epoch=1, image_size=SIZE,
+                        device="cpu")
+        assert (built.mesh.data, built.mesh.spatial) == (1, 2), knobs
 
 
 def test_shard_batch_keeps_a_ranks_rows():
