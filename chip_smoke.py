@@ -6,9 +6,8 @@
 Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build the CUDA kernels from ops/cuda/csrc (nvcc, sm_90a) and the
-   nvJPEG codec (data/csrc/nvjpeg_codec.cpp, -lnvjpeg), one nvcc per
-   source, all started together;
+2. build the CUDA kernels from ops/cuda/csrc (nvcc, sm_90a), one nvcc
+   per source, all started together;
 3. each kernel against its plain PyTorch version at the shapes its path
    gives it, with the kernel's and the plain version's times and the least
    time the card could take: the warp kernels bit-equal (the fused warp,
@@ -170,31 +169,29 @@ Phases, in order; any failure exits non-zero:
    and shadow tensor bit-equal to the resumed states, its keys the
    .ckpt's less criterion.*; a resnet50 .ckpt imported and its swap batch
    checked the same way.
-15. the reference's JPEG/PNG frames through cv2 where it imports (the
-   H100 machine's route) and with cv2 hidden from the port
-   (``sys.modules["cv2"] = None``; the port's codec): (a) the probe of
+15. the reference's JPEG/PNG frames through the loader's route, the JAX
+   package's rule (decode_fn, the native library, cv2, else an error
+   naming what is missing; cv2 on the H100 machine): (a) the probe of
    what the machine has (``ctypes.util.find_library`` for jpeg,
-   turbojpeg, png, z and nvjpeg; jpeglib.h, png.h and nvjpeg.h in
-   /usr/include, /usr/local/include and the toolkit's include/; g++, cv2,
-   PIL), and the loader's decoder with cv2 and without, each the one the
-   probe implies; (b) every committed fixture of tests/data/codec through
-   the port's codec (nvJPEG for JPEG, data/png.py for PNG) and through
-   this machine's cv2 against the committed cv2 decode, and a 448^2 frame
-   of (c)'s kind decoded by nvJPEG against cv2: PNG bit-equal, nvJPEG
-   within NVJPEG_BOUNDS, cv2 within 3 / mean 1.0 LSB; nvJPEG's q95 round
-   trip beside cv2's; (c) 2 x 256 JPEG frames of 448^2 and 8 of 512x384
-   written by nvJPEG (q95, 4:2:0, smooth synthetic frames), then with no
-   decode_fn, through cv2 and through nvJPEG: fit_denoiser x16 host and
-   data_cache device, eager and K = 16, 3 epochs each (imgs/s over epochs
-   2-3 beside 13b's .npy runs); fit_balance x12 for one epoch; the CLI's
-   ``train new`` for 3 steps; then the DeviceCache's decode of 1,024
-   entries and a host batch's decode and copy back, nvJPEG and cv2; (d)
-   9a's engine behind SwapServer answering 4 clients x 25 ``POST
-   /v1/swap`` requests with JPEG bodies of 640x480 frames (crop and
-   resize), through cv2 and through the port's codec: each reply 448^2
-   and byte-equal to the route's JPEG of its device batch's output at its
-   slot, each batch within 1 LSB of the pipeline on it; frames/s beside
-   9e's raw route, and the route's host stages timed a frame at a time.
+   turbojpeg, png and z; jpeglib.h and png.h in /usr/include and
+   /usr/local/include; g++, cv2, PIL), and the loader's decoder with cv2
+   and with cv2 hidden from the port (``sys.modules["cv2"] = None``), each
+   the one the probe implies; with neither cv2 nor the native library the
+   loader raises, naming both; (b) every committed fixture of
+   tests/data/codec through the loader's route against the committed cv2
+   decode, within the JAX package's 3 / mean 1.0 LSB, and cv2's q95 round
+   trip; (c) 2 x 256 JPEG frames of 448^2 and 8 of 512x384 written by
+   ``cv2.imencode`` (q95, 4:2:0, smooth synthetic frames), then with no
+   decode_fn, through cv2: fit_denoiser x16 host and data_cache device,
+   eager and K = 16, 3 epochs each (imgs/s over epochs 2-3 beside 13b's
+   .npy runs); fit_balance x12 for one epoch; the CLI's ``train new`` for
+   3 steps; then the DeviceCache's decode of 1,024 entries and a host
+   batch's decode; (d) 9a's engine behind SwapServer answering 4 clients x
+   25 ``POST /v1/swap`` requests with JPEG bodies of 640x480 frames (crop
+   and resize) through cv2: each reply 448^2 and byte-equal to cv2's JPEG
+   of its device batch's output at its slot, each batch within 1 LSB of
+   the pipeline on it; frames/s beside 9e's raw route, and the route's
+   host stages timed a frame at a time.
 16. color jitter, remat and the CLI's ``profile``: (a)
    ``color_jitter_normalised`` at 448^2 x16 fp32 with injected factors,
    card against CPU, and its time on the card; (b) at 64^2 x2 resnet18
@@ -3954,8 +3951,8 @@ def resnet_family_and_checkpoints(root: Path, data: dict, dev, launches,
 
 # ------------------------------------ phase 15: JPEG/PNG, cv2 and without
 
-CODEC_LIBS = ("jpeg", "turbojpeg", "png", "z", "nvjpeg")
-CODEC_HEADERS = ("jpeglib.h", "png.h", "nvjpeg.h")
+CODEC_LIBS = ("jpeg", "turbojpeg", "png", "z")
+CODEC_HEADERS = ("jpeglib.h", "png.h")
 
 
 def codec_probe() -> dict:
@@ -3971,9 +3968,7 @@ def codec_probe() -> dict:
             return False
         return True
 
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    include_dirs = ["/usr/include", "/usr/local/include",
-                    str(Path(nvcc).resolve().parent.parent / "include")]
+    include_dirs = ["/usr/include", "/usr/local/include"]
     return {
         "libs": {n: ctypes.util.find_library(n) for n in CODEC_LIBS},
         "headers": {h: [d for d in include_dirs if (Path(d) / h).exists()]
@@ -3985,18 +3980,6 @@ def codec_probe() -> dict:
 
 
 FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "codec"
-# nvJPEG against cv2's decode (libjpeg's IDCT and chroma upsampling) of
-# each committed JPEG fixture and of a 448^2 frame of 15c's kind: bounds on
-# the max and mean |difference| in LSB, each the figure measured on NVIDIA
-# H100 80GB HBM3, 700.00 W plus a margin of 2 LSB and 0.25 on the mean.
-# Measured: baseline_420 30 / 5.4463, gray 3 / 0.4062, nonsquare_40x24
-# 26 / 6.1382, progressive 30 / 5.4463, yuv444 3 / 0.5107, the 448^2
-# frame 11 / 1.2623: nvJPEG's 4:2:0 chroma upsampling is not libjpeg's
-# triangle filter (PERF.md section 6, ROADMAP C).
-NVJPEG_BOUNDS = {"baseline_420.jpg": (32, 5.70), "gray.jpg": (5, 0.66),
-                 "nonsquare_40x24.jpg": (28, 6.39),
-                 "progressive.jpg": (32, 5.70), "yuv444.jpg": (5, 0.76),
-                 "frame_448": (13, 1.51)}
 _ABSENT = object()
 
 
@@ -4017,12 +4000,11 @@ def without_cv2():
 def implied_decoders(probe: dict) -> tuple[str, str]:
     """The loader's decoder that the probe implies, with cv2 and without:
     the native library where g++ finds libjpeg's and libpng's headers and
-    libraries, else cv2, else nvJPEG where the toolkit has it."""
+    libraries, else cv2; with neither, ``"none"`` (the loader raises)."""
     native = bool(probe["gxx"] and probe["headers"]["jpeglib.h"]
                   and probe["headers"]["png.h"] and probe["libs"]["jpeg"]
                   and probe["libs"]["png"])
-    nvjpeg = bool(probe["headers"]["nvjpeg.h"] and probe["libs"]["nvjpeg"])
-    without = "native" if native else "nvjpeg" if nvjpeg else "none"
+    without = "native" if native else "none"
     return ("cv2" if probe["cv2"] and not native else without), without
 
 
@@ -4038,7 +4020,8 @@ def fixture_manifest(root: Path) -> Path:
 
 def codec_choice(root: Path, card: str) -> str:
     """15a: the probe, and the decoder the loader chose with cv2 and
-    without; each must be the one the probe implies."""
+    without; each must be the one the probe implies, and a loader with no
+    decoder must raise naming what is missing."""
     from denoising_diffusion_deep_fake_tpu_torch.data import native_loader
     from denoising_diffusion_deep_fake_tpu_torch.data.loader import (
         ImageLoader)
@@ -4048,14 +4031,23 @@ def codec_choice(root: Path, card: str) -> str:
     want, want_bare = implied_decoders(probe)
     manifest = fixture_manifest(root)
     chosen = ImageLoader(manifest, 1, image_size=32).decoder
+    error = ""
     with without_cv2():
-        bare = ImageLoader(manifest, 1, image_size=32).decoder
+        try:
+            bare = ImageLoader(manifest, 1, image_size=32).decoder
+        except RuntimeError as e:
+            bare, error = "none", str(e)
     log(f"  the loader chose {chosen!r} ({want!r} implied), without cv2 "
-        f"{bare!r} ({want_bare!r} implied); native library: "
-        f"{native_loader.unavailable_reason() or 'built'}")
+        f"{bare!r} ({want_bare!r} implied){': ' + error if error else ''}; "
+        f"native library: {native_loader.unavailable_reason() or 'built'}")
     check(chosen == want and bare == want_bare,
           "15a: the loader's decoder is not the one the probe implies")
-    return bare
+    if bare == "none":
+        check("cv2 does not import" in error
+              and "there is no native loader" in error,
+              f"15a: the loader's error does not name what is missing: "
+              f"{error!r}")
+    return chosen
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -4063,76 +4055,34 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     return float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
 
 
-def fixture_decodes(dev, card: str) -> dict:
-    """15b: each committed fixture through the card's decoder against the
-    committed cv2 decode, and a 448^2 frame of 15c's kind decoded by
-    nvJPEG against cv2; the encoder's round trip at quality 95."""
-    from denoising_diffusion_deep_fake_tpu_torch.data import codec, nvjpeg
+def fixture_decodes(root: Path, card: str) -> None:
+    """15b: each committed fixture through the loader's route (cv2 on the
+    card machine) against the committed cv2 decode, within the JAX
+    package's tolerance for a decoder (max 3, mean below 1.0 LSB); cv2's
+    q95 round trip of source.npy."""
+    import cv2
+    from denoising_diffusion_deep_fake_tpu_torch.data.loader import (
+        ImageLoader)
 
-    figures = {}
-    cv2 = codec.cv2_or_none()
+    loader = ImageLoader(fixture_manifest(root), 1, image_size=32)
     for path in sorted(FIXTURES.glob("*.jpg")) + sorted(FIXTURES.glob(
             "*.png")):
         want = np.load(path.with_suffix(".npy"))
-        got = codec.decode_files([str(path)])[0]
+        got = loader._decode([str(path)])[0]
         check(got.shape == want.shape, f"15b {path.name}: shape {got.shape}")
         diff = np.abs(got.astype(np.int16) - want)
-        by_cv2 = ""
-        if cv2 is not None:
-            mine = np.abs(cv2.cvtColor(cv2.imread(str(path)),
-                                       cv2.COLOR_BGR2RGB).astype(np.int16)
-                          - want)
-            by_cv2 = (f"; this machine's cv2 {cv2.__version__} against "
-                      f"the committed decode: max {int(mine.max())}")
-            # The JAX package's tolerance for a decoder against cv2's.
-            check(mine.max() <= 3 and mine.mean() < 1.0, f"15b "
-                  f"{path.name}: this machine's cv2 against the committed "
-                  f"decode: max {int(mine.max())}, mean {mine.mean():.4f}")
-        route = "nvJPEG" if path.suffix == ".jpg" else "data/png.py"
-        log(f"  {path.name} {want.shape}: {route} against cv2's decode max "
-            f"{int(diff.max())} LSB, mean {float(diff.mean()):.4f}{by_cv2}")
-        figures[path.name] = (int(diff.max()), float(diff.mean()))
-    frame = smooth_frames(dev, 1, 448, 448, SEED + 170)[0].contiguous()
-    blob = nvjpeg.codec().encode(frame, 95)
-    got = nvjpeg.decode_to_host([blob])[0]
-    source = frame.cpu().numpy()
-    line = (f"  a 448^2 frame of 15c's kind, nvJPEG q95 ({len(blob)} bytes):"
-            f" nvJPEG's decode PSNR {psnr(got, source):.2f} dB")
-    if cv2 is not None:
-        want = cv2.imdecode(np.frombuffer(blob, np.uint8),
-                            cv2.IMREAD_COLOR)[..., ::-1]
-        diff = np.abs(got.astype(np.int16) - want)
-        figures["frame_448"] = (int(diff.max()), float(diff.mean()))
-        line += (f", cv2's {psnr(want, source):.2f} dB; nvJPEG against "
-                 f"cv2's decode max {int(diff.max())} LSB, mean "
-                 f"{float(diff.mean()):.4f}, share above 3 LSB "
-                 f"{float((diff > 3).mean()):.3e}")
-    log(line + f" [{card}]")
+        top, mean = int(diff.max()), float(diff.mean())
+        log(f"  {path.name} {want.shape}: cv2 {cv2.__version__} against the "
+            f"committed decode max {top} LSB, mean {mean:.4f}")
+        check(top <= 3 and mean < 1.0, f"15b {path.name}: the loader's "
+              f"route against the committed decode: max {top}, mean "
+              f"{mean:.4f}")
     source = np.load(FIXTURES / "source.npy")
-    blob = nvjpeg.codec().encode(source, 95)
-    back = nvjpeg.decode_to_host([blob])[0]
-    line = (f"  nvJPEG q95 round trip of source.npy: {len(blob)} bytes, "
-            f"PSNR {psnr(back, source):.2f} dB")
-    if cv2 is not None:
-        ok, ref = cv2.imencode(".jpg", source[..., ::-1],
-                               [cv2.IMWRITE_JPEG_QUALITY, 95])
-        ref_back = cv2.imdecode(ref, cv2.IMREAD_COLOR)[..., ::-1]
-        via_cv2 = cv2.imdecode(np.frombuffer(blob, np.uint8),
-                               cv2.IMREAD_COLOR)[..., ::-1]
-        line += (f"; cv2's: {ref.size} bytes, PSNR "
-                 f"{psnr(ref_back, source):.2f} dB; nvJPEG's file decoded "
-                 f"by cv2: PSNR {psnr(via_cv2, source):.2f} dB")
-    log(line + f" [{card}]")
-    for name, (top, mean) in figures.items():
-        if name.endswith(".png"):
-            check(top == 0, f"15b {name}: data/png.py is not bit-equal to "
-                  "cv2's decode")
-        else:
-            bound = NVJPEG_BOUNDS[name]
-            check(top <= bound[0] and mean <= bound[1],
-                  f"15b {name}: nvJPEG beyond its bound {bound} of cv2's "
-                  f"decode: max {top}, mean {mean:.4f}")
-    return figures
+    blob = jpeg_bytes(source[None])[0]
+    back = cv2.imdecode(np.frombuffer(blob, np.uint8),
+                        cv2.IMREAD_COLOR)[..., ::-1]
+    log(f"  cv2 q95 4:2:0 round trip of source.npy: {len(blob)} bytes, "
+        f"PSNR {psnr(back, source):.2f} dB [{card}]")
 
 
 def smooth_frames(dev, n: int, height: int, width: int, seed: int
@@ -4150,39 +4100,48 @@ def smooth_frames(dev, n: int, height: int, width: int, seed: int
     return x.clamp(0, 255).round().to(torch.uint8).permute(0, 2, 3, 1)
 
 
-def write_jpegs(root: Path, frames: torch.Tensor, start: int = 0) -> list:
-    from denoising_diffusion_deep_fake_tpu_torch.data import nvjpeg
+def jpeg_bytes(frames) -> list:
+    """uint8 RGB frames (NHWC, a tensor or an array) as JPEG files by
+    ``cv2.imencode``: quality 95, 4:2:0."""
+    import cv2
 
+    params = [cv2.IMWRITE_JPEG_QUALITY, 95,
+              cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+              cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420]
+    host = frames.cpu().numpy() if torch.is_tensor(frames) else frames
+    blobs = []
+    for frame in host:
+        ok, blob = cv2.imencode(".jpg", np.ascontiguousarray(frame[..., ::-1]),
+                                params)
+        check(ok, "cv2.imencode failed")
+        blobs.append(blob.tobytes())
+    return blobs
+
+
+def write_jpegs(root: Path, frames: torch.Tensor, start: int = 0) -> list:
     root.mkdir(parents=True, exist_ok=True)
     paths = []
-    for i in range(frames.shape[0]):
+    for i, blob in enumerate(jpeg_bytes(frames)):
         paths.append(root / f"{start + i:05d}.jpg")
-        paths[-1].write_bytes(nvjpeg.codec().encode(
-            frames[i].contiguous(), 95))
+        paths[-1].write_bytes(blob)
     return paths
 
 
-# The loader's routes from JPEG files that phase 15 drives: cv2, which the
-# H100 machine has and takes, and the port's codec (nvJPEG) with cv2
-# hidden; each with the prefix of its paths' launch counts.
-CODEC_ROUTES = (("cv2", "jpeg_cv2"), ("nvjpeg", "jpeg"))
-
-
-def jpeg_fits(root: Path, route: str, prefix: str, data: Path,
-              ident: dict, launches, probe, npy_rates: dict, card: str
-              ) -> dict:
-    """15c on one route: fit_denoiser x16 host and device, eager and
-    K = 16, 3 epochs each; fit_balance x12 for one epoch; the CLI's train
-    new for 3 steps. Returns the launch counts by path."""
+def jpeg_fits(root: Path, data: Path, ident: dict, launches, probe,
+              npy_rates: dict, card: str) -> dict:
+    """15c through the loader's cv2 route: fit_denoiser x16 host and
+    device, eager and K = 16, 3 epochs each; fit_balance x12 for one
+    epoch; the CLI's train new for 3 steps. Returns the launch counts by
+    path."""
     from denoising_diffusion_deep_fake_tpu_torch.config import (
         BalanceConfig, DenoiserConfig, config_from_dict)
-    from denoising_diffusion_deep_fake_tpu_torch.data import nvjpeg
     from denoising_diffusion_deep_fake_tpu_torch import main as cli
     from denoising_diffusion_deep_fake_tpu_torch.training.runners import (
         fit_balance, fit_denoiser)
 
     fused = {"affine_warp_fused": 1, "fused_noise_blend": 1}
     counts = {}
+    route, prefix = "cv2", "jpeg_cv2"
     out = root / route
     for cache in ("host", "device"):
         for k in (1, 16):
@@ -4195,22 +4154,16 @@ def jpeg_fits(root: Path, route: str, prefix: str, data: Path,
                 steps_per_call=k, data_cache=cache, log_images=False,
                 log_dir=str(out / f"d_{cache}_{k}" / "runs"),
                 checkpoint_dir=str(out / f"d_{cache}_{k}" / "ck")))
-            before = nvjpeg.DECODED["frames"]
             run = timed_fit(probe, launches, fit_denoiser, cfg, spe=16,
                             images=16, decode_fn=None)
-            decoded = nvjpeg.DECODED["frames"] - before
             check_launches(run["counts"], {n: 48 * v
                                            for n, v in fused.items()},
                            f"15c fit_denoiser {route} {cache} K = {k}")
-            check(decoded >= 256 if route == "nvjpeg" else decoded == 0,
-                  f"15c fit_denoiser {route} {cache} K = {k}: nvJPEG "
-                  f"decoded {decoded} frames")
             npy = npy_rates.get(f"denoiser_{cache}_{k}")
             counts[f"{prefix}_fit_denoiser_448_{cache}_k{k}"] = run["counts"]
             log(f"  fit_denoiser 448^2 x16 from JPEG through {route}, "
                 f"{cache}, K = {k}: {run['imgs_s']:.1f} imgs/s over epochs "
-                f"2-3 (13b's .npy run {npy:.1f}); nvJPEG decoded {decoded} "
-                f"frames [{card}]")
+                f"2-3 (13b's .npy run {npy:.1f}) [{card}]")
     cfg = config_from_dict(BalanceConfig, dict(
         data_path=str(data), batch_size=12, learning_rate=0.01,
         max_epochs=1, encoder_name="resnet34", ratio_of_noise=0.7,
@@ -4253,10 +4206,9 @@ def jpeg_fits(root: Path, route: str, prefix: str, data: Path,
 def jpeg_training(root: Path, dev, launches, probe, card: str,
                   step_ms: float, npy_rates: dict) -> dict:
     """15c: 256 JPEG frames of 448^2 an identity and 8 of 512x384, written
-    by nvJPEG; the runners from them with no decode_fn, through cv2 where
-    it imports and through nvJPEG with cv2 hidden. Returns the launch
-    counts by path."""
-    from denoising_diffusion_deep_fake_tpu_torch.data import codec
+    by cv2; the runners from them with no decode_fn, through the loader's
+    cv2 route; the DeviceCache's decode of 1,024 entries and a host batch's
+    decode. Returns the launch counts by path."""
     from denoising_diffusion_deep_fake_tpu_torch.data.device_cache import (
         DeviceDatasetCache)
     from denoising_diffusion_deep_fake_tpu_torch.data.loader import (
@@ -4273,98 +4225,64 @@ def jpeg_training(root: Path, dev, launches, probe, card: str,
         write_image_manifest(ident[name], paths)
     write_jpegs(root / "a", smooth_frames(dev, 8, 384, 512, SEED + 152),
                 start=256)
-    torch.cuda.synchronize()
     sizes = [p.stat().st_size for p in (root / "a").glob("*.jpg")]
     data = root / "denoiser.txt"
     write_image_manifest(data, sorted((root / "a").glob("*.jpg")))
-    log(f"  512 JPEG frames of 448^2 and 8 of 512x384 written by nvJPEG "
+    log(f"  512 JPEG frames of 448^2 and 8 of 512x384 written by cv2 "
         f"(q95, 4:2:0) in {time.perf_counter() - t0:.2f} s; identity a's "
         f"files {np.mean(sizes) / 1e3:.1f} kB on average [{card}]")
-    counts = {}
-    for route, prefix in CODEC_ROUTES:
-        if route == "cv2" and codec.cv2_or_none() is None:
-            log("  cv2 does not import here: no cv2 route to drive")
-            continue
-        with (without_cv2() if route == "nvjpeg"
-              else contextlib.nullcontext()):
-            chosen = ImageLoader(data, 16, image_size=448).decoder
-            check(chosen == route, f"15c: the loader chose {chosen!r}, "
-                  f"not {route!r}")
-            counts.update(jpeg_fits(root, route, prefix, data, ident,
-                                    launches, probe, npy_rates, card))
-    with without_cv2():
-        # The dataset on the card from 1,024 JPEG entries, and a host
-        # batch's decode and copy back beside the step.
-        big = root / "a_1024.txt"
-        write_image_manifest(big, sorted((root / "a").glob("*.jpg"))[:256]
-                             * 4)
-        cache = DeviceDatasetCache(ImageLoader(big, 16, image_size=448),
-                                   device=dev)
-        nv_s = cache.decode_s
-        del cache
-        loader = ImageLoader(data, 16, image_size=448, cache=False)
-        batch = np.arange(16)
-        loader._decode_batch(batch)
-        t1 = time.perf_counter()
-        for _ in range(5):
-            loader._decode_batch(batch)
-        nv_ms = (time.perf_counter() - t1) / 5 * 1e3
-    cv2_line = ""
-    if codec.cv2_or_none() is not None:
-        cache = DeviceDatasetCache(ImageLoader(big, 16, image_size=448),
-                                   device=dev)
-        cv2_s = cache.decode_s
-        del cache
-        loader = ImageLoader(data, 16, image_size=448, cache=False)
-        t1 = time.perf_counter()
-        for _ in range(5):
-            loader._decode_batch(batch)
-        cv2_line = (f"; cv2 ({loader.decoder}): {cv2_s:.2f} s and "
-                    f"{(time.perf_counter() - t1) / 5 * 1e3:.1f} ms")
+    chosen = ImageLoader(data, 16, image_size=448).decoder
+    check(chosen == "cv2", f"15c: the loader chose {chosen!r}, not cv2")
+    counts = jpeg_fits(root, data, ident, launches, probe, npy_rates, card)
+    # The dataset on the card from 1,024 JPEG entries, and a host batch's
+    # decode beside the step.
+    big = root / "a_1024.txt"
+    write_image_manifest(big, sorted((root / "a").glob("*.jpg"))[:256] * 4)
+    cache = DeviceDatasetCache(ImageLoader(big, 16, image_size=448),
+                               device=dev)
+    decode_s = cache.decode_s
+    del cache
     torch.cuda.empty_cache()
-    log(f"  decode of 1,024 JPEG entries of 448^2 into the DeviceCache: "
-        f"nvJPEG {nv_s:.2f} s; a host batch of 16 decoded and copied back: "
-        f"{nv_ms:.1f} ms beside phase 5's step {step_ms:.1f} ms"
-        f"{cv2_line} [{card}]")
+    loader = ImageLoader(data, 16, image_size=448, cache=False)
+    batch = np.arange(16)
+    loader._decode_batch(batch)
+    t1 = time.perf_counter()
+    for _ in range(5):
+        loader._decode_batch(batch)
+    batch_ms = (time.perf_counter() - t1) / 5 * 1e3
+    log(f"  decode of 1,024 JPEG entries of 448^2 into the DeviceCache "
+        f"through {loader.decoder}: {decode_s:.2f} s; a host batch of 16 "
+        f"decoded: {batch_ms:.1f} ms beside phase 5's step {step_ms:.1f} ms "
+        f"[{card}]")
     log(f"  phase 15c took {time.perf_counter() - t0:.1f} s")
     return counts
 
 
-def route_codec(route: str):
-    """The JPEG route's three host stages on ``route``, each a function of
-    one frame: decode (bytes -> BGR), crop and resize, encode (RGB ->
-    bytes at q95). cv2's own calls, or the port's codec."""
-    from denoising_diffusion_deep_fake_tpu_torch.data import codec
+def route_codec():
+    """The JPEG route's three host stages, each a function of one frame,
+    as the server runs them with cv2: decode (bytes -> BGR), crop and
+    resize, encode (RGB -> bytes at q95)."""
+    import cv2
     from denoising_diffusion_deep_fake_tpu_torch.inference import (
         prepare_frame)
 
-    if route == "cv2":
-        import cv2
+    def decode(blob):
+        return cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
 
-        def decode(blob):
-            return cv2.imdecode(np.frombuffer(blob, np.uint8),
-                                cv2.IMREAD_COLOR)
-
-        def encode(rgb):
-            return cv2.imencode(".jpg", np.ascontiguousarray(rgb[..., ::-1]),
-                                [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes()
-    else:
-        def decode(blob):
-            return codec.decode_bytes(blob)[..., ::-1]
-
-        def encode(rgb):
-            return codec.encode_jpeg(np.ascontiguousarray(rgb), 95)
+    def encode(rgb):
+        return cv2.imencode(".jpg", np.ascontiguousarray(rgb[..., ::-1]),
+                            [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes()
     return decode, lambda bgr: prepare_frame(bgr, 448, 448), encode
 
 
-def serve_route(route: str, port: int, ran: list, bodies: list, direct,
-                clients: int, per_client: int, raw_rate: float, card: str
-                ) -> float:
-    """15d on one route: ``clients`` x ``per_client`` POST /v1/swap
-    requests, each reply checked against the device batch it rode in
-    (``ran``, the engine's recorded batches); the route's host stages
-    timed a frame at a time after. Returns frames/s over HTTP."""
-    decode, prepare, encode = route_codec(route)
+def serve_route(port: int, ran: list, bodies: list, direct, clients: int,
+                per_client: int, raw_rate: float, card: str) -> float:
+    """15d: ``clients`` x ``per_client`` POST /v1/swap requests, each reply
+    checked against the device batch it rode in (``ran``, the engine's
+    recorded batches); the route's host stages timed a frame at a time
+    after. Returns frames/s over HTTP."""
+    route = "cv2"
+    decode, prepare, encode = route_codec()
     ran.clear()
     replies = [[] for _ in range(clients)]
 
@@ -4438,24 +4356,19 @@ def serve_route(route: str, port: int, ran: list, bodies: list, direct,
     return rate
 
 
-def jpeg_serving(ckpt: Path, dev, launches, card: str, raw_rate: float
-                 ) -> dict:
+def jpeg_serving(ckpt: Path, dev, card: str, raw_rate: float) -> float:
     """15d: 9e's engine behind SwapServer: POST /v1/swap with JPEG bodies
     of 640x480 frames (crop and resize), 4 clients x 25 requests, through
-    cv2 where it imports (the card's route) and with cv2 hidden (the
-    port's codec). Each reply decodes to 448^2 and is byte-equal to the
-    route's JPEG of its device batch's output at its slot; each batch
-    within 1 LSB of the pipeline on the same batch. Returns frames/s by
-    route."""
-    from denoising_diffusion_deep_fake_tpu_torch.data import codec, nvjpeg
+    cv2. Each reply decodes to 448^2 and is byte-equal to cv2's JPEG of its
+    device batch's output at its slot; each batch within 1 LSB of the
+    pipeline on the same batch. Returns frames/s."""
     from denoising_diffusion_deep_fake_tpu_torch.inference import (
         make_device_pipeline)
     from denoising_diffusion_deep_fake_tpu_torch.serving import SwapEngine
     from denoising_diffusion_deep_fake_tpu_torch.serving.server import (
         SwapServer)
 
-    frames = smooth_frames(dev, 16, 480, 640, SEED + 160)
-    bodies = [nvjpeg.codec().encode(f.contiguous(), 95) for f in frames]
+    bodies = jpeg_bytes(smooth_frames(dev, 16, 480, 640, SEED + 160))
     engine = SwapEngine(ckpt, "a", height=448, width=448, batch_size=8)
     engine.warmup()
     direct = make_device_pipeline(engine.model)
@@ -4468,44 +4381,35 @@ def jpeg_serving(ckpt: Path, dev, launches, card: str, raw_rate: float
         return out
 
     engine._dispatchers[0].pipeline = recorded
-    rates = {}
-    # One server for both routes: it picks cv2 or the port's codec at each
-    # request, and its shutdown closes the engine.
+    # The server's shutdown closes the engine.
     server = SwapServer(engine, host="127.0.0.1", port=0)
     server.start()
     try:
-        for route, _ in CODEC_ROUTES:
-            if route == "cv2" and codec.cv2_or_none() is None:
-                log("  cv2 does not import here: no cv2 route to serve")
-                continue
-            with (without_cv2() if route == "nvjpeg"
-                  else contextlib.nullcontext()):
-                rates[route] = serve_route(route, server.port, ran, bodies,
-                                           direct, 4, 25, raw_rate, card)
+        return serve_route(server.port, ran, bodies, direct, 4, 25,
+                           raw_rate, card)
     finally:
         server.shutdown()
-    return rates
 
 
 def jpeg_frames(root: Path, ckpt: Path, dev, launches, card: str,
                 step_ms: float, npy_rates: dict, raw_rate: float) -> dict:
-    """Phase 15: the reference's JPEG/PNG frames on the card, through cv2
-    (the card machine's route) and with cv2 hidden (the port's codec).
-    Returns the launch counts by path."""
+    """Phase 15: the reference's JPEG/PNG frames on the card through the
+    loader's route, cv2 on the card machine. Returns the launch counts by
+    path."""
     t0 = time.perf_counter()
     root.mkdir(parents=True, exist_ok=True)
     log("[15a] codec probe and the loader's choice")
     chosen = codec_choice(root, card)
-    check(chosen == "nvjpeg", f"15: phase 15 drives nvJPEG, the loader "
-          f"chose {chosen!r} without cv2")
-    log("[15b] the committed fixtures through the card's decoder")
-    fixture_decodes(dev, card)
+    check(chosen == "cv2", f"15: phase 15 drives cv2, the loader chose "
+          f"{chosen!r}")
+    log("[15b] the committed fixtures through the loader's route")
+    fixture_decodes(root, card)
     log("[15c] the runners and the CLI from JPEG files")
     with CacheProbe() as probe:
         counts = jpeg_training(root / "jpeg", dev, launches, probe, card,
                                step_ms, npy_rates)
     log("[15d] POST /v1/swap with JPEG bodies")
-    jpeg_serving(ckpt, dev, launches, card, raw_rate)
+    jpeg_serving(ckpt, dev, card, raw_rate)
     log(f"  phase 15 took {time.perf_counter() - t0:.1f} s [{card}]")
     return counts
 
@@ -6674,7 +6578,6 @@ def main() -> int:
     # the script's 1200 s limit (the phases take up to ~1100 s on a slow
     # host).
     faulthandler.dump_traceback_later(1170, exit=True)
-    from denoising_diffusion_deep_fake_tpu_torch.data import nvjpeg
     from denoising_diffusion_deep_fake_tpu_torch.ops.cuda import _build
 
     dev = torch.device("cuda")
@@ -6690,13 +6593,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     sources = sorted({k[0][:-3] for k in KERNELS.values()})
-    with ThreadPoolExecutor(len(sources) + 1) as pool:
-        codec_lib = pool.submit(_build.build, "d3f_nvjpeg", nvjpeg.SOURCE,
-                                nvjpeg.LINK)
+    with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(_build.build, sources))
-        codec_lib = codec_lib.result()[0]
-    log(f"[2] built {', '.join(lib.name for lib, _ in built)} and the "
-        f"nvJPEG codec {codec_lib.name} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2] built {', '.join(lib.name for lib, _ in built)} in "
+        f"{time.perf_counter() - t0:.1f} s")
     for _, report in built:
         for line in report.splitlines():
             if ("registers" in line or "spill" in line
@@ -6848,9 +6748,9 @@ def main() -> int:
             Path(tmp) / "migration", data, dev, _build.LAUNCHES, card,
             main_run)
 
-        log("[15] the reference's JPEG/PNG frames on the card, through cv2 "
-            "and with cv2 hidden: "
-            "the loader's codec, the runners, the CLI and the JPEG route")
+        log("[15] the reference's JPEG/PNG frames on the card through the "
+            "loader's route (cv2): the loader's choice, the runners, the "
+            "CLI and the JPEG route")
         jpeg_paths = jpeg_frames(
             Path(tmp) / "codec", ckpt, dev, _build.LAUNCHES, card,
             main_run["step_ms"], npy_rates, served)

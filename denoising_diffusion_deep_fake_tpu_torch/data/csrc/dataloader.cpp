@@ -53,8 +53,8 @@ void jpeg_error_exit(j_common_ptr cinfo) {
 // Decode a JPEG from a file or (f == nullptr) from memory. When the image is
 // exactly target x target, scanlines go straight into `direct_out`;
 // otherwise into out->data. Sets *used_direct accordingly.
-bool decode_jpeg(FILE* f, const uint8_t* mem, size_t mem_len, Image* out,
-                 int target, uint8_t* direct_out, bool* used_direct) {
+bool read_jpeg(FILE* f, const uint8_t* mem, size_t mem_len, Image* out,
+               int target, uint8_t* direct_out, bool* used_direct) {
   jpeg_decompress_struct cinfo;
   JpegErrorMgr jerr;
   cinfo.err = jpeg_std_error(&jerr.pub);
@@ -121,7 +121,7 @@ void png_mem_read(png_structp png, png_bytep out, png_size_t n) {
 }
 
 // Decode a PNG from a file or (f == nullptr) from memory.
-bool decode_png(FILE* f, const uint8_t* mem, size_t mem_len, Image* out) {
+bool read_png(FILE* f, const uint8_t* mem, size_t mem_len, Image* out) {
   png_structp png =
       png_create_read_struct(PNG_LIBPNG_VER_STRING, nullptr, nullptr, nullptr);
   if (!png) return false;
@@ -189,9 +189,9 @@ bool decode_file(const char* path, Image* out, int target = 0,
   rewind(f);
   bool ok = false;
   if (is_jpeg(magic, got))
-    ok = decode_jpeg(f, nullptr, 0, out, target, direct_out, used_direct);
+    ok = read_jpeg(f, nullptr, 0, out, target, direct_out, used_direct);
   else if (is_png(magic, got))
-    ok = decode_png(f, nullptr, 0, out);
+    ok = read_png(f, nullptr, 0, out);
   fclose(f);
   return ok;
 }
@@ -263,9 +263,9 @@ int d3f_decode_buffer(const uint8_t* data, size_t len, int* width,
   Image img;
   bool ok = false;
   if (is_jpeg(data, len))
-    ok = decode_jpeg(nullptr, data, len, &img, 0, nullptr, nullptr);
+    ok = read_jpeg(nullptr, data, len, &img, 0, nullptr, nullptr);
   else if (is_png(data, len))
-    ok = decode_png(nullptr, data, len, &img);
+    ok = read_png(nullptr, data, len, &img);
   if (!ok || img.width <= 0 || img.height <= 0) return -1;
   *pixels = static_cast<uint8_t*>(malloc(img.data.size()));
   if (*pixels == nullptr) return -1;

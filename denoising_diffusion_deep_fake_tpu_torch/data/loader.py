@@ -12,8 +12,8 @@ Own copy of ``denoising_diffusion_deep_fake_tpu/data/loader.py:32-237``:
 * a RAM cache (``cache="auto"`` when the decoded dataset fits
   ``cache_limit_bytes``) decodes each image at most once.
 
-The decoder, JAX's selection rule with the card's codec after it
-(``loader.decoder`` names the one chosen):
+The decoder, JAX's selection rule (``loader.decoder`` names the one
+chosen):
 
 1. ``decode_fn`` when the caller passes one (``"decode_fn"``);
 2. with ``use_native`` (the default), the port's native batch loader
@@ -21,10 +21,8 @@ The decoder, JAX's selection rule with the card's codec after it
    bilinear resize, ``native_threads`` threads) where g++ finds
    libjpeg's and libpng's headers (``"native"``);
 3. ``cv2`` where it imports (``"cv2"``);
-4. the port's own codec (``data/codec.py``): JPEG through nvJPEG on the
-   CUDA device, copied back to the host, PNG through ``data/png.py``
-   (``"nvjpeg"``; ``"png"`` without a CUDA device, where a JPEG raises,
-   naming what is missing).
+4. otherwise the loader raises, naming what is missing
+   (``data/codec.py`` ``missing``).
 
 Off route 2 a mismatched frame is resized by cv2's cubic resize where cv2
 imports, else by ``ops.image.resize_cubic``, OpenCV's own algorithm. The
@@ -54,7 +52,7 @@ from denoising_diffusion_deep_fake_tpu_torch.data.codec import (
     cubic_resizer,
     cv2_or_none,
     cv2_read_rgb,
-    decode_files,
+    missing,
 )
 from denoising_diffusion_deep_fake_tpu_torch.data.manifest import (
     read_image_manifest_with_classes,
@@ -176,8 +174,7 @@ class ImageLoader:
             self._decode = lambda paths: [cv2_read_rgb(cv2, p)
                                           for p in paths]
         else:
-            self.decoder = "nvjpeg" if torch.cuda.is_available() else "png"
-            self._decode = decode_files
+            raise RuntimeError(missing(f"the images of {manifest_path}"))
         if image_size is None:
             image_size = self._probe_size(self.paths[0])
         self.image_size = image_size

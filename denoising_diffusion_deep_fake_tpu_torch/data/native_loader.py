@@ -11,8 +11,7 @@ The library is built with g++ against libjpeg and libpng at first use
 at import. ``available()`` says whether this machine can have it: g++ and
 libjpeg's and libpng's headers, checked by g++'s preprocessor before
 anything is built or loaded. A machine without them (the H100 machine has
-neither header) decodes through cv2 or the port's own codec instead
-(``data/loader.py``). Where the headers are there, a build or a load that
+neither header) decodes through cv2 instead (``data/loader.py``). Where the headers are there, a build or a load that
 fails raises: a library built elsewhere that does not load here is a
 fault, not a reason to decode another way.
 

@@ -13,9 +13,9 @@ the noise kernels where their plain PyTorch versions do (csrc/noise.cu).
 There is no ``--use_fast_math``: the uint8 normalise is a true division,
 and ``logf`` and ``sincosf`` are the accurate ones.
 
-``build_host`` compiles host C++ (the image codecs under ``data/csrc/``)
-with ``g++`` the same way. Either build takes link flags (``-ljpeg``,
-``-lnvjpeg``), which join the hash. Two processes may build one library at
+``build_host`` compiles host C++ (the native image loader under
+``data/csrc/``) with ``g++`` the same way, with link flags (``-ljpeg``)
+that join the hash. Two processes may build one library at
 once: each writes a temporary name and renames it into place. The hash
 covers sources and flags, not the machine: ``missing_headers`` asks g++
 whether this machine has a library's headers before it is built or
@@ -108,13 +108,11 @@ def _compile(command: list[str], sources: list[Path], name: str,
     return lib, proc.stderr
 
 
-def build(name: str, source: Path | None = None,
-          link: tuple[str, ...] = ()) -> tuple[Path, str]:
-    """Compile ``csrc/<name>.cu`` (or ``source``) with nvcc unless built
-    already; returns the library path and the compiler's report (empty when
-    it was built before)."""
-    return _compile([_nvcc(), *NVCC_FLAGS], [source or _CSRC / f"{name}.cu"],
-                    name, link)
+def build(name: str) -> tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` with nvcc unless built already; returns
+    the library path and the compiler's report (empty when it was built
+    before)."""
+    return _compile([_nvcc(), *NVCC_FLAGS], [_CSRC / f"{name}.cu"], name, ())
 
 
 def build_host(name: str, sources: list[Path],
@@ -146,11 +144,9 @@ def _load_once(name: str, make) -> ctypes.CDLL:
         return _libs[name]
 
 
-def load(name: str, source: Path | None = None,
-         link: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu`` (or ``source``), built on
-    first use."""
-    return _load_once(name, lambda: build(name, source, link))
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    return _load_once(name, lambda: build(name))
 
 
 def load_host(name: str, sources: list[Path],

@@ -8,9 +8,9 @@ Port of ``denoising_diffusion_deep_fake_tpu/serving/server.py``. Endpoints:
                            convention). Center-cropped/resized to the model
                            frame, swapped, returned as JPEG at quality 95.
                            cv2 decodes and encodes where it imports (as
-                           the JAX server does); elsewhere the port's codec
-                           (``data/codec.py``: the native library, else
-                           nvJPEG for JPEG and ``data/png.py`` for PNG).
+                           the JAX server does); elsewhere the native
+                           library (``data/codec.py``), else the request
+                           fails naming what is missing.
 * ``POST /v1/swap_raw``  — body = raw uint8 frame bytes; header ``X-Shape:
                            H,W,3`` or ``N,H,W,3`` (must match the engine's
                            frame shape). Returns raw uint8 of the same

@@ -16,8 +16,8 @@ wall-clock scheduler asks for them), and hand metrics, panels and
 checkpoints to ``training/loop.py``. Each runs on ``device`` (``cuda``
 when None; it raises without one) and decodes with ``decode_fn``, or
 when None with the loader's choice (``data/loader.py``: the native batch
-loader, cv2, or the port's codec, nvJPEG on a CUDA machine without cv2;
-each run prints ``loader.decoder``).
+loader, else cv2, else an error naming what is missing; each run prints
+``loader.decoder``).
 
 With ``steps_per_call: K > 1``, ``_drive_epoch`` groups steps as JAX's
 (``runners.py:159-230`` there): K consecutive steps run as one call of the

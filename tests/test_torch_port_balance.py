@@ -34,6 +34,7 @@ checked.
 """
 
 import dataclasses
+import shutil
 import types
 from pathlib import Path
 
@@ -110,6 +111,14 @@ def _cfg(**overrides):
 def _trainer():
     return balance.BalanceTrainer(_cfg(), steps_per_epoch=10, image_size=S,
                                   device="cpu")
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied after the test: the balancer's checkpoints and
+    event files would stay on disk until pytest drops the run's directory."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

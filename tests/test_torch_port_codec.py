@@ -24,10 +24,13 @@
   the JAX server's recipe built by hand around the same 64^2 resnet18
   engine, byte-equal with cv2, and within the decode tolerance with cv2
   hidden.
-* the loader's decoder choice and the error that names what is missing;
-  the native library's availability (g++ and the codecs' headers) and the
-  error of a library that does not load; ``data/png.py`` bit-equal to
-  cv2's decode of every PNG fixture.
+* the loader's decoder rule against JAX's (``decode_fn``, the native
+  library, cv2) over every combination of ``decode_fn``, ``use_native``,
+  the native library and cv2: the same batches where JAX's yields, an
+  error naming what is missing where JAX's raises for want of a decoder;
+  the server's encoded route with neither; the native library's
+  availability (g++ and the codecs' headers) and the error of a library
+  that does not load.
 
 The fixtures in ``tests/data/codec/`` and their cv2 decodes were written by
 ``tests/data/codec/make_codec_fixtures.py``.
@@ -35,9 +38,9 @@ The fixtures in ``tests/data/codec/`` and their cv2 decodes were written by
 
 import dataclasses
 import http.client
-import struct
+import json
+import shutil
 import sys
-import zlib
 from pathlib import Path
 
 import cv2
@@ -64,7 +67,6 @@ from denoising_diffusion_deep_fake_tpu_torch.data import (
     codec,
     loader,
     native_loader,
-    png,
 )
 from denoising_diffusion_deep_fake_tpu_torch.data.device_cache import (
     DeviceDatasetCache,
@@ -95,9 +97,25 @@ def _one_thread():
 
 
 @pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied after the test: the loaders' files and the
+    server's checkpoint would stay on disk until pytest drops the run's
+    directory."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+@pytest.fixture
 def no_cv2(monkeypatch):
     """cv2 hidden from the port: ``import cv2`` raises ImportError."""
     monkeypatch.setitem(sys.modules, "cv2", None)
+
+
+def _no_native(monkeypatch, reason: str = "g++ cannot include jpeglib.h "
+               "here") -> None:
+    """The port's native library unavailable, for ``reason``."""
+    monkeypatch.setattr(native_loader, "_lib", None)
+    monkeypatch.setattr(native_loader, "_error", reason)
 
 
 def _within(got: np.ndarray, want: np.ndarray, what: str) -> None:
@@ -153,7 +171,8 @@ def mixed_manifest(tmp_path_factory):
         names.append(str(root / f"{i}.{ext}"))
     names += [str(FIXTURES / n) for n in JPEGS + PNGS]
     (root / "images.txt").write_text("".join(n + "\n" for n in names))
-    return root / "images.txt"
+    yield root / "images.txt"
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_image_loader_matches_jax(mixed_manifest):
@@ -178,18 +197,27 @@ def test_device_cache_dataset_matches_jax(mixed_manifest):
                                   np.asarray(jax.dataset))
 
 
-def test_probe_size_reads_the_chosen_decoder(tmp_path, no_cv2):
+def test_probe_size_reads_the_chosen_decoder(tmp_path, monkeypatch):
     """``image_size=None`` probes through the chosen decoder: the native
-    library's ``image_dims`` where it builds, with cv2 hidden."""
+    library's ``image_dims`` where it builds (with cv2 hidden), else cv2;
+    with neither, the loader raises before it probes."""
     assert cv2.imwrite(str(tmp_path / "a.png"), _smooth(24, 24, 1))
     assert cv2.imwrite(str(tmp_path / "b.png"), _smooth(24, 30, 2))
-    (tmp_path / "sq.txt").write_text(str(tmp_path / "a.png") + "\n")
-    (tmp_path / "wide.txt").write_text(str(tmp_path / "b.png") + "\n")
-    assert loader.ImageLoader(tmp_path / "sq.txt", 1).image_size == 24
+    sq, wide = tmp_path / "sq.txt", tmp_path / "wide.txt"
+    sq.write_text(str(tmp_path / "a.png") + "\n")
+    wide.write_text(str(tmp_path / "b.png") + "\n")
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "cv2", None)
+        native = loader.ImageLoader(sq, 1)
+        assert native.decoder == "native" and native.image_size == 24
+        with pytest.raises(ValueError, match="not square"):
+            loader.ImageLoader(wide, 1)
+        with pytest.raises(RuntimeError, match="cv2 does not import"):
+            loader.ImageLoader(sq, 1, use_native=False)
+    bare = loader.ImageLoader(sq, 1, use_native=False)
+    assert bare.decoder == "cv2" and bare.image_size == 24
     with pytest.raises(ValueError, match="not square"):
-        loader.ImageLoader(tmp_path / "wide.txt", 1)
-    bare = loader.ImageLoader(tmp_path / "sq.txt", 1, use_native=False)
-    assert bare.decoder == "png" and bare.image_size == 24
+        loader.ImageLoader(wide, 1, use_native=False)
 
 
 # ------------------------------------------------------ codec against cv2
@@ -286,7 +314,8 @@ def swap_server(tmp_path_factory):
         image_size=64))
     trainer = DeepFakeTrainer(cfg, steps_per_epoch=1, image_size=64,
                               device="cpu")
-    ckpt = tmp_path_factory.mktemp("codec_server") / "ckpt"
+    root = tmp_path_factory.mktemp("codec_server")
+    ckpt = root / "ckpt"
     CheckpointManager(ckpt).save(1, trainer.init_states(seed=0),
                                  dataclasses.asdict(cfg))
     engine = SwapEngine(ckpt, "a", height=64, width=64, batch_size=2,
@@ -295,6 +324,7 @@ def swap_server(tmp_path_factory):
     server.start()
     yield engine, server
     server.shutdown()
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _post_swap(port: int, body: bytes) -> tuple[int, bytes]:
@@ -336,24 +366,29 @@ def test_swap_encoded_route(swap_server, monkeypatch):
 
 def test_loader_names_its_decoder_and_what_is_missing(mixed_manifest,
                                                        no_cv2, monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    """JAX's rule: ``decode_fn``, then the native library, then cv2; with
+    neither of the last two the loader, ``decode_bytes`` and
+    ``encode_jpeg`` raise, naming what is missing."""
     assert loader.ImageLoader(mixed_manifest, 4, image_size=32
                               ).decoder == "native"
     assert loader.ImageLoader(mixed_manifest, 4, image_size=32,
                               decode_fn=np.load).decoder == "decode_fn"
-    bare = loader.ImageLoader(mixed_manifest, 4, image_size=32,
-                              use_native=False, shuffle=False)
-    assert bare.decoder == "png"   # neither cv2 nor a CUDA device
-    with pytest.raises(RuntimeError, match=r"no codec for the JPEG .*0\.jpg"
-                       r".*cv2 does not import.*nvJPEG needs a CUDA"):
-        next(iter(bare.epoch(0)))
-    with pytest.raises(RuntimeError, match="nvJPEG needs a CUDA device"):
-        codec.decode_files([str(FIXTURES / JPEGS[0])])
-    # PNG files decode without cv2 and without the native library.
-    frames = codec.decode_files([str(FIXTURES / n) for n in PNGS])
-    for name, frame in zip(PNGS, frames):
-        np.testing.assert_array_equal(
-            frame, np.load(FIXTURES / name.replace(".png", ".npy")))
+    with pytest.raises(RuntimeError, match=(
+            r"no codec for the images of .*images\.txt here: the native "
+            r"loader is off \(use_native=False\), and cv2 does not import")):
+        loader.ImageLoader(mixed_manifest, 4, image_size=32,
+                           use_native=False)
+    _no_native(monkeypatch)
+    absent = (r"there is no native loader \(g\+\+ cannot include jpeglib\.h "
+              r"here\), and cv2 does not import")
+    with pytest.raises(RuntimeError, match=absent):
+        loader.ImageLoader(mixed_manifest, 4, image_size=32)
+    assert loader.ImageLoader(mixed_manifest, 4, image_size=32,
+                              decode_fn=np.load).decoder == "decode_fn"
+    with pytest.raises(RuntimeError, match="an image in memory.*" + absent):
+        codec.decode_bytes((FIXTURES / JPEGS[0]).read_bytes())
+    with pytest.raises(RuntimeError, match="JPEG encoding.*" + absent):
+        codec.encode_jpeg(np.zeros((8, 8, 3), np.uint8))
 
 
 def test_native_library_needs_its_headers_and_raises_if_it_cannot_load(
@@ -401,24 +436,87 @@ def test_loader_keeps_the_route_it_chose(mixed_manifest, monkeypatch):
         np.testing.assert_array_equal(g, w)
 
 
-# --------------------------------------------------------------- PNG reader
+# -------------------------------------------- the decoder rule against JAX's
 
 
-@pytest.mark.parametrize("name", PNGS)
-def test_png_reader_matches_cv2(name):
-    np.testing.assert_array_equal(
-        png.decode_png((FIXTURES / name).read_bytes()),
-        np.load(FIXTURES / name.replace(".png", ".npy")))
+def _sidecar(path: str) -> np.ndarray:
+    """A ``decode_fn`` that needs no codec: the frame saved beside the
+    file."""
+    return np.load(path + ".npy")
 
 
-def test_png_reader_refuses_interlaced_and_corrupt():
-    data = bytearray((FIXTURES / "gray.png").read_bytes())
-    ihdr = data[16:29]
-    ihdr[-1] = 1                             # interlace method: Adam7
-    data[16:29] = ihdr
-    data[29:33] = struct.pack(">I", zlib.crc32(b"IHDR" + bytes(ihdr)))
-    with pytest.raises(IOError, match="interlaced"):
-        png.decode_png(bytes(data))
-    data[20] ^= 1                            # a flipped bit: the CRC fails
-    with pytest.raises(IOError, match="CRC"):
-        png.decode_png(bytes(data))
+@pytest.fixture(scope="module")
+def square_manifest(tmp_path_factory):
+    """JPEG and PNG files at the loaders' size, so that no route resizes,
+    each with a frame beside it for ``_sidecar``."""
+    root = tmp_path_factory.mktemp("square")
+    names = []
+    for i, ext in enumerate(["jpg", "png", "jpg", "png", "jpg", "jpg"]):
+        path = str(root / f"{i}.{ext}")
+        assert cv2.imwrite(path, _smooth(32, 32, 20 + i),
+                           [cv2.IMWRITE_JPEG_QUALITY, 95])
+        np.save(path + ".npy", _smooth(32, 32, 40 + i))
+        names.append(path)
+    (root / "images.txt").write_text("".join(n + "\n" for n in names))
+    yield root / "images.txt"
+    shutil.rmtree(root, ignore_errors=True)
+
+
+@pytest.mark.parametrize("with_cv2", [True, False], ids=["cv2", "no_cv2"])
+@pytest.mark.parametrize("native", [True, False],
+                         ids=["native", "no_native"])
+@pytest.mark.parametrize("use_native", [True, False],
+                         ids=["use_native", "native_off"])
+@pytest.mark.parametrize("decode_fn", [None, _sidecar],
+                         ids=["default", "decode_fn"])
+def test_decoder_rule_matches_jax(square_manifest, decode_fn, use_native,
+                                  native, with_cv2, monkeypatch):
+    """Every combination of ``decode_fn``, ``use_native``, the native
+    library (unavailable in both packages) and cv2 (hidden from both):
+    where JAX's ``ImageLoader`` yields batches, the port's yields the same
+    bytes; where JAX's raises for want of a decoder (its ``default_decode``
+    imports cv2), the port's raises, naming what is missing."""
+    if not native:
+        monkeypatch.setattr(jax_native, "available", lambda: False)
+        _no_native(monkeypatch, "no libjpeg here")
+    if not with_cv2:
+        monkeypatch.setitem(sys.modules, "cv2", None)
+
+    def epoch(make):
+        ld = make(square_manifest, 2, image_size=32, seed=4,
+                  decode_fn=decode_fn, use_native=use_native)
+        return [(b.copy(), i) for b, i in ld.epoch(0)]
+
+    try:
+        want = epoch(jax_loader.ImageLoader)
+    except ImportError as e:
+        assert "cv2" in str(e)
+        assert decode_fn is None and not with_cv2
+        assert not (use_native and native)
+        off = ("no libjpeg here" if not native
+               else "the native loader is off (use_native=False)")
+        with pytest.raises(RuntimeError) as got:
+            epoch(loader.ImageLoader)
+        assert "cv2 does not import" in str(got.value)
+        assert off in str(got.value)
+        return
+    got = epoch(loader.ImageLoader)
+    assert len(got) == len(want) == 3
+    for (gb, gi), (wb, wi) in zip(got, want):
+        np.testing.assert_array_equal(gb, wb)
+        np.testing.assert_array_equal(gi, wi)
+
+
+def test_swap_encoded_route_without_a_codec(swap_server, monkeypatch):
+    """With neither cv2 nor the native library, ``POST /v1/swap`` fails
+    with an error naming what is missing (the JAX server needs cv2)."""
+    engine, server = swap_server
+    ok, body = cv2.imencode(".jpg", _smooth(96, 128, 6),
+                            [cv2.IMWRITE_JPEG_QUALITY, 95])
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    _no_native(monkeypatch, "no libjpeg here")
+    status, reply = _post_swap(server.port, body.tobytes())
+    assert status == 500
+    error = json.loads(reply)["error"]
+    assert error.startswith("RuntimeError: no codec for an image in memory")
+    assert "no libjpeg here" in error and "cv2 does not import" in error

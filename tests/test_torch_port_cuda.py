@@ -14,7 +14,7 @@ normalisation (ratio 0) exact.
 """
 
 import ctypes
-from pathlib import Path
+import shutil
 
 import numpy as np
 import pytest
@@ -27,6 +27,14 @@ from denoising_diffusion_deep_fake_tpu_torch.ops.cuda._build import LAUNCHES
 
 pytestmark = pytest.mark.cuda
 IMAGENET = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied after the test: the checkpoints written here
+    weigh up to hundreds of MB each."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture
@@ -1142,82 +1150,3 @@ def test_import_resume_export_on_gpu(cuda, tmp_path, k):
             assert parts[part].keys() == want.keys()
             for key in want:
                 assert torch.equal(parts[part][key].cpu(), want[key].cpu())
-
-
-# ----------------------------------------------------------- nvJPEG codec
-
-CODEC_FIXTURES = Path(__file__).resolve().parent / "data" / "codec"
-# nvJPEG against cv2's decode of the committed fixtures, max and mean LSB:
-# the figures chip_smoke.py phase 15b measured on the H100 plus a margin
-# (its NVJPEG_BOUNDS).
-NVJPEG_FIXTURE_BOUNDS = {"baseline_420.jpg": (32, 5.70), "gray.jpg": (5, 0.66),
-                         "nonsquare_40x24.jpg": (28, 6.39),
-                         "progressive.jpg": (32, 5.70),
-                         "yuv444.jpg": (5, 0.76)}
-
-
-@pytest.mark.parametrize("name", sorted(NVJPEG_FIXTURE_BOUNDS))
-def test_nvjpeg_decodes_the_fixtures(cuda, name):
-    from denoising_diffusion_deep_fake_tpu_torch.data import nvjpeg
-
-    path = CODEC_FIXTURES / name
-    want = np.load(path.with_suffix(".npy"))
-    frames = nvjpeg.codec().decode_batch([path.read_bytes()] * 2)
-    assert frames.device.type == "cuda" and frames.dtype == torch.uint8
-    got = frames.cpu().numpy()
-    assert got.shape == (2,) + want.shape
-    np.testing.assert_array_equal(got[0], got[1])
-    diff = np.abs(got[0].astype(np.int16) - want)
-    top, mean = NVJPEG_FIXTURE_BOUNDS[name]
-    assert diff.max() <= top and diff.mean() <= mean, (diff.max(),
-                                                       diff.mean())
-
-
-def test_nvjpeg_mixed_sizes_and_round_trip(cuda):
-    from denoising_diffusion_deep_fake_tpu_torch.data import nvjpeg
-
-    blobs = [(CODEC_FIXTURES / n).read_bytes()
-             for n in ("nonsquare_40x24.jpg", "baseline_420.jpg")]
-    frames = nvjpeg.codec().decode_batch(blobs)
-    assert [tuple(f.shape) for f in frames] == [(24, 40, 3), (48, 48, 3)]
-    host = nvjpeg.decode_to_host(blobs)
-    for f, h in zip(frames, host):
-        np.testing.assert_array_equal(f.cpu().numpy(), h)
-    source = np.load(CODEC_FIXTURES / "source.npy")
-    blob = nvjpeg.codec().encode(source, 95)
-    assert blob[:3] == b"\xff\xd8\xff"
-    assert blob == nvjpeg.codec().encode(torch.from_numpy(source).to(cuda),
-                                         95)
-    back = nvjpeg.decode_to_host([blob])[0]
-    # nvJPEG's q95 round trip of this 48^2 source: mean 5.91 LSB (PSNR
-    # 30.22 dB) on NVIDIA H100 80GB HBM3, 700.00 W, its 4:2:0 chroma
-    # upsampling (ROADMAP C); cv2's round trip is 38.78 dB.
-    assert np.abs(back.astype(np.int16) - source).mean() < 6.5
-    with pytest.raises(RuntimeError, match="nvJPEG"):
-        nvjpeg.codec().decode_batch([b"\xff\xd8\xff" + b"\x00" * 64])
-
-
-def test_loader_decodes_jpeg_with_nvjpeg_without_cv2(cuda, tmp_path,
-                                                     monkeypatch):
-    import sys
-
-    from denoising_diffusion_deep_fake_tpu_torch.data import loader, nvjpeg
-    from denoising_diffusion_deep_fake_tpu_torch.ops.image import (
-        resize_cubic)
-
-    monkeypatch.setitem(sys.modules, "cv2", None)
-    names = ["baseline_420.jpg", "nonsquare_40x24.jpg", "rgb_filters.png",
-             "progressive.jpg"]
-    (tmp_path / "images.txt").write_text(
-        "".join(f"{CODEC_FIXTURES / n}\n" for n in names))
-    ld = loader.ImageLoader(tmp_path / "images.txt", 4, image_size=48,
-                            shuffle=False)
-    assert ld.decoder == "nvjpeg"
-    (batch, idx), = list(ld.epoch(0))
-    blobs = [(CODEC_FIXTURES / n).read_bytes() for n in names]
-    want = [nvjpeg.decode_to_host([blobs[0]])[0],
-            resize_cubic(nvjpeg.decode_to_host([blobs[1]])[0], (48, 48)),
-            np.load(CODEC_FIXTURES / "rgb_filters.npy"),
-            nvjpeg.decode_to_host([blobs[3]])[0]]
-    np.testing.assert_array_equal(batch, np.stack(want))
-    np.testing.assert_array_equal(idx, np.arange(4))

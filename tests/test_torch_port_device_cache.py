@@ -74,6 +74,14 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied after the test: the runners' checkpoints and
+    event files would stay on disk until pytest drops the run's directory."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 def _classed_manifest(root, n):
     manifest = make_image_dataset(root, n=n, size=8)
     classed = root / "classed" / "images.txt"

@@ -36,6 +36,8 @@
 64^2 (the trainers' checks 32^2), batch 2, torch on one thread.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -101,6 +103,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied after the test: a b0 pair's reference
+    checkpoint and its conversions weigh ~370 MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _close(got, want, rel, what=""):

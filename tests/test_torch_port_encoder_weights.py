@@ -12,6 +12,7 @@ CPU: initialisation and the weight carriers.
 
 import functools
 import math
+import shutil
 
 import numpy as np
 import pytest
@@ -55,6 +56,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied after the test: each name's reference
+    checkpoint and its conversions weigh 66-243 MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
     _initialised.cache_clear()
 
 

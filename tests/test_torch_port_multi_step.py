@@ -27,6 +27,7 @@ in ``tests/test_torch_port_cuda.py`` and ``chip_smoke.py`` phase 12.
 """
 
 import copy
+import shutil
 import sys
 import types
 
@@ -77,6 +78,14 @@ from denoising_diffusion_deep_fake_tpu_torch.training.state import (
 )
 
 S, B = 64, 2
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied after the test: the runners' checkpoints and
+    event files would stay on disk until pytest drops the run's directory."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(autouse=True, scope="module")

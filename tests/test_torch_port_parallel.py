@@ -25,6 +25,7 @@ The two-process checks are ``tests/test_torch_port_distributed.py``.
 """
 
 import dataclasses
+import shutil
 import threading
 
 import numpy as np
@@ -80,6 +81,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied after the test: the ranks' checkpoints and
+    files would stay on disk until pytest drops the run's directory."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 # --------------------------------------------------------------- the noise
@@ -375,7 +384,8 @@ def checkpoint(tmp_path_factory):
                               device="cpu")
     CheckpointManager(tmp / "ckpt").save(
         1, trainer.init_states(seed=0), dataclasses.asdict(cfg))
-    return tmp / "ckpt"
+    yield tmp / "ckpt"
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def test_engine_replicas_match_one_device(checkpoint):

@@ -18,6 +18,8 @@ package's, on the CPU.
 64^2 (the forward 128^2), batch 2, torch on one thread.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -66,6 +68,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied after the test: the checkpoints written here
+    would stay on disk until pytest drops the run's directory."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _close(got, want, rel, what=""):
@@ -165,10 +175,11 @@ def patchified_ckpt(tmp_path_factory):
     trainer = DeepFakeTrainer(cfg, steps_per_epoch=1, image_size=S,
                               device="cpu")
     states = trainer.init_states(seed=0)
-    path = tmp_path_factory.mktemp("patchified") / "ckpt"
-    CheckpointManager(path).save(1, states,
-                                 port_config.config_to_dict(cfg))
-    return path, states
+    root = tmp_path_factory.mktemp("patchified")
+    CheckpointManager(root / "ckpt").save(1, states,
+                                          port_config.config_to_dict(cfg))
+    yield root / "ckpt", states
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_export_of_a_patchified_checkpoint_is_refused(patchified_ckpt,

@@ -18,6 +18,7 @@
 """
 
 import json
+import shutil
 import threading
 import time
 
@@ -46,6 +47,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied after the test: the traces and checkpoints
+    written here would stay on disk until pytest drops the run's directory."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 # ------------------------------------------------------------- categories

@@ -31,6 +31,7 @@ import dataclasses
 import functools
 import http.client
 import json
+import shutil
 import socket
 import threading
 import time
@@ -97,6 +98,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied after the test: the swap checkpoints written
+    here weigh ~110-220 MB each."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _cfg_dict(mode, size=S, **extra):
@@ -356,7 +365,8 @@ def swap_checkpoints(weights, tmp_path_factory):
     hparams = dataclasses.asdict(trainer.cfg)
     JaxCheckpointManager(tmp / "jax").save(7, jax_states, hparams)
     CheckpointManager(tmp / "port").save(7, port_states, hparams)
-    return tmp / "jax", tmp / "port", port_states
+    yield tmp / "jax", tmp / "port", port_states
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 @pytest.mark.parametrize("ident,use_ema,transfer,steps", [
@@ -645,7 +655,8 @@ def checkpoint(tmp_path_factory):
     trainer = _port_trainer("denoise", size=SIZE)
     CheckpointManager(tmp / "ckpt").save(
         1, trainer.init_states(seed=0), dataclasses.asdict(trainer.cfg))
-    return tmp / "ckpt"
+    yield tmp / "ckpt"
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _engine(checkpoint, identity="a", **kw):

@@ -379,6 +379,14 @@ def _scores_one_process() -> torch.Tensor:
     return trainer.make_validation_step()(state, batch, offset=9)
 
 
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied after the test: the ranks' steps and
+    checkpoints would stay on disk until pytest drops the run's directory."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """The four ranks' saved results and the references, computed while

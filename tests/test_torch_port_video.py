@@ -55,6 +55,14 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied after the test: the checkpoints and videos
+    written here would stay on disk until pytest drops the run's directory."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
     path = tmp_path_factory.mktemp("video")
