@@ -1,0 +1,15 @@
+"""The benchmark's own tests: ``python -m pytest bench_port/tests -q`` from
+the root of the repository. They import neither JAX nor the JAX package.
+Tests marked ``cuda`` need the card and skip without one."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers",
+                            "cuda: needs an NVIDIA GPU; skips without one")
